@@ -1,0 +1,54 @@
+"""Carry a JAX model's leaves into the PyTorch port.
+
+`load_numpy_params(model, flat)` takes a dict from key-path string to numpy
+array, with the key paths the JAX package's pytrees flatten to (for example
+`.kernel.k_time.lengthscales.raw`, `.likelihood.variances[3].raw`,
+`.kernel.Z`, `.t`, `.Y`, `.sites.Y`, `.sites.V`). The port's modules use the
+same attribute names, so each path is walked attribute by attribute:
+`.raw` leaves are copied into the `nn.Parameter`, other leaves replace the
+buffer they name, in the model's device and dtype.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+__all__ = ["load_numpy_params"]
+
+_STEP = re.compile(r"\.([A-Za-z_]\w*)|\[(\d+)\]")
+
+
+def _parse(key: str):
+    steps, pos = [], 0
+    for m in _STEP.finditer(key):
+        if m.start() != pos:
+            break
+        steps.append(m.group(1) if m.group(1) is not None else int(m.group(2)))
+        pos = m.end()
+    if pos != len(key) or not steps:
+        raise KeyError(f"unparsable key path {key!r}")
+    return steps
+
+
+def load_numpy_params(model, flat: dict) -> None:
+    """Copy every leaf of `flat` into `model` (in place); unknown paths raise."""
+    for key, value in flat.items():
+        *parents, leaf = _parse(key)
+        obj = model
+        for step in parents:
+            obj = obj[step] if isinstance(step, int) else getattr(obj, step)
+        if isinstance(leaf, int) or not hasattr(obj, leaf):
+            raise KeyError(f"{key!r} does not name a leaf of the model")
+        current = getattr(obj, leaf)
+        if not isinstance(current, torch.Tensor):
+            raise KeyError(f"{key!r} names {type(current).__name__}, not a tensor")
+        new = torch.as_tensor(np.array(value), dtype=current.dtype, device=current.device)
+        if new.shape != current.shape:
+            raise ValueError(f"{key!r}: shape {tuple(new.shape)} != {tuple(current.shape)}")
+        if isinstance(current, torch.nn.Parameter):
+            with torch.no_grad():
+                current.copy_(new)
+        else:
+            setattr(obj, leaf, new)

@@ -1,0 +1,51 @@
+"""Gaussian likelihoods (PyTorch counterpart of
+`physs_gp_tpu/likelihoods/gaussian.py`: `IndependentGaussian` and the CVI
+pseudo-likelihood `BlockDiagonalGaussian`)."""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+__all__ = ["Likelihood", "IndependentGaussian", "BlockDiagonalGaussian"]
+
+
+class Likelihood(nn.Module):
+    """Marker base class."""
+
+
+class IndependentGaussian(Likelihood):
+    """Independent Gaussian noise with one variance Param per output head
+    (data heads and collocation heads, each fixable on its own)."""
+
+    def __init__(self, variances):
+        super().__init__()
+        self.variances = nn.ModuleList(variances)
+
+    @property
+    def _v(self):
+        return torch.cat([torch.atleast_1d(p.value) for p in self.variances])
+
+    def R(self, T: int, p: int = 1):
+        v = self._v
+        return torch.diag(v).expand(T, v.shape[0], v.shape[0])
+
+    def expected_log_lik(self, y, m, v):
+        """Closed-form E_{N(m, v)}[log N(y | f, var_h)] per head column; NaN
+        observations contribute 0."""
+        nv = self._v
+        y0 = torch.nan_to_num(y)
+        val = -0.5 * (torch.log(2 * math.pi * nv) + ((y0 - m) ** 2 + v) / nv)
+        return torch.where(torch.isfinite(y), val, torch.zeros_like(val))
+
+
+class BlockDiagonalGaussian(Likelihood):
+    """N(Y_t | f_t, V_t) with a full [p, p] block V_t per time step."""
+
+    def __init__(self, V):
+        super().__init__()
+        self.register_buffer("V", V)
+
+    def R(self, T: int, p: int = 1):
+        return self.V

@@ -1,0 +1,132 @@
+"""CVI state-space GP: variational inference with a conjugate surrogate (PyTorch).
+
+Counterpart of `physs_gp_tpu/models/cvi_gp.py`. The approximate posterior
+is a surrogate state-space GP whose sites (Ỹ, Ṽ) are updated by natural
+gradients, and
+
+    ELBO = ELL_data(q) - ELL_sites(q) + lml_surrogate,
+
+all from one Kalman filter + smoother pass over the surrogate.
+`step_with_elbo` updates the model's sites in place and returns the model.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..approx.cvi import Sites, init_sites, natgrad_update
+from ..likelihoods.nongaussian import expected_log_lik
+from ..ops.gaussian import mask_covariance
+from ..ops.lgssm import build_lgssm, project_cov, project_mean
+from ..ops.matrix import psd_solve_logdet
+from ..ops.runner import run_filter_smoother
+
+__all__ = ["CVIGP", "GaussianMoments"]
+
+_LOG2PI = math.log(2.0 * math.pi)
+
+
+class GaussianMoments(NamedTuple):
+    mean: torch.Tensor
+    var: torch.Tensor
+
+
+class CVIGP(nn.Module):
+    def __init__(self, t, Y, kernel, likelihood, sites: Sites, observation=None,
+                 parallel: bool = False, sqrt: bool = False, chunk_size=None):
+        super().__init__()
+        self.register_buffer("t", t)
+        self.register_buffer("Y", Y)
+        self.kernel = kernel
+        self.likelihood = likelihood
+        self.sites = sites
+        self.observation = observation
+        self.parallel = parallel
+        self.sqrt = sqrt
+        self.chunk_size = chunk_size
+
+    @classmethod
+    def init(cls, t, Y, kernel, likelihood, observation=None, parallel=False,
+             sqrt=False, chunk_size=None, site_var: float = 1.0):
+        active = (
+            likelihood.site_active_mask(Y)
+            if hasattr(likelihood, "site_active_mask")
+            else None
+        )
+        return cls(
+            t=t.reshape(-1), Y=Y, kernel=kernel, likelihood=likelihood,
+            sites=init_sites(Y, site_var, active=active), observation=observation,
+            parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
+        )
+
+    # ---- surrogate filtering ----
+    def _surrogate_pass(self):
+        """Filter + smooth the surrogate; return (lml, m [T, p], S [T, p, p])
+        with the H-projected q(f) block moments."""
+        ssm = build_lgssm(self.kernel, self.t)
+        if self.observation is not None:
+            ssm = ssm._replace(H=self.observation.H(self.kernel))
+        f, s = run_filter_smoother(
+            ssm, self.sites.V, self.sites.Y, parallel=self.parallel,
+            sqrt=self.sqrt, chunk_size=self.chunk_size,
+        )
+        return f.lml, project_mean(ssm.H, s.ms), project_cov(ssm.H, s.Ps)
+
+    # ---- ELL terms ----
+    def _ell_data(self, m, S):
+        if self.observation is not None:
+            corr = self.observation.var_correction(self.kernel)
+            if corr is not None:
+                # off-site heads: q(f(s)) marginal var = H P H^T + ρ(s)
+                S = S + torch.diag_embed(corr.expand(m.shape))
+        v = torch.diagonal(S, dim1=-2, dim2=-1)
+        return torch.sum(expected_log_lik(self.likelihood, self.Y, m, v))
+
+    def _ell_sites_ex(self, m, S):
+        """(Σ_t E_q[log N(Ỹ_t | f_t, Ṽ_t)] over active site elements,
+        (λ1, λ2)): the site inverse of the ELL doubles as the natural
+        parameters `natgrad_update` needs."""
+        ok = torch.isfinite(self.sites.Y).to(m.dtype)  # [T, p]
+        p = m.shape[-1]
+        Vm = mask_covariance(self.sites.V, ok)
+        eye = torch.eye(p, dtype=m.dtype, device=m.device).expand(Vm.shape)
+        Vinv, logdet = psd_solve_logdet(Vm, eye)
+        y0 = torch.where(ok > 0, torch.nan_to_num(self.sites.Y), 0.0)
+        diff = y0 - m * ok
+        maha = torch.einsum("ti,tij,tj->t", diff, Vinv, diff)
+        n_obs = torch.sum(ok, -1)
+        logpdf = -0.5 * (maha + logdet + n_obs * _LOG2PI)
+        # trace over the active sub-block: tr(Vm^-1 Sm) elementwise
+        Sm = S * (ok[..., :, None] * ok[..., None, :])
+        tr = torch.sum(Vinv * Sm, (-1, -2))
+        value = torch.sum(logpdf) - 0.5 * torch.sum(tr)
+        lam1 = torch.einsum("tij,tj->ti", Vinv, y0)
+        return value, (lam1, -0.5 * Vinv)
+
+    def _ell_sites(self, m, S):
+        return self._ell_sites_ex(m, S)[0]
+
+    # ---- public API ----
+    def elbo(self):
+        lml_sur, m, S = self._surrogate_pass()
+        return self._ell_data(m, S) - self._ell_sites(m, S) + lml_sur
+
+    @torch.no_grad()
+    def step_with_elbo(self, lr: float):
+        """One CVI step and the (pre-update) ELBO from a single surrogate
+        filter + smoother pass; the sites are replaced in place."""
+        lml_sur, m, S = self._surrogate_pass()
+        ell_sites, naturals = self._ell_sites_ex(m, S)
+        elbo = self._ell_data(m, S) - ell_sites + lml_sur
+        self.sites = natgrad_update(
+            self.sites, m, S, self._ell_data, lr, naturals=naturals
+        )
+        return self, elbo
+
+    @torch.no_grad()
+    def posterior(self) -> GaussianMoments:
+        _, m, S = self._surrogate_pass()
+        return GaussianMoments(mean=m, var=torch.diagonal(S, dim1=-2, dim2=-1))

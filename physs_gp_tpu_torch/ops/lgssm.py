@@ -1,0 +1,65 @@
+"""Linear-Gaussian state-space model assembly from Markov kernels (PyTorch).
+
+Counterpart of `physs_gp_tpu/ops/lgssm.py`: all T transitions are built in
+one batched pass before the filter runs.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = ["LGSSM", "build_lgssm", "project_mean", "project_cov"]
+
+
+class LGSSM(NamedTuple):
+    A: torch.Tensor  # [T, d, d]
+    Q: torch.Tensor  # [T, d, d]
+    H: torch.Tensor  # [p, d]
+    m0: torch.Tensor  # [d]
+    P0: torch.Tensor  # [d, d]
+
+
+def build_lgssm(kernel, t) -> LGSSM:
+    """Discretise a Markov kernel over sorted time points t [T]; dt_0 = 0,
+    so A[0] = I, Q[0] = 0 and the first prediction is the stationary prior."""
+    from ..kernels.markov import noise_matrix, to_ss, transition_matrix
+
+    if hasattr(kernel, "to_lgssm"):
+        # composite kernels (e.g. SpatioTemporalKernel) own their lifting
+        return kernel.to_lgssm(t)
+    t = t.reshape(-1)
+    ss = to_ss(kernel)
+    dt = torch.cat([torch.zeros(1, dtype=t.dtype, device=t.device), torch.diff(t)])
+    return LGSSM(
+        A=transition_matrix(kernel, dt),
+        Q=noise_matrix(kernel, dt),
+        H=ss.H,
+        m0=ss.minf,
+        P0=ss.Pinf,
+    )
+
+
+def project_mean(H, ms):
+    """[T, p] head means from smoothed state means ms [T, d]."""
+    if H.dim() == 2:
+        return ms @ H.T
+    return torch.einsum("tpd,td->tp", H, ms)
+
+
+def _Ps_Ht(H, Ps):
+    """Y[t, i, q] = sum_j Ps[t, i, j] H[q, j] as one [T*d, d] @ [d, p] product."""
+    T, d, _ = Ps.shape
+    return (Ps.reshape(T * d, d) @ H.T).reshape(T, d, H.shape[0])
+
+
+def project_cov(H, Ps):
+    """[T, p, p] head covariances H Ps H^T from state covariances Ps [T, d, d]."""
+    if H.dim() == 2:
+        T, d, _ = Ps.shape
+        p = H.shape[0]
+        Y = _Ps_Ht(H, Ps)  # [T, d, p]
+        # out[t, p, q] = sum_i H[p, i] Y[t, i, q]: one [p, d] @ [d, T*p] product
+        out = (H @ Y.movedim(0, 1).reshape(d, T * p)).reshape(p, T, p)
+        return out.movedim(0, 1)
+    return torch.einsum("tpi,tij,tqj->tpq", H, Ps, H)

@@ -1,0 +1,291 @@
+"""Dense matrix primitives for the state-space GP stack (PyTorch).
+
+Counterpart of `physs_gp_tpu/ops/matrix.py`, restricted to what the
+config-5 CVI step uses. `bmm`, `psd_solve`, `psd_solve_logdet` and
+`gen_solve` send 3-D operands with one shared batch to the hand-written
+batched kernels (`ops/cuda/batched_linalg.py`: CUDA kernels on the card,
+their plain PyTorch versions on the CPU) whenever the kernel can hold the
+matrix size (d <= 80); other shapes go to PyTorch's own routines. The
+solve-calculus custom VJPs of the reference become `torch.autograd.Function`s
+whose backward calls the same forward entry points.
+"""
+from __future__ import annotations
+
+import torch
+
+from .cuda import batched_linalg as bl
+
+__all__ = [
+    "add_jitter",
+    "default_jitter",
+    "symmetrize",
+    "safe_cholesky",
+    "cholesky_solve",
+    "gen_solve",
+    "bmm",
+    "psd_solve",
+    "psd_solve_logdet",
+    "mat_inv",
+    "kron",
+    "kron_lift",
+    "log_det_from_chol",
+]
+
+# Counterpart of `highest_precision`: every float32 product on the card runs
+# in full float32, never TF32.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+assert not torch.backends.cuda.matmul.allow_tf32
+assert not torch.backends.cudnn.allow_tf32
+
+DEFAULT_JITTER = None  # sentinel: pick per dtype
+
+
+def default_jitter(dtype) -> float:
+    """Per-dtype stabilising jitter: 1e-12 for float64, 1e-6 otherwise."""
+    return 1e-12 if dtype.itemsize >= 8 else 1e-6
+
+
+def _eye(n, like):
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def add_jitter(A, jitter: float | None = DEFAULT_JITTER):
+    if jitter is None:
+        jitter = default_jitter(A.dtype)
+    return A + jitter * _eye(A.shape[-1], A)
+
+
+def symmetrize(A):
+    return 0.5 * (A + A.transpose(-1, -2))
+
+
+def _cholesky_any(A):
+    """Batched Cholesky with closed-form n <= 2 branches."""
+    n = A.shape[-1]
+    if n == 1:
+        return torch.sqrt(A)
+    if n == 2:
+        a11 = A[..., 0, 0]
+        a21 = A[..., 1, 0]
+        a22 = A[..., 1, 1]
+        l11 = torch.sqrt(a11)
+        l21 = a21 / l11
+        l22 = torch.sqrt(torch.clamp(a22 - l21 * l21, min=0.0))
+        z = torch.zeros_like(l11)
+        return torch.stack(
+            [torch.stack([l11, z], -1), torch.stack([l21, l22], -1)], -2
+        )
+    return torch.linalg.cholesky(A)
+
+
+def safe_cholesky(A, jitter: float | None = DEFAULT_JITTER):
+    """Cholesky of sym(A) + jitter I."""
+    return _cholesky_any(add_jitter(symmetrize(A), jitter))
+
+
+def cholesky_solve(L, B):
+    """Solve A X = B given the lower factor L of A."""
+    Y = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True)
+
+
+def log_det_from_chol(L):
+    return 2.0 * torch.sum(
+        torch.log(torch.abs(torch.diagonal(L, dim1=-2, dim2=-1))), -1
+    )
+
+
+def mat_inv(A, jitter: float | None = DEFAULT_JITTER):
+    eye = _eye(A.shape[-1], A).expand(A.shape)
+    return psd_solve(A, eye, jitter)
+
+
+# ---------------------------------------------------------------------------
+# Routing to the batched kernels
+# ---------------------------------------------------------------------------
+
+
+def _kernel_shapes(A, B) -> bool:
+    return (
+        A.dim() == 3
+        and B.dim() == 3
+        and A.shape[0] == B.shape[0]
+        and max(A.shape[-1], A.shape[-2]) <= bl.D_MAX
+        and max(B.shape[-1], B.shape[-2]) <= bl.D_MAX
+    )
+
+
+def _unit_last(X):
+    """X with unit stride along its last dimension (copy only if needed)."""
+    if X.shape[-1] == 1 or X.stride(-1) == 1:
+        return X
+    return X.contiguous()
+
+
+def _psd_solve_primal(A, B):
+    if _kernel_shapes(A, B):
+        return bl.batch_solve(_unit_last(A), _unit_last(B))
+    return cholesky_solve(_cholesky_any(A), B)
+
+
+def _psd_solve_logdet_primal(A, B):
+    if _kernel_shapes(A, B):
+        return bl.batch_solve_logdet(_unit_last(A), _unit_last(B))
+    L = _cholesky_any(A)
+    return cholesky_solve(L, B), log_det_from_chol(L)
+
+
+def _gen_solve_primal(A, B):
+    if _kernel_shapes(A, B):
+        return bl.batch_solve(_unit_last(A), _unit_last(B))
+    return torch.linalg.solve(A, B)
+
+
+def _bmm_primal(A, B, ta: bool, tb: bool):
+    if _kernel_shapes(A, B):
+        # a view with unit stride along its second-last dimension is the
+        # transpose of a row-major matrix: flip the flag instead of copying
+        if A.shape[-1] > 1 and A.stride(-1) != 1 and A.stride(-2) == 1:
+            A, ta = A.transpose(-1, -2), not ta
+        if B.shape[-1] > 1 and B.stride(-1) != 1 and B.stride(-2) == 1:
+            B, tb = B.transpose(-1, -2), not tb
+        return bl.batch_bmm(_unit_last(A), _unit_last(B), ta, tb)
+    a = A.transpose(-1, -2) if ta else A
+    b = B.transpose(-1, -2) if tb else B
+    return torch.matmul(a, b)
+
+
+def _outer_sum(W, X):
+    """einsum('...ir,...jr->...ij', W, X)."""
+    return torch.matmul(W, X.transpose(-1, -2))
+
+
+class _PsdSolve(torch.autograd.Function):
+    """X = A^-1 B for symmetric A; dB = A^-1 ct, dA = -dB X^T."""
+
+    @staticmethod
+    def forward(ctx, A, B):
+        X = _psd_solve_primal(A, B)
+        ctx.save_for_backward(A, X)
+        return X
+
+    @staticmethod
+    def backward(ctx, ct):
+        A, X = ctx.saved_tensors
+        W = _psd_solve_primal(A, ct)  # A symmetric: A^-T = A^-1
+        return -_outer_sum(W, X), W
+
+
+class _PsdSolveLogdet(torch.autograd.Function):
+    """(A^-1 B, log det A); the logdet cotangent adds ct_ld A^-1 to dA."""
+
+    @staticmethod
+    def forward(ctx, A, B):
+        X, ld = _psd_solve_logdet_primal(A, B)
+        ctx.save_for_backward(A, X)
+        return X, ld
+
+    @staticmethod
+    def backward(ctx, ct_X, ct_ld):
+        A, X = ctx.saved_tensors
+        eye = _eye(A.shape[-1], A).expand(A.shape)
+        r = ct_X.shape[-1]
+        sol = _psd_solve_primal(A, torch.cat([ct_X, eye], -1))
+        W, Ainv = sol[..., :r], sol[..., r:]
+        A_bar = -_outer_sum(W, X) + ct_ld[..., None, None] * Ainv
+        return A_bar, W
+
+
+class _GenSolve(torch.autograd.Function):
+    """X = A^-1 B for general A; dB = A^-T ct, dA = -dB X^T."""
+
+    @staticmethod
+    def forward(ctx, A, B):
+        X = _gen_solve_primal(A, B)
+        ctx.save_for_backward(A, X)
+        return X
+
+    @staticmethod
+    def backward(ctx, ct):
+        A, X = ctx.saved_tensors
+        W = _gen_solve_primal(A.transpose(-1, -2), ct)
+        return -_outer_sum(W, X), W
+
+
+def _unbroadcast_to(x, shape):
+    """Sum a cotangent over the dims its primal was broadcast along."""
+    if x.shape == shape:
+        return x
+    ndiff = x.dim() - len(shape)
+    if ndiff:
+        x = x.sum(dim=tuple(range(ndiff)))
+    axes = tuple(
+        i for i, (a, b) in enumerate(zip(x.shape, shape)) if b == 1 and a != 1
+    )
+    if axes:
+        x = x.sum(dim=axes, keepdim=True)
+    return x
+
+
+class _Bmm(torch.autograd.Function):
+    """C = op(A) op(B); each cotangent is another bmm."""
+
+    @staticmethod
+    def forward(ctx, A, B, ta, tb):
+        ctx.save_for_backward(A, B)
+        ctx.ta, ctx.tb = ta, tb
+        return _bmm_primal(A, B, ta, tb)
+
+    @staticmethod
+    def backward(ctx, ct):
+        A, B = ctx.saved_tensors
+        ta, tb = ctx.ta, ctx.tb
+        if not ta:
+            dA = _bmm_primal(ct, B, False, not tb)
+        else:
+            dA = _bmm_primal(B, ct, tb, True)
+        if not tb:
+            dB = _bmm_primal(A, ct, not ta, False)
+        else:
+            dB = _bmm_primal(ct, A, True, ta)
+        return _unbroadcast_to(dA, A.shape), _unbroadcast_to(dB, B.shape), None, None
+
+
+def bmm(A, B, ta: bool = False, tb: bool = False):
+    """op(A) @ op(B) batched over the leading axis; op = T when ta/tb."""
+    return _Bmm.apply(A, B, ta, tb)
+
+
+def gen_solve(A, B):
+    """Differentiable batched solve for general, well-conditioned A (e.g.
+    the filtering combine's identity-dominated I + C J)."""
+    return _GenSolve.apply(A, B)
+
+
+def psd_solve(A, B, jitter: float | None = DEFAULT_JITTER):
+    """Solve (sym(A) + jitter I) X = B for batched SPD A."""
+    return _PsdSolve.apply(add_jitter(symmetrize(A), jitter), B)
+
+
+def psd_solve_logdet(A, B, jitter: float | None = DEFAULT_JITTER):
+    """(X, log det) of the jittered SPD solve, in one pass."""
+    return _PsdSolveLogdet.apply(add_jitter(symmetrize(A), jitter), B)
+
+
+def kron(A, B):
+    """Batched Kronecker product: [..., m, n] x [..., p, q] -> [..., mp, nq]."""
+    m, n = A.shape[-2:]
+    p, q = B.shape[-2:]
+    out = A[..., :, None, :, None] * B[..., None, :, None, :]
+    return out.reshape(out.shape[:-4] + (m * p, n * q))
+
+
+def kron_lift(B, C):
+    """kron(B, C) for one B [m, m] and batched C [T, n, n] -> [T, mn, mn]:
+    out[t, i*n + a, j*n + b] = B[i, j] * C[t, a, b]."""
+    m = B.shape[-1]
+    n = C.shape[-1]
+    Bg = B.repeat_interleave(n, dim=-2).repeat_interleave(n, dim=-1)
+    Cg = C.repeat(1, m, m)
+    return Bg[None] * Cg

@@ -1,0 +1,153 @@
+"""PyTorch port: the parallel Kalman filter and smoother against JAX.
+
+A random d = 32, p = 32 LGSSM with NaN-masked observations (whole rows and
+single entries), T = 256, chunk 64. Both packages run the blocked scan
+schedule with 8 blocks (PHYSS_INNER_SCAN=blocked, PHYSS_SCAN_BLOCKS=8, set
+before JAX traces). Tolerance rtol 1e-9 on element fields, means,
+covariances and lml (float64).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from physs_gp_tpu.ops import parallel_kalman as jpk  # noqa: E402
+from physs_gp_tpu_torch.ops import parallel_kalman as tpk  # noqa: E402
+
+torch.set_num_threads(1)
+
+T, D, P, CHUNK = 256, 32, 32, 64
+
+
+@pytest.fixture
+def blocked_env(monkeypatch):
+    monkeypatch.setenv("PHYSS_INNER_SCAN", "blocked")
+    monkeypatch.setenv("PHYSS_SCAN_BLOCKS", "8")
+
+
+def _lgssm(seed=0):
+    rng = np.random.default_rng(seed)
+    Qr = np.linalg.qr(rng.normal(size=(T, D, D)))[0]
+    A = 0.95 * Qr + 0.02 * rng.normal(size=(T, D, D))
+    A[0] = np.eye(D)
+    G = rng.normal(size=(T, D, D)) / np.sqrt(D)
+    Q = 0.1 * G @ np.swapaxes(G, -1, -2) + 0.01 * np.eye(D)
+    Q[0] = 0.0
+    H = rng.normal(size=(P, D)) / np.sqrt(D)
+    Gr = rng.normal(size=(T, P, P)) / np.sqrt(P)
+    R = 0.05 * Gr @ np.swapaxes(Gr, -1, -2) + 0.1 * np.eye(P)
+    y = rng.normal(size=(T, P))
+    y[rng.random(T) < 0.1] = np.nan  # fully missing steps
+    y[rng.random((T, P)) < 0.2] = np.nan  # partially missing steps
+    m0 = rng.normal(size=D) * 0.1
+    G0 = rng.normal(size=(D, D)) / np.sqrt(D)
+    P0 = G0 @ G0.T + 0.5 * np.eye(D)
+    return A, Q, H, R, y, m0, P0
+
+
+def _j(*xs):
+    return [jnp.asarray(x) for x in xs]
+
+
+def _tt(*xs):
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+
+
+def _close(a, b, rtol=1e-9, atol=1e-10):
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    np.testing.assert_allclose(a, np.asarray(b), rtol=rtol, atol=atol)
+
+
+def _elems(seed=0):
+    A, Q, H, R, y, m0, P0 = _lgssm(seed)
+    Hs = np.broadcast_to(H, (T, P, D)).copy()
+    mask = np.isfinite(y).astype(np.float64)
+    je = jax.jit(jpk._build_filter_elements)(*_j(A, Q, Hs, R, y, mask, m0, P0))
+    te = tpk._build_filter_elements(*_tt(A, Q, Hs, R, y, mask, m0, P0))
+    return je, te
+
+
+def test_build_filter_elements():
+    je, te = _elems()
+    for a, b in zip(te, je):
+        _close(a, b)
+
+
+def test_one_filtering_and_smoothing_combine():
+    je, te = _elems()
+    ji = jax.tree_util.tree_map(lambda x: x[:-1], je)
+    jj = jax.tree_util.tree_map(lambda x: x[1:], je)
+    ti = tpk._map(lambda x: x[:-1], te)
+    tj = tpk._map(lambda x: x[1:], te)
+    for a, b in zip(tpk._filtering_operator(ti, tj), jax.jit(jpk._filtering_operator_xla)(ji, jj)):
+        _close(a, b)
+    for a, b in zip(tpk._filtering_final(ti, tj), jax.jit(jpk._filtering_final)(ji, jj)):
+        _close(a, b)
+    rng = np.random.default_rng(1)
+    E = rng.normal(size=(2, T, D, D)) * 0.2
+    g = rng.normal(size=(2, T, D))
+    Lr = rng.normal(size=(2, T, D, D))
+    L = Lr @ np.swapaxes(Lr, -1, -2)
+    jsm = [jpk._SmootherElems(*_j(E[k], g[k], L[k])) for k in range(2)]
+    tsm = [tpk._SmootherElems(*_tt(E[k], g[k], L[k])) for k in range(2)]
+    for a, b in zip(tpk._smoothing_operator(*tsm), jax.jit(jpk._smoothing_operator_xla)(*jsm)):
+        _close(a, b)
+
+
+@pytest.mark.parametrize("n", [256, 200])
+def test_blocked_scan_matches_associative_scan(blocked_env, n):
+    je, te = _elems()
+    je = jax.tree_util.tree_map(lambda x: x[:n], je)
+    te = tpk._map(lambda x: x[:n], te)
+    ref = jax.jit(lambda e: jax.lax.associative_scan(jpk._filtering_operator_xla, e))(je)
+    out, total = tpk.blocked_inclusive_scan(
+        tpk._filtering_operator, te, tpk._ident_filter_elem(D, te.A)
+    )
+    for a, b in zip(out, ref):
+        _close(a, b)
+    for a, b in zip(total, ref):
+        _close(a, b[-1])
+
+
+def test_chunked_filter_and_smoother(blocked_env):
+    A, Q, H, R, y, m0, P0 = _lgssm(2)
+    jf = jax.jit(jpk.parallel_kalman_filter, static_argnames="chunk_size")(
+        *_j(A, Q, H, R, y, m0, P0), chunk_size=CHUNK
+    )
+    tf = tpk.parallel_kalman_filter(*_tt(A, Q, H, R, y, m0, P0), chunk_size=CHUNK)
+    _close(tf.ms, jf.ms)
+    _close(tf.Ps, jf.Ps)
+    _close(tf.lmls, jf.lmls)
+    _close(tf.lml, jf.lml)
+    _close(tf.Pp, jf.Pp)
+    js = jax.jit(jpk.parallel_rts_smoother, static_argnames="chunk_size")(
+        jnp.asarray(A), jnp.asarray(Q), jf, chunk_size=CHUNK
+    )
+    ts = tpk.parallel_rts_smoother(*_tt(A, Q), tf, chunk_size=CHUNK)
+    _close(ts.ms, js.ms)
+    _close(ts.Ps, js.Ps)
+    _close(ts.Gs, js.Gs)
+
+
+def test_unchunked_filter_matches_jax_default_schedule(monkeypatch):
+    """The port's blocked schedule against JAX's associative scan."""
+    monkeypatch.setenv("PHYSS_SCAN_BLOCKS", "8")
+    A, Q, H, R, y, m0, P0 = _lgssm(3)
+    jf = jax.jit(jpk.parallel_kalman_filter)(*_j(A, Q, H, R, y, m0, P0))
+    tf = tpk.parallel_kalman_filter(*_tt(A, Q, H, R, y, m0, P0))
+    _close(tf.ms, jf.ms)
+    _close(tf.Ps, jf.Ps)
+    _close(tf.lml, jf.lml)
+    js = jax.jit(jpk.parallel_rts_smoother)(jnp.asarray(A), jnp.asarray(Q), jf)
+    ts = tpk.parallel_rts_smoother(*_tt(A, Q), tf)
+    _close(ts.ms, js.ms)
+    _close(ts.Ps, js.Ps)
+
+
+def test_scan_blocks_must_be_power_of_two(monkeypatch):
+    monkeypatch.setenv("PHYSS_SCAN_BLOCKS", "6")
+    _, te = _elems()
+    with pytest.raises(ValueError):
+        tpk.blocked_inclusive_scan(tpk._filtering_operator, te, tpk._ident_filter_elem(D, te.A))

@@ -1,16 +1,23 @@
-"""Drive the PyTorch port's config-5 CVI step on one CUDA card.
+"""Drive the PyTorch port's config-5 CVI step on one CUDA card, in covariance
+and in square-root form.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: versions, card name and power limit, TF32 off;
-  2. build: compile the batched kernels from physs_gp_tpu_torch/csrc;
-  3. kernels: each kernel against its plain PyTorch version on the card, in
-     float32 and float64, then kernel and plain timed with CUDA events;
-  4. slice against the JAX reference: float64, T = 256, 3 steps, ELBOs and
-     sites against tests/data/config5_T256_golden.npz;
-  5. slice at full width: float32, T = 100 000, chunk 25 000, 3 steps with
-     the launch counters reset just before, then the same run in float64.
+  2. build: compile both kernel libraries from physs_gp_tpu_torch/csrc, one
+     nvcc per source, side by side;
+  3. kernels: each of the six kernels against its plain PyTorch version on
+     the card, in float64 and float32, at the main path's shapes, wide and
+     odd shapes, with all-zero and rank-deficient batch members; then
+     kernel, plain and library call timed with CUDA events beside the
+     bound from bytes and operations;
+  4. anchors against the JAX reference, float64, T = 256, 3 steps: the
+     covariance slice against tests/data/config5_T256_golden.npz and the
+     square-root slice against tests/data/config5_sqrt_T256_golden.npz;
+  5. full width, T = 100 000, chunk 25 000, 3 steps each: covariance float32
+     then float64, square-root float32 then float64; launch counters reset
+     just before each float32 run and read just after.
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -25,11 +32,33 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "data", "config5_T256_golden.npz")
-TOL = {  # normwise relative tolerance: max|kernel - plain| / max|plain|
-    torch.float64: {"bmm": 1e-12, "solve": 1e-10, "logdet": 1e-10},
-    torch.float32: {"bmm": 1e-5, "solve": 1e-4, "logdet": 1e-4},
+GOLDEN_SQRT = os.path.join(REPO, "tests", "data", "config5_sqrt_T256_golden.npz")
+# Normwise relative tolerance: max|kernel - plain| / max|plain|. "rankdef" is
+# for the rank-deficient member of a Cholesky batch: its floored pivots
+# amplify the rounding noise of the Gram, which the kernel and the plain
+# version sum in different orders, by ~1/sqrt(eps_rel); in float32 the two
+# factors' products then differ by ~1e-3 of the member's scale.
+TOL = {
+    torch.float64: {"bmm": 1e-12, "solve": 1e-10, "logdet": 1e-10, "factor": 1e-11,
+                    "rankdef": 1e-11},
+    torch.float32: {"bmm": 1e-5, "solve": 1e-4, "logdet": 1e-4, "factor": 2e-5,
+                    "rankdef": 1e-2},
 }
-N_MAIN, D = 25_000, 32
+N_MAIN, N_LML, D = 25_000, 100_000, 32
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
+SOURCES = {
+    "bmm": "batched_linalg", "gj_solve": "batched_linalg", "gj_solve_logdet": "batched_linalg",
+    "lq": "batched_factor", "chol": "batched_factor", "chol_gram": "batched_factor",
+}
+REPLACES = {
+    "bmm": "physs_gp_tpu/ops/pallas/batched_linalg.py:131",
+    "gj_solve": "physs_gp_tpu/ops/pallas/batched_linalg.py:68",
+    "gj_solve_logdet": "physs_gp_tpu/ops/pallas/batched_linalg.py:94",
+    "lq": "physs_gp_tpu/ops/pallas/batched_qr.py:46",
+    "chol": "physs_gp_tpu/ops/pallas/batched_chol.py:101",
+    "chol_gram": "physs_gp_tpu/ops/pallas/batched_chol.py:56",
+}
 
 
 def phase_device():
@@ -47,18 +76,24 @@ def phase_device():
 
 
 def phase_build():
-    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    bl.build()
-    print(f"[build] {bl.build_info['path']} in {time.perf_counter() - t0:.1f} s")
-    for line in bl.build_info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    build.build()
+    print(f"[build] both libraries in {time.perf_counter() - t0:.1f} s")
+    for name, info in build.build_info.items():
+        print(f"[build] {info['path']}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def _randn(gen, *shape):
+    return torch.randn(*shape, generator=gen, dtype=torch.float64, device="cuda")
 
 
 def _spd(gen, N, d, dtype, dom=5.0):
-    A = torch.randn(N, d, d, generator=gen, dtype=torch.float64, device="cuda")
+    A = _randn(gen, N, d, d)
     return (A @ A.transpose(-1, -2) / d + dom * torch.eye(d, dtype=torch.float64, device="cuda")).to(dtype)
 
 
@@ -69,12 +104,32 @@ def _icj(gen, N, d, dtype):
     return (torch.eye(d, dtype=torch.float64, device="cuda") + C @ J).to(dtype)
 
 
+def _factors(gen, N, d, m, dtype, rank=2):
+    """[N, d, m] with member 0 all zero and member 1 of the given rank."""
+    X = _randn(gen, N, d, m)
+    X[0] = 0.0
+    if N > 1:
+        X[1] = _randn(gen, d, rank) @ _randn(gen, rank, m)
+    return X.to(dtype)
+
+
+def _chol_rank(d):
+    # at d >= 32 a rank-2 Gram overflows the reference algorithm's pivot floor
+    return 2 if d <= 8 else d - 1
+
+
 def _rel(x, ref):
     return float((x - ref).abs().max() / ref.abs().max()), float((x - ref).abs().max())
 
 
-def _time(fn, n=20):
+def _time(fn, target_s=0.2):
+    """ms per call over a run of calls (fewer for slow calls), CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    n = max(1, min(20, int(target_s * 1e3 / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(n):
         fn()
@@ -83,31 +138,47 @@ def _time(fn, n=20):
     return start.elapsed_time(end) / n
 
 
-def _kernel_vs_plain(kernel, plain):
-    """ms of kernel and plain, interleaved plain, kernel, kernel, plain."""
-    kernel(), plain()
-    torch.cuda.synchronize()
-    p1, k1, k2, p2 = _time(plain), _time(kernel), _time(kernel), _time(plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def _nbytes(*xs):
+    """Bytes in memory: an expanded (stride-0) operand counts its storage once."""
+    return sum(min(x.untyped_storage().nbytes(), x.numel() * x.element_size()) for x in xs)
 
 
 def phase_kernels():
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
     from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = {"bmm": 0.0, "gj_solve": 0.0, "gj_solve_logdet": 0.0}
+    worst = {name: 0.0 for name in SOURCES}
 
-    def check(name, kind, out, ref, dtype, label):
-        rel, ab = _rel(out, ref)
+    def report(name, kind, rel, ab, dtype, label):
         ok = rel <= TOL[dtype][kind]
         print(f"[kernels] {name} {label} {str(dtype)[6:]}: max_abs_err {ab:.3e} "
               f"rel {rel:.3e} (tol {TOL[dtype][kind]:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {label} disagrees with its plain version")
-        if dtype == torch.float32:
+        if dtype == torch.float32 and kind != "rankdef":
             worst[name] = max(worst[name], ab)
 
+    def check(name, kind, out, ref, dtype, label):
+        report(name, kind, *_rel(out, ref), dtype, label)
+
+    def check_factor(name, L, Lp, dtype, label, floored):
+        """All finite; L and L Lᵀ against the plain factor. With `floored`,
+        member 1 (rank-deficient, floored pivots) is held on L Lᵀ alone."""
+        if not torch.isfinite(L).all():
+            raise AssertionError(f"{name} {label}: non-finite factor")
+        keep = torch.ones(L.shape[0], dtype=torch.bool, device=L.device)
+        if floored and L.shape[0] > 1:
+            keep[1] = False
+        G, Gp = L @ L.transpose(-1, -2), Lp @ Lp.transpose(-1, -2)
+        report(name, "factor", *_rel(L[keep], Lp[keep]), dtype, f"{label} L")
+        report(name, "factor", *_rel(G[keep], Gp[keep]), dtype, f"{label} L L^T")
+        if not keep.all():
+            report(name, "rankdef", *_rel(G[1], Gp[1]), dtype, f"{label} rank-deficient L L^T")
+
     for dtype in (torch.float64, torch.float32):
+        wide = dtype == torch.float64  # d = 64 and 80 run in float64
         # bmm: all four transposes at [25000, 32, 32], rectangular, edges
         cases = [((N_MAIN, D, D), (N_MAIN, D, D), ta, tb) for ta in (False, True) for tb in (False, True)]
         cases += [((N_MAIN, D, D), (N_MAIN, D, 2 * D + 1), False, False),
@@ -115,55 +186,135 @@ def phase_kernels():
                   ((1, 80, 80), (1, 80, 80), False, True),
                   ((300, 7, 7), (300, 7, 7), True, True)]
         for sa, sb, ta, tb in cases:
-            A = torch.randn(sa, generator=gen, dtype=torch.float64, device="cuda").to(dtype)
-            B = torch.randn(sb, generator=gen, dtype=torch.float64, device="cuda").to(dtype)
+            A = _randn(gen, *sa).to(dtype)
+            B = _randn(gen, *sb).to(dtype)
             check("bmm", "bmm", bl.batch_bmm(A, B, ta, tb), bl.bmm_plain(A, B, ta, tb),
                   dtype, f"{list(sa)}x{list(sb)} ta={ta:d} tb={tb:d}")
         # solves: identity-dominated and SPD systems at the main-path widths
         for N, d, r, mk in [(N_MAIN, D, 1, _spd), (N_MAIN, D, D, _icj),
-                            (N_MAIN, D, 2 * D + 1, _spd), (1, 80, 80, _spd),
-                            (300, 7, 3, _icj)]:
+                            (N_MAIN, D, 2 * D + 1, _spd), (N_MAIN, D, 3 * D + 1, _spd),
+                            (1, 80, 80, _spd), (300, 7, 3, _icj)]:
             M = mk(gen, N, d, dtype)
-            R = torch.randn(N, d, r, generator=gen, dtype=torch.float64, device="cuda").to(dtype)
+            R = _randn(gen, N, d, r).to(dtype)
             check("gj_solve", "solve", bl.batch_solve(M, R), bl.gj_solve_plain(M, R),
                   dtype, f"[{N},{d},{d}] r={r}")
         for N, d, r in [(N_MAIN, D, 1), (N_MAIN, D, D), (1, 80, 80), (300, 7, 3)]:
             M = _spd(gen, N, d, dtype)
-            R = torch.randn(N, d, r, generator=gen, dtype=torch.float64, device="cuda").to(dtype)
+            R = _randn(gen, N, d, r).to(dtype)
             X, ld = bl.batch_solve_logdet(M, R)
             Xp, ldp = bl.gj_solve_logdet_plain(M, R)
             check("gj_solve_logdet", "solve", X, Xp, dtype, f"[{N},{d},{d}] r={r} X")
             check("gj_solve_logdet", "logdet", ld, ldp, dtype, f"[{N},{d},{d}] r={r} logdet")
+        # LQ: L_S, Xi, Z and lml pre-arrays, the combine's stacked Xi/Lam
+        for N, d, m in [(N_MAIN, D, 2 * D), (N_MAIN, D, D), (512, D, 2 * D),
+                        (N_LML, D, 2 * D), (2000, 64, 128), (500, 80, 160), (300, 7, 9)]:
+            if d > D and not wide:
+                continue
+            B = _factors(gen, N, d, m, dtype)
+            L = bq.batch_tria(B)
+            if not (L[0] == 0).all():
+                raise AssertionError("lq: an all-zero pre-array must give L = 0")
+            check_factor("lq", L, bq.tria_plain(B), dtype, f"[{N},{d},{m}]", False)
+        # Cholesky: Q, R, P0 and the smoothed covariances
+        for N, d in [(N_LML, D), (3, D), (2000, 64), (500, 80), (300, 7)]:
+            if d > D and not wide:
+                continue
+            X = _factors(gen, N, d, d + 3, dtype, _chol_rank(d))
+            A = X @ X.transpose(-1, -2)
+            A[2:] += 0.1 * torch.eye(d, dtype=dtype, device="cuda")
+            check_factor("chol", bc.batch_cholesky(A), bc.cholesky_plain(A), dtype,
+                         f"[{N},{d},{d}]", True)
+        # Gram + Cholesky: Joseph update, combine, lml predicted factors
+        for N, d, mx, my, eye in [(N_MAIN, D, D, D, False), (N_LML, D, D, D, False),
+                                  (N_MAIN, D, D, 0, True), (2000, 64, 64, 64, False),
+                                  (500, 80, 80, 80, False), (300, 7, 7, 9, False)]:
+            if d > D and not wide:
+                continue
+            X = _factors(gen, N, d, mx, dtype, _chol_rank(d))
+            Y = None
+            if my:
+                Y = _factors(gen, N, d, my, dtype)
+                Y[1] = 0.0  # member 1 stays rank-deficient
+            check_factor("chol_gram", bc.batch_chol_gram(X, Y, eye),
+                         bc.chol_gram_plain(X, Y, eye), dtype,
+                         f"[{N},{d},{mx}]+[{N},{d},{my}] plus_eye={eye:d}", not eye)
     torch.cuda.synchronize()
+    return worst, _time_kernels(gen)
 
-    # times at the main path's shapes, float32
+
+def _time_kernels(gen):
+    """Kernel, plain and library ms at the main path's shapes, float32,
+    interleaved plain, kernel, library, library, kernel, plain; the bound is
+    the larger of bytes over the memory rate and flops over the float32
+    rate."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
+
     f32 = torch.float32
-    A = torch.randn(N_MAIN, D, D, generator=gen, device="cuda")
-    B = torch.randn(N_MAIN, D, D, generator=gen, device="cuda")
+    A = _randn(gen, N_MAIN, D, D).to(f32)
+    B = _randn(gen, N_MAIN, D, D).to(f32)
     S = _spd(gen, N_MAIN, D, f32)
-    rhs = torch.randn(N_MAIN, D, 2 * D + 1, generator=gen, device="cuda")
+    rhs = _randn(gen, N_MAIN, D, 2 * D + 1).to(f32)
     eye = torch.eye(D, device="cuda").expand(N_MAIN, D, D)
-    timed = {
+    pre = _randn(gen, N_MAIN, D, 2 * D).to(f32)
+    P = _spd(gen, N_LML, D, f32)
+    X, Y = pre[..., :D], pre[..., D:]
+    n, d, r, m = N_MAIN, D, 2 * D + 1, 2 * D
+    timed = {  # kernel, plain, library (or None), label, bytes, flops
         "bmm": (lambda: bl.batch_bmm(A, B, False, True), lambda: bl.bmm_plain(A, B, False, True),
-                "[25000,32,32] @ [25000,32,32]^T"),
+                lambda: torch.matmul(A, B.transpose(-1, -2)), "torch.matmul",
+                "[25000,32,32] @ [25000,32,32]^T", _nbytes(A, B) + 4 * n * d * d, 2 * n * d ** 3),
         "gj_solve": (lambda: bl.batch_solve(S, rhs), lambda: bl.gj_solve_plain(S, rhs),
-                     "[25000,32,32] r=65"),
+                     lambda: torch.linalg.solve(S, rhs), "torch.linalg.solve",
+                     "[25000,32,32] r=65", _nbytes(S, rhs) + 4 * n * d * r,
+                     n * (2 * d ** 3 // 3 + 2 * d * d * r)),
         "gj_solve_logdet": (lambda: bl.batch_solve_logdet(S, eye),
-                            lambda: bl.gj_solve_logdet_plain(S, eye), "[25000,32,32] r=32"),
+                            lambda: bl.gj_solve_logdet_plain(S, eye), None, None,
+                            "[25000,32,32] r=32 (broadcast I)",
+                            _nbytes(S, eye) + 4 * n * (d * d + 1), n * (2 * d ** 3 // 3 + 2 * d ** 3)),
+        "lq": (lambda: bq.batch_tria(pre), lambda: bq.tria_plain(pre),
+               lambda: torch.linalg.qr(pre.transpose(-1, -2), mode="r"),
+               "torch.linalg.qr(B^T, mode='r')", "[25000,32,64]",
+               _nbytes(pre) + 4 * n * d * d, n * (2 * d * d * m - 2 * d ** 3 // 3)),
+        "chol": (lambda: bc.batch_cholesky(P), lambda: bc.cholesky_plain(P),
+                 lambda: torch.linalg.cholesky(P), "torch.linalg.cholesky", "[100000,32,32]",
+                 _nbytes(P) + 4 * N_LML * d * d, N_LML * d ** 3 // 3),
+        "chol_gram": (lambda: bc.batch_chol_gram(X, Y), lambda: bc.chol_gram_plain(X, Y),
+                      # X, Y are the halves of pre: X Xᵀ + Y Yᵀ = pre preᵀ
+                      lambda: torch.linalg.cholesky(torch.bmm(pre, pre.mT)),
+                      "two calls: torch.bmm + torch.linalg.cholesky",
+                      "[25000,32,32] + [25000,32,32]", _nbytes(pre) + 4 * n * d * d,
+                      n * (d * d * 2 * d + d ** 3 // 3)),
     }
-    times = {}
-    for name, (kern, plain, shape) in timed.items():
-        ms, plain_ms = _kernel_vs_plain(kern, plain)
-        times[name] = (ms, plain_ms)
-        print(f"[kernels] time {name} {shape} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return worst, times
+    out = {}
+    for name, (kern, plain, lib, lib_label, shape, nbytes, flops) in timed.items():
+        kern(), plain()
+        if lib is not None:
+            lib()
+        torch.cuda.synchronize()
+        p1, k1 = _time(plain), _time(kern)
+        l1 = _time(lib) if lib is not None else None
+        l2 = _time(lib) if lib is not None else None
+        k2, p2 = _time(kern), _time(plain)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        row = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "library_ms": None if lib is None else (l1 + l2) / 2,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out[name] = row
+        lib_txt = "none" if lib is None else f"{row['library_ms']:.4f} ms ({lib_label})"
+        print(f"[kernels] time {name} {shape} f32: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {lib_txt}, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return out
 
 
-def _run_slice(T, chunk, dtype, steps, nan_guard):
+def _run_slice(T, chunk, dtype, steps, nan_guard, sqrt):
     from physs_gp_tpu_torch.trainers.scan import natgrad_scan
     from physs_gp_tpu_torch.zoo.bench_configs import build_config5
 
-    model = build_config5(T, chunk, dtype=dtype, device="cuda")
+    model = build_config5(T, chunk, dtype=dtype, sqrt=sqrt)
     torch.cuda.synchronize()
     walls, elbos = [], []
     for _ in range(steps):
@@ -175,19 +326,20 @@ def _run_slice(T, chunk, dtype, steps, nan_guard):
     return model, np.array(elbos), walls
 
 
-def phase_slice_anchor():
+def phase_slice_anchor(sqrt):
+    tag, golden = ("anchor sqrt", GOLDEN_SQRT) if sqrt else ("anchor", GOLDEN)
     os.environ["PHYSS_SCAN_BLOCKS"] = "8"
     try:
-        model, elbos, _ = _run_slice(256, 64, torch.float64, 3, nan_guard=True)
+        model, elbos, _ = _run_slice(256, 64, torch.float64, 3, nan_guard=True, sqrt=sqrt)
         post = model.posterior()
     finally:
         del os.environ["PHYSS_SCAN_BLOCKS"]
-    gold = np.load(GOLDEN)
+    gold = np.load(golden)
     rel = np.abs(elbos - gold["elbos"]) / np.abs(gold["elbos"])
-    print(f"[anchor] ELBOs {elbos.tolist()}")
-    print(f"[anchor] golden {gold['elbos'].tolist()} max rel {rel.max():.3e} (tol 1e-9)")
+    print(f"[{tag}] ELBOs {elbos.tolist()}")
+    print(f"[{tag}] golden {gold['elbos'].tolist()} max rel {rel.max():.3e} (tol 1e-9)")
     if not rel.max() <= 1e-9:
-        raise AssertionError("float64 slice on the card disagrees with the JAX reference")
+        raise AssertionError(f"float64 {tag} slice on the card disagrees with the JAX reference")
     got = {
         "site_Y": model.sites.Y, "site_V_diag": torch.diagonal(model.sites.V, dim1=-2, dim2=-1),
         "post_mean": post.mean, "post_var": post.var,
@@ -195,49 +347,59 @@ def phase_slice_anchor():
     for key, val in got.items():
         ref = gold[key]
         r = np.max(np.abs(val.cpu().numpy() - ref)) / np.max(np.abs(ref))
-        print(f"[anchor] {key} max rel {r:.3e} (tol 1e-7)")
+        print(f"[{tag}] {key} max rel {r:.3e} (tol 1e-7)")
         if not r <= 1e-7:
-            raise AssertionError(f"{key} disagrees with the JAX reference")
+            raise AssertionError(f"{tag}: {key} disagrees with the JAX reference")
 
 
-def phase_slice_full():
-    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+def _full(sqrt, path_kernels):
+    """f32 then f64 at T = 100 000; returns (f32 ELBOs, f32 launch counts)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
 
-    os.environ["PHYSS_KZZ_JITTER"] = "1e-4"
+    tag = "full sqrt" if sqrt else "full"
     out = {}
     for dtype in (torch.float32, torch.float64):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         if dtype == torch.float32:
-            bl.reset_launch_counts()
-        model, elbos, walls = _run_slice(100_000, 25_000, dtype, 3, nan_guard=False)
+            kernels.reset_launch_counts()
+        model, elbos, walls = _run_slice(100_000, 25_000, dtype, 3, nan_guard=False, sqrt=sqrt)
         if dtype == torch.float32:
-            counts = bl.launch_counts()
+            counts = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         finite = bool(np.all(np.isfinite(elbos))
                       and torch.isfinite(model.sites.V).all()
                       and torch.isfinite(model.sites.Y).all())
-        print(f"[full] {str(dtype)[6:]} ELBOs {elbos.tolist()}")
-        print(f"[full] {str(dtype)[6:]} step wall s {[round(w, 4) for w in walls]} "
+        print(f"[{tag}] {str(dtype)[6:]} ELBOs {elbos.tolist()}")
+        print(f"[{tag}] {str(dtype)[6:]} step wall s {[round(w, 4) for w in walls]} "
               f"peak {peak:.2f} GiB finite {finite}")
         if not finite:
-            raise AssertionError(f"non-finite ELBO or sites in {dtype}")
+            raise AssertionError(f"{tag}: non-finite ELBO or sites in {dtype}")
         out[dtype] = elbos
         del model
-    print(f"[full] launches in the float32 run: {counts}")
-    if not all(c > 0 for c in counts.values()):
-        raise AssertionError("a kernel of the main path was never launched")
+    print(f"[{tag}] launches in the float32 run: {counts}")
+    if not all(counts[k] > 0 for k in path_kernels):
+        raise AssertionError(f"{tag}: a kernel of the path was never launched")
     # Step 0 starts from the broad initial sites, where the fp32 projection
     # H P H^T of the stiff collocation heads loses digits in the reference
     # algorithm itself (the JAX package's own float32 and float64 step-0
     # ELBOs differ by 2 % at T = 4000 on the CPU); the bound applies to the
     # steps after it.
     gap = np.abs(out[torch.float32] - out[torch.float64]) / np.abs(out[torch.float64])
-    print(f"[full] float32 vs float64 ELBO rel gap {gap.tolist()} "
+    print(f"[{tag}] float32 vs float64 ELBO rel gap {gap.tolist()} "
           f"(bound 1e-2 on steps 1 and 2; step 0 reported)")
     if not gap[1:].max() <= 1e-2:
-        raise AssertionError("float32 and float64 ELBOs disagree")
-    return counts
+        raise AssertionError(f"{tag}: float32 and float64 ELBOs disagree")
+    return out[torch.float32], counts
+
+
+def phase_slice_full():
+    os.environ["PHYSS_KZZ_JITTER"] = "1e-4"
+    cov_elbos, cov_counts = _full(False, ("bmm", "gj_solve", "gj_solve_logdet"))
+    sqrt_elbos, sqrt_counts = _full(True, tuple(SOURCES))
+    gap = np.abs(sqrt_elbos - cov_elbos) / np.abs(cov_elbos)
+    print(f"[full sqrt] float32 square-root vs covariance ELBO rel gap {gap.tolist()}")
+    return sqrt_counts
 
 
 def main():
@@ -250,18 +412,14 @@ def main():
     phase_device()
     phase_build()
     worst, times = phase_kernels()
-    phase_slice_anchor()
+    phase_slice_anchor(sqrt=False)
+    phase_slice_anchor(sqrt=True)
     counts = phase_slice_full()
-    replaces = {
-        "bmm": "physs_gp_tpu/ops/pallas/batched_linalg.py:131",
-        "gj_solve": "physs_gp_tpu/ops/pallas/batched_linalg.py:68",
-        "gj_solve_logdet": "physs_gp_tpu/ops/pallas/batched_linalg.py:94",
-    }
     kernels = [
-        {"name": name, "route": "cuda", "source": "physs_gp_tpu_torch/csrc/batched_linalg.cu",
-         "replaces": replaces[name], "launches": counts[name], "max_abs_err": worst[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("bmm", "gj_solve", "gj_solve_logdet")
+        {"name": name, "route": "cuda", "source": f"physs_gp_tpu_torch/csrc/{SOURCES[name]}.cu",
+         "replaces": REPLACES[name], "launches": counts[name], "max_abs_err": worst[name],
+         **times[name]}
+        for name in SOURCES
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

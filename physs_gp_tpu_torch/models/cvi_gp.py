@@ -20,7 +20,7 @@ from torch import nn
 from ..approx.cvi import Sites, init_sites, natgrad_update
 from ..likelihoods.nongaussian import expected_log_lik
 from ..ops.gaussian import mask_covariance
-from ..ops.lgssm import build_lgssm, project_cov, project_mean
+from ..ops.lgssm import build_lgssm, project_cov, project_cov_factor, project_mean
 from ..ops.matrix import psd_solve_logdet
 from ..ops.runner import run_filter_smoother
 
@@ -73,7 +73,10 @@ class CVIGP(nn.Module):
             ssm, self.sites.V, self.sites.Y, parallel=self.parallel,
             sqrt=self.sqrt, chunk_size=self.chunk_size,
         )
-        return f.lml, project_mean(ssm.H, s.ms), project_cov(ssm.H, s.Ps)
+        # the square-root smoother ships the covariance factors: (H L)(H L)ᵀ
+        # stays PSD in float32 where H P Hᵀ goes indefinite
+        S = project_cov(ssm.H, s.Ps) if s.Ls is None else project_cov_factor(ssm.H, s.Ls)
+        return f.lml, project_mean(ssm.H, s.ms), S
 
     # ---- ELL terms ----
     def _ell_data(self, m, S):

@@ -9,7 +9,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["LGSSM", "build_lgssm", "project_mean", "project_cov"]
+__all__ = ["LGSSM", "build_lgssm", "project_mean", "project_cov", "project_cov_factor"]
 
 
 class LGSSM(NamedTuple):
@@ -51,6 +51,20 @@ def _Ps_Ht(H, Ps):
     """Y[t, i, q] = sum_j Ps[t, i, j] H[q, j] as one [T*d, d] @ [d, p] product."""
     T, d, _ = Ps.shape
     return (Ps.reshape(T * d, d) @ H.T).reshape(T, d, H.shape[0])
+
+
+def project_cov_factor(H, Ls):
+    """[T, p, p] head covariances (H L)(H L)ᵀ from covariance factors Ls
+    [T, d, d]: PSD by construction, with float32 rounding relative to the
+    projected scale rather than the state scale."""
+    if H.dim() == 2:
+        T, d, _ = Ls.shape
+        p = H.shape[0]
+        # M[t] = H @ Ls[t] as one [p, d] @ [d, T*d] product
+        M = (H @ Ls.movedim(0, 1).reshape(d, T * d)).reshape(p, T, d).movedim(0, 1)
+    else:
+        M = torch.einsum("tpi,tij->tpj", H, Ls)
+    return M @ M.transpose(-1, -2)
 
 
 def project_cov(H, Ps):

@@ -8,18 +8,27 @@ their plain PyTorch versions on the CPU) whenever the kernel can hold the
 matrix size (d <= 80); other shapes go to PyTorch's own routines. The
 solve-calculus custom VJPs of the reference become `torch.autograd.Function`s
 whose backward calls the same forward entry points.
+
+`_cholesky_any(A, assume_psd=True)` (hence `safe_cholesky` and
+`safe_cholesky_rel`) sends every [N, d, d] or single [d, d] matrix with
+3 <= d <= 80 to the pivot-floored Cholesky kernel (`ops/cuda/batched_chol.py`)
+with no batch-size gate; its backward recomputes through
+`torch.linalg.cholesky`, as the reference's does through XLA's.
 """
 from __future__ import annotations
 
 import torch
 
+from .cuda import batched_chol as bc
 from .cuda import batched_linalg as bl
+from .cuda.build import SMEM_LIMIT
 
 __all__ = [
     "add_jitter",
     "default_jitter",
     "symmetrize",
     "safe_cholesky",
+    "safe_cholesky_rel",
     "cholesky_solve",
     "gen_solve",
     "bmm",
@@ -60,8 +69,12 @@ def symmetrize(A):
     return 0.5 * (A + A.transpose(-1, -2))
 
 
-def _cholesky_any(A):
-    """Batched Cholesky with closed-form n <= 2 branches."""
+def _cholesky_any(A, assume_psd: bool = False):
+    """Batched Cholesky with closed-form n <= 2 branches.
+
+    `assume_psd=True` routes [N, d, d] and [d, d] inputs to the batched
+    Cholesky kernel, which floors pivots instead of returning NaN: callers
+    that read NaN as the sign of an indefinite input stay off it."""
     n = A.shape[-1]
     if n == 1:
         return torch.sqrt(A)
@@ -76,12 +89,49 @@ def _cholesky_any(A):
         return torch.stack(
             [torch.stack([l11, z], -1), torch.stack([l21, l22], -1)], -2
         )
+    if assume_psd and A.dim() in (2, 3) and n <= bl.D_MAX:
+        return _KernelCholesky.apply(A)
     return torch.linalg.cholesky(A)
+
+
+class _KernelCholesky(torch.autograd.Function):
+    """Forward: the pivot-floored batched Cholesky (a 2-D input runs as a
+    batch of one); backward: recomputed through `torch.linalg.cholesky`
+    (the same factor for PD inputs; callers jitter where pivots would be
+    floored)."""
+
+    @staticmethod
+    def forward(ctx, A):
+        ctx.save_for_backward(A)
+        if A.dim() == 2:
+            return bc.batch_cholesky(_unit_last(A[None]))[0]
+        return bc.batch_cholesky(_unit_last(A))
+
+    @staticmethod
+    def backward(ctx, ct):
+        (A,) = ctx.saved_tensors
+        with torch.enable_grad():
+            a = A.detach().requires_grad_(True)
+            (grad,) = torch.autograd.grad(torch.linalg.cholesky(a), a, ct)
+        return grad
 
 
 def safe_cholesky(A, jitter: float | None = DEFAULT_JITTER):
     """Cholesky of sym(A) + jitter I."""
-    return _cholesky_any(add_jitter(symmetrize(A), jitter))
+    return _cholesky_any(add_jitter(symmetrize(A), jitter), assume_psd=True)
+
+
+def safe_cholesky_rel(A, rel: float | None = None):
+    """Cholesky of sym(A) + (rel * max|diag A| + 1e-30) I: a relative jitter
+    with an absolute floor, so an exactly-zero A (e.g. Q at dt = 0) factors
+    to a negligible multiple of I; differentiable everywhere."""
+    if rel is None:
+        rel = default_jitter(A.dtype)
+    scale = torch.amax(torch.abs(torch.diagonal(A, dim1=-2, dim2=-1)), -1)
+    eps = rel * scale + 1e-30
+    return _cholesky_any(
+        symmetrize(A) + eps[..., None, None] * _eye(A.shape[-1], A), assume_psd=True
+    )
 
 
 def cholesky_solve(L, B):
@@ -116,6 +166,16 @@ def _kernel_shapes(A, B) -> bool:
     )
 
 
+def _solve_shapes(A, B) -> bool:
+    """The solve kernel holds [A | B] in shared memory: d <= 80 and as many
+    right-hand sides as fit (97 on the square-root path)."""
+    if not (A.dim() == 3 and B.dim() == 3 and A.shape[0] == B.shape[0]):
+        return False
+    d, r = A.shape[-1], B.shape[-1]
+    words = d * (d + r) + d + (d + r)
+    return d <= bl.D_MAX and words * A.element_size() <= SMEM_LIMIT
+
+
 def _unit_last(X):
     """X with unit stride along its last dimension (copy only if needed)."""
     if X.shape[-1] == 1 or X.stride(-1) == 1:
@@ -124,20 +184,20 @@ def _unit_last(X):
 
 
 def _psd_solve_primal(A, B):
-    if _kernel_shapes(A, B):
+    if _solve_shapes(A, B):
         return bl.batch_solve(_unit_last(A), _unit_last(B))
     return cholesky_solve(_cholesky_any(A), B)
 
 
 def _psd_solve_logdet_primal(A, B):
-    if _kernel_shapes(A, B):
+    if _solve_shapes(A, B):
         return bl.batch_solve_logdet(_unit_last(A), _unit_last(B))
     L = _cholesky_any(A)
     return cholesky_solve(L, B), log_det_from_chol(L)
 
 
 def _gen_solve_primal(A, B):
-    if _kernel_shapes(A, B):
+    if _solve_shapes(A, B):
         return bl.batch_solve(_unit_last(A), _unit_last(B))
     return torch.linalg.solve(A, B)
 

@@ -1,15 +1,20 @@
 """Filter/smoother dispatch (PyTorch).
 
-Counterpart of `physs_gp_tpu/ops/runner.py`, covariance form with the
-parallel filters only. The sequential filters, the square-root filters and
-the time-sharded multi-device pass are not ported yet and raise
-`NotImplementedError`.
+Counterpart of `physs_gp_tpu/ops/runner.py` with the parallel filters only,
+in covariance form or square-root form (`sqrt=True`). Square-root variants
+take and return triangular factors inside; the runner converts at the
+boundary, so models always see covariance Ps (and, from the square-root
+smoother, the factors in `Ls`). The sequential filters and the time-sharded
+multi-device pass are not ported yet and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
 import torch
 
-from . import parallel_kalman
+from . import parallel_kalman, parallel_sqrt_kalman
+from .gaussian import mask_covariance
+from .kalman import FilterResult, observation_mask
+from .matrix import safe_cholesky_rel
 
 __all__ = ["run_filter_smoother", "run_filter"]
 
@@ -41,38 +46,67 @@ def _unpad(res, T: int):
     )
 
 
-def _check_supported(parallel, sqrt, mesh):
+def _check_supported(parallel, mesh):
     if mesh is not None:
         raise NotImplementedError("time-axis sharding is not ported yet")
-    if sqrt:
-        raise NotImplementedError("the square-root filters are not ported yet")
     if not parallel:
         raise NotImplementedError("the sequential filters are not ported yet")
 
 
+def _square(F: FilterResult) -> FilterResult:
+    """Covariance-form result of a square-root filter. The predicted factors
+    are dropped: in covariance form Pp must be a covariance."""
+    return F._replace(Ps=F.Ps @ F.Ps.transpose(-1, -2), Pp=None)
+
+
+def _mask_decoupled_R(R, Y):
+    """Decouple the missing rows and columns of R before factoring: the
+    square-root filters mask the factor per step, which implies the masked
+    covariance only when missing rows are already decoupled in R."""
+    return mask_covariance(R, observation_mask(Y, R.dtype))
+
+
+def _run_filter_raw(ssm, R, Y, *, sqrt, chunk_size):
+    """(covariance-form result, (Q factor, raw result)) of one filter pass."""
+    if sqrt:
+        Q_sqrt = safe_cholesky_rel(ssm.Q)
+        R_sqrt = safe_cholesky_rel(_mask_decoupled_R(R, Y))
+        P0_sqrt = safe_cholesky_rel(ssm.P0)
+        f = parallel_sqrt_kalman.parallel_sqrt_kalman_filter(
+            ssm.A, Q_sqrt, ssm.H, R_sqrt, Y, ssm.m0, P0_sqrt, chunk_size=chunk_size
+        )
+        return _square(f), (Q_sqrt, f)
+    f = parallel_kalman.parallel_kalman_filter(
+        ssm.A, ssm.Q, ssm.H, R, Y, ssm.m0, ssm.P0, chunk_size=chunk_size
+    )
+    return f, (None, f)
+
+
 def run_filter(ssm, R, Y, *, parallel=False, sqrt=False, chunk_size=None):
     """One filtering pass; returns (FilterResult, aux) with covariance Ps."""
-    _check_supported(parallel, sqrt, None)
+    _check_supported(parallel, None)
     T = Y.shape[0]
     pad = _pad_amount(T, chunk_size)
     if pad:
         ssm, R, Y = _pad_inputs(ssm, R, Y, pad)
-    f = parallel_kalman.parallel_kalman_filter(
-        ssm.A, ssm.Q, ssm.H, R, Y, ssm.m0, ssm.P0, chunk_size=chunk_size
-    )
-    return _unpad(f, T), (None, f)
+    f, aux = _run_filter_raw(ssm, R, Y, sqrt=sqrt, chunk_size=chunk_size)
+    return _unpad(f, T), aux
 
 
 def run_filter_smoother(ssm, R, Y, *, parallel=False, sqrt=False,
                         chunk_size=None, mesh=None):
     """Filter + smoother; both results carry covariance Ps."""
-    _check_supported(parallel, sqrt, mesh)
+    _check_supported(parallel, mesh)
     T = Y.shape[0]
     pad = _pad_amount(T, chunk_size)
     if pad:
         ssm, R, Y = _pad_inputs(ssm, R, Y, pad)
-    f = parallel_kalman.parallel_kalman_filter(
-        ssm.A, ssm.Q, ssm.H, R, Y, ssm.m0, ssm.P0, chunk_size=chunk_size
-    )
-    s = parallel_kalman.parallel_rts_smoother(ssm.A, ssm.Q, f, chunk_size=chunk_size)
-    return _unpad(f, T), _unpad(s, T)
+    f_cov, (Q_sqrt, f_raw) = _run_filter_raw(ssm, R, Y, sqrt=sqrt, chunk_size=chunk_size)
+    if sqrt:
+        # covariance Ps plus the factors Ls (Gram-form scan, one final Cholesky)
+        s = parallel_sqrt_kalman.parallel_sqrt_rts_smoother(
+            ssm.A, Q_sqrt, f_raw, chunk_size=chunk_size
+        )
+    else:
+        s = parallel_kalman.parallel_rts_smoother(ssm.A, ssm.Q, f_raw, chunk_size=chunk_size)
+    return _unpad(f_cov, T), _unpad(s, T)

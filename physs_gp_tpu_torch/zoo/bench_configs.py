@@ -11,7 +11,9 @@ import numpy as np
 import torch
 
 
-def build_config5(T, chunk, parallel=True, dtype=None, sqrt=False, device="cpu"):
+def build_config5(T, chunk, parallel=True, dtype=None, sqrt=False, device="cuda"):
+    """The config-5 CVI model on `device` (the card unless the caller asks
+    for the CPU); `sqrt=True` runs the square-root filter and smoother."""
     from ..kernels.matern import Matern32
     from ..kernels.rbf import RBF
     from ..kernels.spatio_temporal import SpatioTemporalKernel

@@ -8,17 +8,36 @@ posterior mean and variance. The PyTorch port's tests and `chip_smoke.py`
 hold the port to it; a CPU test checks that the JAX package still
 reproduces it.
 
+`--sqrt` runs the square-root model (`sqrt=True`) into
+`config5_sqrt_T256_golden.npz`. There the smoother's final factorisation
+(`parallel_sqrt_kalman._factor_psd`) takes its TPU branch, the Pallas
+Cholesky with its pivot floor and no added jitter (run in interpret mode),
+which the port follows on every device. Its CPU branch adds 1e-12 I before
+`jnp.linalg.cholesky`, which moves the step-1 ELBO by 2.8e-9 relative.
+
 Usage (from the repository root):
-    python scripts/port/make_config5_golden.py [out.npz]
+    python scripts/port/make_config5_golden.py [--sqrt] [out.npz]
 """
+import functools
 import os
 import sys
 
 GOLDEN = os.path.join("tests", "data", "config5_T256_golden.npz")
+GOLDEN_SQRT = os.path.join("tests", "data", "config5_sqrt_T256_golden.npz")
 T, CHUNK, STEPS, LR = 256, 64, 3, 0.5
 
 
-def reference_run():
+def use_tpu_factor_branch():
+    """Route the JAX square-root smoother's `_factor_psd` to its TPU branch:
+    the Pallas Cholesky (interpret mode) on the symmetrised covariance."""
+    from physs_gp_tpu.ops import matrix, parallel_sqrt_kalman
+    from physs_gp_tpu.ops.pallas import batched_chol
+
+    chol = functools.partial(batched_chol.batch_cholesky.__wrapped__, interpret=True)
+    parallel_sqrt_kalman._factor_psd = lambda L: chol(matrix.symmetrize(L))
+
+
+def reference_run(sqrt: bool = False):
     """Run the JAX reference; returns a dict of numpy arrays."""
     os.environ["PHYSS_INNER_SCAN"] = "blocked"
     os.environ["PHYSS_SCAN_BLOCKS"] = "8"
@@ -32,7 +51,9 @@ def reference_run():
     from physs_gp_tpu.trainers import natgrad_scan
     from physs_gp_tpu.zoo.bench_configs import build_config5
 
-    model = build_config5(T, CHUNK, dtype=jnp.float64)
+    if sqrt:
+        use_tpu_factor_branch()
+    model = build_config5(T, CHUNK, dtype=jnp.float64, sqrt=sqrt)
     model, elbos = jax.jit(lambda m: natgrad_scan(m, LR, n_steps=STEPS))(model)
     post = jax.jit(lambda m: m.posterior())(model)
     return {
@@ -47,9 +68,12 @@ def reference_run():
 def main():
     import numpy as np
 
-    out = sys.argv[1] if len(sys.argv) > 1 else GOLDEN
+    args = sys.argv[1:]
+    sqrt = "--sqrt" in args
+    args = [a for a in args if a != "--sqrt"]
+    out = args[0] if args else (GOLDEN_SQRT if sqrt else GOLDEN)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-    np.savez_compressed(out, **reference_run())
+    np.savez_compressed(out, **reference_run(sqrt))
     print(f"wrote {out} ({os.path.getsize(out)} bytes)")
 
 

@@ -7,6 +7,10 @@ sides, the port's leaves loaded from the JAX model through
 `interop.load_numpy_params`, 3 `natgrad_scan` steps at lr 0.5. ELBOs agree
 to rtol 1e-9, final sites and the posterior to rtol 1e-7 (measured: ~1e-15
 and ~4e-13). The committed golden file is checked against both packages.
+The square-root slice (`sqrt=True`) is held to its own golden file with the
+same tolerances; its reference run takes the TPU branch of the JAX
+smoother's `_factor_psd` (the pivot-floored Cholesky without jitter), which
+the port follows on every device.
 """
 import os
 import subprocess
@@ -37,6 +41,7 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "data", "config5_T256_golden.npz")
+GOLDEN_SQRT = os.path.join(REPO, "tests", "data", "config5_sqrt_T256_golden.npz")
 STEP0_ELBO = -199098.6309421814  # JAX, CPU, float64, both scan schedules
 T, CHUNK = 256, 64
 
@@ -56,8 +61,8 @@ def _jax_leaves(model):
     return out
 
 
-def _port_model(jmodel):
-    model = tbuild(T, CHUNK, dtype=torch.float64)
+def _port_model(jmodel, sqrt=False):
+    model = tbuild(T, CHUNK, dtype=torch.float64, sqrt=sqrt, device="cpu")
     load_numpy_params(model, _jax_leaves(jmodel))
     return model
 
@@ -99,7 +104,7 @@ def test_rbf_k_op(kind):
 
 def test_kzz_observation_rows_and_lgssm():
     jm = jbuild(64, None, dtype=jnp.float64)
-    tm = tbuild(64, None, dtype=torch.float64)
+    tm = tbuild(64, None, dtype=torch.float64, device="cpu")
     load_numpy_params(tm, _jax_leaves(jm))
     _close(tm.kernel.Kzz(), jax.jit(lambda m: m.kernel.Kzz())(jm), 1e-13)
     jH = jax.jit(lambda m: m.observation.H(m.kernel))(jm)
@@ -115,7 +120,7 @@ def test_kzz_observation_rows_and_lgssm():
 @pytest.mark.parametrize("op", [None, "grad", "laplacian"])
 def test_conditional_var_correction(op):
     jm = jbuild(8, None, dtype=jnp.float64)
-    tm = tbuild(8, None, dtype=torch.float64)
+    tm = tbuild(8, None, dtype=torch.float64, device="cpu")
     load_numpy_params(tm, _jax_leaves(jm))
     s = np.random.default_rng(2).uniform(size=(5, 2))
     jop = {None: None, "grad": jops.s_grad(0), "laplacian": jops.s_laplacian}[op]
@@ -129,7 +134,7 @@ def test_conditional_var_correction(op):
 
 
 def test_operator_without_kind_raises():
-    tm = tbuild(8, None, dtype=torch.float64)
+    tm = tbuild(8, None, dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError):
         tm.kernel.spatial_weights(tm.kernel.Z, lambda k, s, z: k(s, z))
 
@@ -139,8 +144,8 @@ def test_operator_without_kind_raises():
 # ---------------------------------------------------------------------------
 
 
-def _port_run(jmodel):
-    model, elbos = tscan(_port_model(jmodel), 0.5, n_steps=3)
+def _port_run(jmodel, sqrt=False):
+    model, elbos = tscan(_port_model(jmodel, sqrt), 0.5, n_steps=3)
     return model, elbos
 
 
@@ -190,8 +195,42 @@ def test_port_matches_jax_default_schedule(monkeypatch):
     _check_against(model, elbos, ref)
 
 
+def test_jax_reproduces_sqrt_golden(monkeypatch):
+    import functools
+
+    from physs_gp_tpu.ops import matrix as jmatrix
+    from physs_gp_tpu.ops import parallel_sqrt_kalman as jpsk
+    from physs_gp_tpu.ops.pallas import batched_chol as jbc
+
+    monkeypatch.setenv("PHYSS_INNER_SCAN", "blocked")
+    monkeypatch.setenv("PHYSS_SCAN_BLOCKS", "8")
+    # `_factor_psd`'s TPU branch: the Pallas Cholesky, run in interpret mode
+    chol = functools.partial(jbc.batch_cholesky.__wrapped__, interpret=True)
+    monkeypatch.setattr(jpsk, "_factor_psd", lambda L: chol(jmatrix.symmetrize(L)))
+    gold = np.load(GOLDEN_SQRT)
+    j0 = jbuild(T, CHUNK, dtype=jnp.float64, sqrt=True)
+    jm, je = jax.jit(lambda m: jscan(m, 0.5, n_steps=3))(j0)
+    post = jax.jit(lambda m: m.posterior())(jm)
+    _close(je, gold["elbos"], 1e-12)
+    _close(jm.sites.Y, gold["site_Y"], 1e-10, 1e-14)
+    _close(post.mean, gold["post_mean"], 1e-10, 1e-12)
+    _close(post.var, gold["post_var"], 1e-10)
+
+
+def test_port_matches_sqrt_golden(monkeypatch):
+    monkeypatch.setenv("PHYSS_SCAN_BLOCKS", "8")
+    model, elbos = _port_run(jbuild(T, CHUNK, dtype=jnp.float64, sqrt=True), sqrt=True)
+    _check_against(model, elbos, dict(np.load(GOLDEN_SQRT)))
+
+
+def test_build_config5_defaults_to_the_card():
+    import inspect
+
+    assert inspect.signature(tbuild).parameters["device"].default == "cuda"
+
+
 def test_interop_rejects_unknown_paths():
-    model = tbuild(8, None, dtype=torch.float64)
+    model = tbuild(8, None, dtype=torch.float64, device="cpu")
     with pytest.raises(KeyError):
         load_numpy_params(model, {".kernel.nope": np.zeros(())})
     with pytest.raises(ValueError):

@@ -1,14 +1,3 @@
 """Hand-written CUDA kernels and their wrappers; the launch counts of all."""
-from . import batched_chol, batched_linalg, batched_qr
-
-_MODULES = (batched_linalg, batched_qr, batched_chol)
-
-
-def launch_counts() -> dict:
-    """Launches per kernel: bmm, gj_solve, gj_solve_logdet, lq, chol, chol_gram."""
-    return {k: v for m in _MODULES for k, v in m.launch_counts().items()}
-
-
-def reset_launch_counts() -> None:
-    for m in _MODULES:
-        m.reset_launch_counts()
+from . import batched_chol, batched_linalg, batched_qr  # noqa: F401
+from .build import launch_counts, reset_launch_counts  # noqa: F401

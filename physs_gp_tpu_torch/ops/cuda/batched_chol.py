@@ -17,13 +17,14 @@ in float32 and 1e-14 in float64.
 
 Both kernels are in `csrc/batched_factor.cu`. `cholesky_plain` and
 `chol_gram_plain` are the same elimination in batched tensor ops, taken for
-CPU tensors. Launch counts are in `<wrapper>.launches`.
+CPU tensors. `ops/cuda/build.py` counts the launches (`launch_counts`).
 """
 from __future__ import annotations
 
 import torch
 
-from .build import D_MAX, check_smem, dtype_code, library, on_cpu, raise_on, row_stride, stream_of, threads_for
+from . import build
+from .build import D_MAX, check_smem, dtype_code, launch, on_cpu, row_stride, stream_of, threads_for
 
 __all__ = [
     "batch_cholesky",
@@ -71,7 +72,7 @@ def chol_gram_plain(X, Y=None, plus_eye: bool = False, eps_rel=None):
     return _eliminate(A, _eps_rel(X.dtype, eps_rel))
 
 
-def _launch(name, X, Y, gram: bool, plus_eye: bool, eps_rel):
+def _launch(name, kernel, X, Y, gram: bool, plus_eye: bool, eps_rel):
     N, d, mx = X.shape
     my = 0 if Y is None else Y.shape[-1]
     if d > D_MAX or mx > D_MAX or my > D_MAX:
@@ -82,12 +83,12 @@ def _launch(name, X, Y, gram: bool, plus_eye: bool, eps_rel):
     if N == 0:
         return L
     Yk = X if Y is None else Y
-    err = library("batched_factor").physs_chol(
-        dtype_code(X), int(gram), X.data_ptr(), Yk.data_ptr(), L.data_ptr(), N, d,
-        mx, my, X.stride(0), row_stride(X), Yk.stride(0), row_stride(Yk),
-        int(plus_eye), _eps_rel(X.dtype, eps_rel), threads_for(d * d), stream_of(X),
+    launch(
+        kernel, "batched_factor", "physs_chol", dtype_code(X), int(gram), X.data_ptr(),
+        Yk.data_ptr(), L.data_ptr(), N, d, mx, my, X.stride(0), row_stride(X),
+        Yk.stride(0), row_stride(Yk), int(plus_eye), _eps_rel(X.dtype, eps_rel),
+        threads_for(d * d), stream_of(X),
     )
-    raise_on(err, name)
     return L
 
 
@@ -97,12 +98,7 @@ def batch_cholesky(A, eps_rel=None):
         raise ValueError(f"batch_cholesky: need A [N, d, d], got {list(A.shape)}")
     if on_cpu("batch_cholesky", A):
         return cholesky_plain(A, eps_rel)
-    L = _launch("batch_cholesky", A, None, False, False, eps_rel)
-    batch_cholesky.launches += 1
-    return L
-
-
-batch_cholesky.launches = 0
+    return _launch("batch_cholesky", "chol", A, None, False, False, eps_rel)
 
 
 def batch_chol_gram(X, Y=None, plus_eye: bool = False, eps_rel=None):
@@ -113,18 +109,12 @@ def batch_chol_gram(X, Y=None, plus_eye: bool = False, eps_rel=None):
     xs = (X,) if Y is None else (X, Y)
     if on_cpu("batch_chol_gram", *xs):
         return chol_gram_plain(X, Y, plus_eye, eps_rel)
-    L = _launch("batch_chol_gram", X, Y, True, plus_eye, eps_rel)
-    batch_chol_gram.launches += 1
-    return L
-
-
-batch_chol_gram.launches = 0
+    return _launch("batch_chol_gram", "chol_gram", X, Y, True, plus_eye, eps_rel)
 
 
 def launch_counts() -> dict:
-    return {"chol": batch_cholesky.launches, "chol_gram": batch_chol_gram.launches}
+    return build.launch_counts("chol", "chol_gram")
 
 
 def reset_launch_counts() -> None:
-    batch_cholesky.launches = 0
-    batch_chol_gram.launches = 0
+    build.reset_launch_counts("chol", "chol_gram")

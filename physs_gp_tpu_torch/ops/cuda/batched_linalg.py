@@ -18,14 +18,15 @@ along the last dimension; the batch and row strides are passed to the kernel,
 so column slices and broadcast (stride-0) batches need no copy. Outputs are
 new contiguous tensors.
 
-The kernels are built at first use by `ops/cuda/build.py`. Each wrapper
-counts its launches in `<wrapper>.launches`.
+The kernels are built at first use by `ops/cuda/build.py`, which counts
+their launches (`launch_counts`).
 """
 from __future__ import annotations
 
 import torch
 
-from .build import D_MAX, check_smem, dtype_code, library, on_cpu, raise_on, row_stride, stream_of
+from . import build
+from .build import D_MAX, check_smem, dtype_code, launch, on_cpu, row_stride, stream_of, threads_for
 
 __all__ = [
     "batch_bmm",
@@ -111,17 +112,12 @@ def batch_bmm(A, B, ta: bool = False, tb: bool = False):
     per = (m * k + k * n) * A.element_size()
     # several small products per block so that each block keeps its threads busy
     G = max(1, min(_THREADS // (m * n), (48 * 1024) // per, N))
-    err = library("batched_linalg").physs_bmm(
-        dtype_code(A), int(ta), int(tb), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), N, m, n, k, A.stride(0), row_stride(A), B.stride(0),
-        row_stride(B), G, _THREADS, stream_of(A),
+    launch(
+        "bmm", "batched_linalg", "physs_bmm", dtype_code(A), int(ta), int(tb),
+        A.data_ptr(), B.data_ptr(), C.data_ptr(), N, m, n, k, A.stride(0),
+        row_stride(A), B.stride(0), row_stride(B), G, _THREADS, stream_of(A),
     )
-    raise_on(err, "batch_bmm")
-    batch_bmm.launches += 1
     return C
-
-
-batch_bmm.launches = 0
 
 
 def batch_matmul(A, B):
@@ -143,14 +139,12 @@ def _solve(name, M, R, logdet: bool):
     ld = torch.empty((N,), dtype=M.dtype, device=M.device)
     if N == 0:
         return X, ld
-    threads = max(32, min(_THREADS, -(-d * (d + r) // 32) * 32))
-    err = library("batched_linalg").physs_gj_solve(
+    launch(
+        "gj_solve_logdet" if logdet else "gj_solve", "batched_linalg", "physs_gj_solve",
         dtype_code(M), int(logdet), M.data_ptr(), R.data_ptr(), X.data_ptr(),
         ld.data_ptr(), N, d, r, M.stride(0), row_stride(M), R.stride(0),
-        row_stride(R), threads, stream_of(M),
+        row_stride(R), threads_for(d * (d + r)), stream_of(M),
     )
-    raise_on(err, name)
-    (batch_solve_logdet if logdet else batch_solve).launches += 1
     return X, ld
 
 
@@ -159,27 +153,17 @@ def batch_solve(M, R):
     return _solve("batch_solve", M, R, logdet=False)[0]
 
 
-batch_solve.launches = 0
-
-
 def batch_solve_logdet(M, R):
     """(X, log|det M|) for SPD M [N, d, d], R [N, d, r]."""
     return _solve("batch_solve_logdet", M, R, logdet=True)
 
 
-batch_solve_logdet.launches = 0
-
-_WRAPPERS = {
-    "bmm": batch_bmm,
-    "gj_solve": batch_solve,
-    "gj_solve_logdet": batch_solve_logdet,
-}
+_KERNELS = ("bmm", "gj_solve", "gj_solve_logdet")
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    return build.launch_counts(*_KERNELS)
 
 
 def reset_launch_counts() -> None:
-    for fn in _WRAPPERS.values():
-        fn.launches = 0
+    build.reset_launch_counts(*_KERNELS)

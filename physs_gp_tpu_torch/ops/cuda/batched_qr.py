@@ -6,14 +6,15 @@ L Lᵀ = B Bᵀ, its diagonal made non-negative by flipping the sign of each
 column whose diagonal entry is negative (0 counts as positive), and an
 exactly zero upper triangle. The kernel is `lq_kernel<T>` in
 `csrc/batched_factor.cu` (replaces `_lq_kernel`); `tria_plain` is the same
-Householder LQ in batched tensor ops, taken for CPU tensors. The launch count
-is `batch_tria.launches`.
+Householder LQ in batched tensor ops, taken for CPU tensors. `ops/cuda/build.py`
+counts the launches (`launch_counts`).
 """
 from __future__ import annotations
 
 import torch
 
-from .build import D_MAX, check_smem, dtype_code, library, on_cpu, raise_on, row_stride, stream_of, threads_for
+from . import build
+from .build import D_MAX, check_smem, dtype_code, launch, on_cpu, row_stride, stream_of, threads_for
 
 __all__ = ["batch_tria", "tria_plain", "launch_counts", "reset_launch_counts"]
 
@@ -56,21 +57,16 @@ def batch_tria(B):
     L = torch.empty((N, d, d), dtype=B.dtype, device=B.device)
     if N == 0:
         return L
-    err = library("batched_factor").physs_lq(
-        dtype_code(B), B.data_ptr(), L.data_ptr(), N, d, m, B.stride(0),
-        row_stride(B), threads_for((d - 1) * m), stream_of(B),
+    launch(
+        "lq", "batched_factor", "physs_lq", dtype_code(B), B.data_ptr(), L.data_ptr(),
+        N, d, m, B.stride(0), row_stride(B), threads_for((d - 1) * m), stream_of(B),
     )
-    raise_on(err, "batch_tria")
-    batch_tria.launches += 1
     return L
 
 
-batch_tria.launches = 0
-
-
 def launch_counts() -> dict:
-    return {"lq": batch_tria.launches}
+    return build.launch_counts("lq")
 
 
 def reset_launch_counts() -> None:
-    batch_tria.launches = 0
+    build.reset_launch_counts("lq")

@@ -4,7 +4,8 @@ Each source is compiled by `nvcc` for sm_90a at first use into `_build/`
 beside this package, under a name keyed by a hash of the source and flags,
 and loaded through ctypes. `build()` starts one `nvcc` per source that is
 not built yet, all side by side, and waits for them together. The helpers
-below are the operand checks and launch plumbing the wrappers share.
+below are the operand checks and launch plumbing the wrappers share;
+`launch` counts every kernel launch in `LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -19,7 +20,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build", "library", "build_info", "SMEM_LIMIT", "D_MAX"]
+__all__ = [
+    "build", "library", "build_info", "SMEM_LIMIT", "D_MAX", "LAUNCHES", "launch",
+    "launch_counts", "reset_launch_counts",
+]
 
 _PKG = Path(__file__).resolve().parents[2]
 _BUILD_DIR = _PKG / "_build"
@@ -158,9 +162,27 @@ def check_smem(name, words: int, x) -> None:
         )
 
 
-def raise_on(err: int, name: str) -> None:
+# launches per kernel, counted where the entry point is called and nowhere else
+LAUNCHES = dict.fromkeys(("bmm", "gj_solve", "gj_solve_logdet", "lq", "chol", "chol_gram"), 0)
+
+
+def launch(kernel: str, source: str, entry: str, *args) -> None:
+    """Call `entry` of `source`'s library, raise on its error, count one
+    launch of `kernel`."""
+    err = getattr(library(source), entry)(*args)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+        raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
+    LAUNCHES[kernel] += 1
+
+
+def launch_counts(*kernels: str) -> dict:
+    """Launches of the named kernels (all of them when none is named)."""
+    return {k: LAUNCHES[k] for k in (kernels or LAUNCHES)}
+
+
+def reset_launch_counts(*kernels: str) -> None:
+    for k in kernels or tuple(LAUNCHES):
+        LAUNCHES[k] = 0
 
 
 def stream_of(x) -> int:

@@ -51,7 +51,7 @@ def tria(B, assume_full_rank: bool = False):
     bounded gradients. `assume_full_rank=True` skips both, for pre-arrays
     with a full-row-rank block ([G, I], [H U, R^1/2])."""
     if assume_full_rank:
-        return _TriaCore.apply(B)
+        return _TriaCore.apply(B, _tria_canonical_ref)
     d, m = B.shape[-2], B.shape[-1]
     if m < d:  # zero columns leave B Bᵀ unchanged; the LQ needs m >= d
         B = torch.cat([B, B.new_zeros(B.shape[:-1] + (d - m,))], -1)
@@ -61,13 +61,7 @@ def tria(B, assume_full_rank: bool = False):
     is_zero = scale <= 2.0 * floor ** 0.5
     eye = torch.eye(d, m, dtype=B.dtype, device=B.device)
     B_safe = torch.where(is_zero, eye, B)
-    return torch.where(is_zero, 0.0, _TriaCoreGradreg.apply(B_safe))
-
-
-def _tria_core_primal(B):
-    d, m = B.shape[-2:]
-    L = batch_tria(_unit_last(B.reshape(-1, d, m)))
-    return L.reshape(B.shape[:-1] + (d,))
+    return torch.where(is_zero, 0.0, _TriaCore.apply(B_safe, _tria_reg))
 
 
 def _tria_canonical_ref(B):
@@ -90,30 +84,20 @@ def _tria_reg(B):
 
 
 class _TriaCore(torch.autograd.Function):
-    """Forward: the LQ kernel; backward: through the QR of B."""
+    """Forward: the LQ kernel on B; backward: through `ref` (the QR of B,
+    `_tria_canonical_ref`, or of the regularised pre-array, `_tria_reg`)."""
 
     @staticmethod
-    def forward(ctx, B):
+    def forward(ctx, B, ref):
         ctx.save_for_backward(B)
-        return _tria_core_primal(B)
+        ctx.ref = ref
+        d, m = B.shape[-2:]
+        L = batch_tria(_unit_last(B.reshape(-1, d, m)))
+        return L.reshape(B.shape[:-1] + (d,))
 
     @staticmethod
     def backward(ctx, ct):
-        return _vjp(_tria_canonical_ref, ct, *ctx.saved_tensors)
-
-
-class _TriaCoreGradreg(torch.autograd.Function):
-    """Forward: the LQ kernel on B itself; backward: through the QR of the
-    regularised pre-array."""
-
-    @staticmethod
-    def forward(ctx, B):
-        ctx.save_for_backward(B)
-        return _tria_core_primal(B)
-
-    @staticmethod
-    def backward(ctx, ct):
-        return _vjp(_tria_reg, ct, *ctx.saved_tensors)
+        return *_vjp(ctx.ref, ct, *ctx.saved_tensors), None
 
 
 def _eye_like(X):

@@ -204,6 +204,16 @@ def test_cuda_kernels_match_plain(cuda, dtype, N, d, m):
 
 
 @pytest.mark.cuda
+def test_cuda_empty_batch_counts_no_launch(cuda):
+    kernels.reset_launch_counts()
+    x = torch.zeros(0, 4, 4, device=cuda)
+    assert bq.batch_tria(x).shape == (0, 4, 4)
+    assert bc.batch_cholesky(x).shape == (0, 4, 4)
+    assert bc.batch_chol_gram(x, x, plus_eye=True).shape == (0, 4, 4)
+    assert not any(kernels.launch_counts().values())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_cuda_sqrt_routing_matches_cpu(cuda, dtype):
     """tria, tria_sum and safe_cholesky_rel on the card (strided and

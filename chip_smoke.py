@@ -1,23 +1,28 @@
 """Drive the PyTorch port's config-5 CVI step on one CUDA card, in covariance
-and in square-root form.
+form (unfused and with the fused combines) and in square-root form.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. device: versions, card name and power limit, TF32 off;
-  2. build: compile both kernel libraries from physs_gp_tpu_torch/csrc, one
-     nvcc per source, side by side;
-  3. kernels: each of the six kernels against its plain PyTorch version on
-     the card, in float64 and float32, at the main path's shapes, wide and
-     odd shapes, with all-zero and rank-deficient batch members; then
-     kernel, plain and library call timed with CUDA events beside the
-     bound from bytes and operations;
+  2. build: compile the three kernel libraries from physs_gp_tpu_torch/csrc,
+     one nvcc per source, side by side;
+  3. kernels: each of the eight kernels against its plain PyTorch version on
+     the card, in float64 and float32, at the main path's shapes (for the
+     fused combines the blocked scan's strided and stride-0 views), wide and
+     odd shapes, with all-zero, rank-deficient, identity and chunk-first
+     batch members; then kernel, plain and library call timed with CUDA
+     events beside the bound from bytes and operations;
   4. anchors against the JAX reference, float64, T = 256, 3 steps: the
-     covariance slice against tests/data/config5_T256_golden.npz and the
-     square-root slice against tests/data/config5_sqrt_T256_golden.npz;
-  5. full width, T = 100 000, chunk 25 000, 3 steps each: covariance float32
-     then float64, square-root float32 then float64; launch counters reset
-     just before each float32 run and read just after.
+     covariance slice, unfused and with PHYSS_FUSED_COMBINE=1, against
+     tests/data/config5_T256_golden.npz and the square-root slice against
+     tests/data/config5_sqrt_T256_golden.npz;
+  5. oracle, float64, T = 2048: one filter + smoother pass through the fused
+     scans against the port's sequential Kalman filter and RTS smoother;
+  6. full width, T = 100 000, chunk 25 000, 3 steps each: covariance float32
+     then float64, the same with PHYSS_FUSED_COMBINE=1, square-root float32
+     then float64; launch counters reset just before each float32 run and
+     read just after.
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -40,16 +45,18 @@ GOLDEN_SQRT = os.path.join(REPO, "tests", "data", "config5_sqrt_T256_golden.npz"
 # factors' products then differ by ~1e-3 of the member's scale.
 TOL = {
     torch.float64: {"bmm": 1e-12, "solve": 1e-10, "logdet": 1e-10, "factor": 1e-11,
-                    "rankdef": 1e-11},
+                    "rankdef": 1e-11, "fused": 1e-10},
     torch.float32: {"bmm": 1e-5, "solve": 1e-4, "logdet": 1e-4, "factor": 2e-5,
-                    "rankdef": 1e-2},
+                    "rankdef": 1e-2, "fused": 1e-4},  # fused: the solve's, per field
 }
 N_MAIN, N_LML, D = 25_000, 100_000, 32
+N_SCAN = 256  # blocks of the blocked scan: the batch of its sequential pass
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
 SOURCES = {
     "bmm": "batched_linalg", "gj_solve": "batched_linalg", "gj_solve_logdet": "batched_linalg",
     "lq": "batched_factor", "chol": "batched_factor", "chol_gram": "batched_factor",
+    "fused_filter": "fused_combine", "fused_smooth": "fused_combine",
 }
 REPLACES = {
     "bmm": "physs_gp_tpu/ops/pallas/batched_linalg.py:131",
@@ -58,7 +65,10 @@ REPLACES = {
     "lq": "physs_gp_tpu/ops/pallas/batched_qr.py:46",
     "chol": "physs_gp_tpu/ops/pallas/batched_chol.py:101",
     "chol_gram": "physs_gp_tpu/ops/pallas/batched_chol.py:56",
+    "fused_filter": "physs_gp_tpu/ops/pallas/fused_combine.py:130",
+    "fused_smooth": "physs_gp_tpu/ops/pallas/fused_combine.py:161",
 }
+FUSED = ("fused_filter", "fused_smooth")
 
 
 def phase_device():
@@ -80,7 +90,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     build.build()
-    print(f"[build] both libraries in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {len(build.build_info)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, info in build.build_info.items():
         print(f"[build] {info['path']}")
         for line in info["log"].splitlines():
@@ -111,6 +121,40 @@ def _factors(gen, N, d, m, dtype, rank=2):
     if N > 1:
         X[1] = _randn(gen, d, rank) @ _randn(gen, rank, m)
     return X.to(dtype)
+
+
+def _filter_elems(gen, N, d, dtype, first=1):
+    """Random filtering elements (A, b, C, J, eta); member 0 is the identity
+    element, member `first` a chunk's first element (A = 0, J = 0, eta = 0)."""
+    from physs_gp_tpu_torch.ops.parallel_kalman import _FilterElems
+
+    A, b, eta = 0.1 * _randn(gen, N, d, d), _randn(gen, N, d), _randn(gen, N, d)
+    C = 0.3 * _spd(gen, N, d, torch.float64, dom=1.0)
+    J = 0.3 * _spd(gen, N, d, torch.float64, dom=1.0)
+    A[0], b[0], C[0], J[0], eta[0] = torch.eye(d, dtype=torch.float64, device="cuda"), 0.0, 0.0, 0.0, 0.0
+    A[first], J[first], eta[first] = 0.0, 0.0, 0.0
+    return _FilterElems(*(x.to(dtype) for x in (A, b, C, J, eta)))
+
+
+def _smoother_elems(gen, N, d, dtype, last=1):
+    """Random smoothing elements (E, g, L); member 0 is the identity element,
+    member `last` a series' last element (E = 0)."""
+    from physs_gp_tpu_torch.ops.parallel_kalman import _SmootherElems
+
+    E, g = 0.2 * _randn(gen, N, d, d), _randn(gen, N, d)
+    L = _spd(gen, N, d, torch.float64, dom=0.5)
+    E[0], g[0], L[0] = torch.eye(d, dtype=torch.float64, device="cuda"), 0.0, 0.0
+    E[last] = 0.0
+    return _SmootherElems(*(x.to(dtype) for x in (E, g, L)))
+
+
+def _scan_views(elems, ident, B, L, l):
+    """(carry, x[l]) as the blocked scan's sequential pass builds them: the
+    identity element expanded with batch stride 0 and a strided view of
+    [L, B, ...] (batch stride L d d, L d for the vectors)."""
+    carry = type(elems)(*(x.expand((B,) + tuple(x.shape)) for x in ident))
+    x = type(elems)(*(v.reshape((B, L) + tuple(v.shape[1:])).transpose(0, 1)[l] for v in elems))
+    return carry, x
 
 
 def _chol_rank(d):
@@ -144,9 +188,11 @@ def _nbytes(*xs):
 
 
 def phase_kernels():
+    from physs_gp_tpu_torch.ops import parallel_kalman as pk
     from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
     from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
     from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
+    from physs_gp_tpu_torch.ops.cuda import fused_combine as fc
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {name: 0.0 for name in SOURCES}
@@ -177,6 +223,15 @@ def phase_kernels():
         if not keep.all():
             report(name, "rankdef", *_rel(G[1], Gp[1]), dtype, f"{label} rank-deficient L L^T")
 
+    def check_fused(name, out, ref, dtype, label):
+        for field, a, b in zip(out._fields, out, ref):
+            if not a.is_contiguous():
+                raise AssertionError(f"{name} {label}: {field} is not contiguous")
+            ab = float((a - b).abs().max())
+            report(name, "fused", ab / max(float(b.abs().max()), 1e-30), ab, dtype, f"{label} {field}")
+
+    # the largest state dimension the filtering kernel holds in float64
+    d_wide = max(d for d in range(D, 129) if fc.fits(d, torch.float64))
     for dtype in (torch.float64, torch.float32):
         wide = dtype == torch.float64  # d = 64 and 80 run in float64
         # bmm: all four transposes at [25000, 32, 32], rectangular, edges
@@ -238,8 +293,34 @@ def phase_kernels():
             check_factor("chol_gram", bc.batch_chol_gram(X, Y, eye),
                          bc.chol_gram_plain(X, Y, eye), dtype,
                          f"[{N},{d},{mx}]+[{N},{d},{my}] plus_eye={eye:d}", not eye)
+        # fused combines: the sequential pass's and the Sklansky levels'
+        # batches, full width, odd and the widest shapes, then the scan's views
+        for N, d in [(N_SCAN, D), (N_SCAN // 2, D), (N_MAIN, D), (300, 7), (16, d_wide)]:
+            if d > D and not wide:
+                continue
+            ei, ej = _filter_elems(gen, N, d, dtype), _filter_elems(gen, N, d, dtype, first=2)
+            check_fused("fused_filter", fc.fused_filtering_combine(ei, ej),
+                        fc.fused_filter_plain(ei, ej), dtype, f"[{N},{d},{d}]")
+            sj, si = _smoother_elems(gen, N, d, dtype), _smoother_elems(gen, N, d, dtype, last=2)
+            check_fused("fused_smooth", fc.fused_smoothing_combine(sj, si),
+                        fc.fused_smooth_plain(sj, si), dtype, f"[{N},{d},{d}]")
+        carry, x = _scan_views(_filter_elems(gen, 3 * N_SCAN, D, dtype),
+                               pk._ident_filter_elem(D, torch.empty(0, dtype=dtype, device="cuda")),
+                               N_SCAN, 3, 1)
+        assert carry.A.stride(0) == 0 and x.A.stride(0) == 3 * D * D and x.b.stride(0) == 3 * D
+        for label, (a, b) in {"stride-0 carry, strided x": (carry, x), "strided x, x": (x, x)}.items():
+            check_fused("fused_filter", fc.fused_filtering_combine(a, b),
+                        fc.fused_filter_plain(a, b), dtype, f"[{N_SCAN},{D},{D}] {label}")
+        carry, x = _scan_views(_smoother_elems(gen, 3 * N_SCAN, D, dtype),
+                               pk._ident_smoother_elem(D, torch.empty(0, dtype=dtype, device="cuda")),
+                               N_SCAN, 3, 2)
+        for label, (a, b) in {"stride-0 carry, strided x": (carry, x), "strided x, x": (x, x)}.items():
+            check_fused("fused_smooth", fc.fused_smoothing_combine(a, b),
+                        fc.fused_smooth_plain(a, b), dtype, f"[{N_SCAN},{D},{D}] {label}")
     torch.cuda.synchronize()
-    return worst, _time_kernels(gen)
+    times = _time_kernels(gen)
+    times.update(_time_fused(gen))
+    return worst, times
 
 
 def _time_kernels(gen):
@@ -311,6 +392,78 @@ def _time_kernels(gen):
     return out
 
 
+def _time_device(fn, n=200):
+    """ms of device time per call for a kernel that runs shorter than its own
+    launch path takes on the host: n calls are enqueued while the device is
+    busy with large products, so that they run back to back between the two
+    events."""
+    blocker = torch.randn(8192, 8192, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()
+    for products in (3, 12):
+        torch.cuda.synchronize()
+        for _ in range(products):
+            blocker @ blocker
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        queued = not start.query()  # the device had not reached the first call yet
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / n
+    raise AssertionError("the host could not enqueue the calls ahead of the device")
+
+
+def _time_fused(gen):
+    """The two fused combines, float32, at the scan's batch [256, 32, 32] (the
+    shape of all their launches on the main path; device time back to back,
+    operands warm in L2 as the scan leaves them) and at [25000, 32, 32]
+    (CUDA events around a run of calls, like the other kernels). No single
+    PyTorch call computes either combine: the unfused route's time for the
+    same operands (its own launches) is printed beside them, labelled."""
+    from physs_gp_tpu_torch.ops import parallel_kalman as pk
+    from physs_gp_tpu_torch.ops.cuda import fused_combine as fc
+
+    f32, d = torch.float32, D
+    out = {}
+    for N in (N_SCAN, N_MAIN):
+        ei, ej = _filter_elems(gen, N, d, f32), _filter_elems(gen, N, d, f32, first=2)
+        sj, si = _smoother_elems(gen, N, d, f32), _smoother_elems(gen, N, d, f32, last=2)
+        timed = {  # kernel, plain, unfused route, bytes, flops
+            "fused_filter": (lambda: fc.fused_filtering_combine(ei, ej),
+                             lambda: fc.fused_filter_plain(ei, ej),
+                             lambda: pk._filtering_operator_unfused(ei, ej),
+                             _nbytes(*ei, *ej) + 4 * N * (3 * d * d + 2 * d),
+                             # eight products, the inverse's d steps on d live columns, five mat-vecs
+                             N * (18 * d ** 3 + 10 * d * d)),
+            "fused_smooth": (lambda: fc.fused_smoothing_combine(sj, si),
+                             lambda: fc.fused_smooth_plain(sj, si),
+                             lambda: pk._smoothing_operator_unfused(sj, si),
+                             _nbytes(*sj, *si) + 4 * N * (2 * d * d + d),
+                             N * (6 * d ** 3 + 2 * d * d)),
+        }
+        for name, (kern, plain, unfused, nbytes, flops) in timed.items():
+            kern(), plain(), unfused()
+            torch.cuda.synchronize()
+            p1, u1, k1 = _time(plain), _time(unfused), _time(kern)
+            dev = _time_device(kern) if N == N_SCAN else None
+            k2, u2, p2 = _time(kern), _time(unfused), _time(plain)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+            row = {"ms": (k1 + k2) / 2 if dev is None else dev, "plain_ms": (p1 + p2) / 2,
+                   "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            how = "" if dev is None else f" device time back to back ({(k1 + k2) / 2:.4f} ms per call as the host sends them)"
+            print(f"[kernels] time {name} [{N},{d},{d}] f32: kernel {row['ms']:.4f} ms{how}, plain "
+                  f"{row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            print(f"[kernels] time {name} [{N},{d},{d}] f32: the unfused route "
+                  f"(its own launches of bmm and gj_solve) {(u1 + u2) / 2:.4f} ms")
+            if N == N_SCAN:
+                out[name] = row
+    return out
+
+
 def _run_slice(T, chunk, dtype, steps, nan_guard, sqrt):
     from physs_gp_tpu_torch.trainers.scan import natgrad_scan
     from physs_gp_tpu_torch.zoo.bench_configs import build_config5
@@ -327,14 +480,25 @@ def _run_slice(T, chunk, dtype, steps, nan_guard, sqrt):
     return model, np.array(elbos), walls
 
 
-def phase_slice_anchor(sqrt):
+def phase_slice_anchor(sqrt, fused=False):
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
     tag, golden = ("anchor sqrt", GOLDEN_SQRT) if sqrt else ("anchor", GOLDEN)
-    os.environ["PHYSS_SCAN_BLOCKS"] = "8"
+    env = {"PHYSS_SCAN_BLOCKS": "8"}
+    if fused:
+        tag, env["PHYSS_FUSED_COMBINE"] = "anchor fused", "1"
+    os.environ.update(env)
+    kernels.reset_launch_counts(*FUSED)
     try:
         model, elbos, _ = _run_slice(256, 64, torch.float64, 3, nan_guard=True, sqrt=sqrt)
         post = model.posterior()
     finally:
-        del os.environ["PHYSS_SCAN_BLOCKS"]
+        for key in env:
+            del os.environ[key]
+    counts = kernels.launch_counts(*FUSED)
+    print(f"[{tag}] launches of the fused combines: {counts}")
+    if any((n > 0) != fused for n in counts.values()):
+        raise AssertionError(f"{tag}: the fused combines ran {counts} with fused={fused}")
     gold = np.load(golden)
     rel = np.abs(elbos - gold["elbos"]) / np.abs(gold["elbos"])
     print(f"[{tag}] ELBOs {elbos.tolist()}")
@@ -353,11 +517,48 @@ def phase_slice_anchor(sqrt):
             raise AssertionError(f"{tag}: {key} disagrees with the JAX reference")
 
 
-def _full(sqrt, path_kernels):
-    """f32 then f64 at T = 100 000; returns (f32 ELBOs, f32 launch counts)."""
+def phase_oracle():
+    """One float64 config-5 filter + smoother pass at T = 2048 (chunk 512,
+    sites after one CVI step) through the fused scans, against the port's
+    sequential Kalman filter and RTS smoother on the card, which share no
+    kernel and no schedule with the scans."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+    from physs_gp_tpu_torch.ops.lgssm import build_lgssm
+    from physs_gp_tpu_torch.ops.runner import run_filter_smoother
+
+    os.environ["PHYSS_FUSED_COMBINE"] = "1"
+    try:
+        model, _, _ = _run_slice(2048, 512, torch.float64, 1, nan_guard=True, sqrt=False)
+        with torch.no_grad():
+            ssm = build_lgssm(model.kernel, model.t)._replace(H=model.observation.H(model.kernel))
+            R, Y = model.sites.V, model.sites.Y
+            kernels.reset_launch_counts(*FUSED)
+            f, s = run_filter_smoother(ssm, R, Y, parallel=True, chunk_size=512)
+            counts = kernels.launch_counts(*FUSED)
+    finally:
+        del os.environ["PHYSS_FUSED_COMBINE"]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fo, so = run_filter_smoother(ssm, R, Y, parallel=False)
+    torch.cuda.synchronize()
+    print(f"[oracle] fused launches {counts}; sequential pass {time.perf_counter() - t0:.2f} s")
+    if not all(counts.values()):
+        raise AssertionError("oracle: the scans did not run the fused combines")
+    got = {"lml": (f.lml, fo.lml, 1e-9), "filtered means": (f.ms, fo.ms, 1e-7),
+           "filtered covariances": (f.Ps, fo.Ps, 1e-7), "smoothed means": (s.ms, so.ms, 1e-7),
+           "smoothed covariances": (s.Ps, so.Ps, 1e-7)}
+    for key, (val, ref, tol) in got.items():
+        r = float((val - ref).abs().max() / ref.abs().max())
+        print(f"[oracle] {key} max err / scale {r:.3e} (tol {tol:g})")
+        if not r <= tol:
+            raise AssertionError(f"oracle: {key} of the fused scans disagree with the sequential pass")
+
+
+def _full(sqrt, path_kernels, fused=False):
+    """f32 then f64 at T = 100 000; returns (ELBOs by dtype, f32 launch counts)."""
     from physs_gp_tpu_torch.ops import cuda as kernels
 
-    tag = "full sqrt" if sqrt else "full"
+    tag = "full sqrt" if sqrt else "full fused" if fused else "full"
     out = {}
     for dtype in (torch.float32, torch.float64):
         torch.cuda.empty_cache()
@@ -381,6 +582,8 @@ def _full(sqrt, path_kernels):
     print(f"[{tag}] launches in the float32 run: {counts}")
     if not all(counts[k] > 0 for k in path_kernels):
         raise AssertionError(f"{tag}: a kernel of the path was never launched")
+    if not fused and any(counts[k] for k in FUSED):
+        raise AssertionError(f"{tag}: a fused combine ran with its knobs unset")
     # Step 0 starts from the broad initial sites, where the fp32 projection
     # H P H^T of the stiff collocation heads loses digits in the reference
     # algorithm itself (the JAX package's own float32 and float64 step-0
@@ -391,16 +594,32 @@ def _full(sqrt, path_kernels):
           f"(bound 1e-2 on steps 1 and 2; step 0 reported)")
     if not gap[1:].max() <= 1e-2:
         raise AssertionError(f"{tag}: float32 and float64 ELBOs disagree")
-    return out[torch.float32], counts
+    return out, counts
 
 
 def phase_slice_full():
+    """Launch counts for the kernels' summary: the fused combines' from the
+    fused covariance run, the others' from the square-root run."""
     os.environ["PHYSS_KZZ_JITTER"] = "1e-4"
-    cov_elbos, cov_counts = _full(False, ("bmm", "gj_solve", "gj_solve_logdet"))
-    sqrt_elbos, sqrt_counts = _full(True, tuple(SOURCES))
-    gap = np.abs(sqrt_elbos - cov_elbos) / np.abs(cov_elbos)
+    cov = ("bmm", "gj_solve", "gj_solve_logdet")
+    cov_elbos, _ = _full(False, cov)
+    os.environ["PHYSS_FUSED_COMBINE"] = "1"
+    try:
+        fused_elbos, fused_counts = _full(False, cov + FUSED, fused=True)
+    finally:
+        del os.environ["PHYSS_FUSED_COMBINE"]
+    # fused and unfused are one function: float64 to rounding on every step,
+    # float32 within its own error after the broad step 0
+    for dtype, tol, steps in ((torch.float64, 1e-9, slice(0, None)), (torch.float32, 1e-3, slice(1, None))):
+        gap = np.abs(fused_elbos[dtype] - cov_elbos[dtype]) / np.abs(cov_elbos[dtype])
+        print(f"[full fused] {str(dtype)[6:]} fused vs unfused ELBO rel gap {gap.tolist()} "
+              f"(bound {tol:g}{'' if steps.start == 0 else ' on steps 1 and 2'})")
+        if not gap[steps].max() <= tol:
+            raise AssertionError(f"full fused: {dtype} fused and unfused ELBOs disagree")
+    sqrt_elbos, counts = _full(True, tuple(k for k in SOURCES if k not in FUSED))
+    gap = np.abs(sqrt_elbos[torch.float32] - cov_elbos[torch.float32]) / np.abs(cov_elbos[torch.float32])
     print(f"[full sqrt] float32 square-root vs covariance ELBO rel gap {gap.tolist()}")
-    return sqrt_counts
+    return {**counts, **{k: fused_counts[k] for k in FUSED}}
 
 
 def main():
@@ -414,7 +633,9 @@ def main():
     phase_build()
     worst, times = phase_kernels()
     phase_slice_anchor(sqrt=False)
+    phase_slice_anchor(sqrt=False, fused=True)
     phase_slice_anchor(sqrt=True)
+    phase_oracle()
     counts = phase_slice_full()
     kernels = [
         {"name": name, "route": "cuda", "source": f"physs_gp_tpu_torch/csrc/{SOURCES[name]}.cu",

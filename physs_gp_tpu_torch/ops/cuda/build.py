@@ -45,6 +45,11 @@ _ENTRY_POINTS = {
         "physs_lq": [_i, _p, _p, _i, _i, _i, _ll, _ll, _i, _p],
         "physs_chol": [_i, _i, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _d, _i, _p],
     },
+    # host arrays of input pointers, (batch, row) strides and output pointers
+    "fused_combine": {
+        "physs_fused_filter": [_i, _p, _p, _p, _i, _i, _i, _p],
+        "physs_fused_smooth": [_i, _p, _p, _p, _i, _i, _i, _p],
+    },
 }
 
 _libs: dict = {}
@@ -163,7 +168,9 @@ def check_smem(name, words: int, x) -> None:
 
 
 # launches per kernel, counted where the entry point is called and nowhere else
-LAUNCHES = dict.fromkeys(("bmm", "gj_solve", "gj_solve_logdet", "lq", "chol", "chol_gram"), 0)
+LAUNCHES = dict.fromkeys(
+    ("bmm", "gj_solve", "gj_solve_logdet", "lq", "chol", "chol_gram", "fused_filter", "fused_smooth"), 0
+)
 
 
 def launch(kernel: str, source: str, entry: str, *args) -> None:

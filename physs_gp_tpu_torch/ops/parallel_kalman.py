@@ -10,7 +10,14 @@ sequential pass over L steps at a constant batch of `PHYSS_SCAN_BLOCKS`
 full-width distribute combine. Long series run in chunks whose carry is the
 filtered state (filter) or the combined suffix element (smoother).
 
-The d = 2 flat path and the fused-combine kernels are not ported yet.
+`_filtering_operator` and `_smoothing_operator` send a combine to the fused
+kernels (`ops/cuda/fused_combine.py`, one launch per combine) when the
+reference's knobs ask for it (`PHYSS_FUSED_COMBINE=1`, or
+`PHYSS_FUSED_NARROW=<B>` for batches <= B; default off) and the shapes are
+eligible, else to the unfused route of batched products and one solve. The
+distribute-stage combines stay unfused, as in the reference.
+
+The d = 2 flat path is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,8 +28,9 @@ import numpy as np
 import torch
 
 from .gaussian import mask_covariance, masked_mvn_logpdf
+from .cuda import fused_combine as fc
 from .kalman import FilterResult, SmootherResult, observation_mask
-from .matrix import bmm, gen_solve, psd_solve, symmetrize
+from .matrix import _unit_last, bmm, gen_solve, psd_solve, symmetrize
 
 __all__ = [
     "parallel_kalman_filter",
@@ -122,8 +130,22 @@ def _filtering_moments(ei: _FilterElems, ej: _FilterElems):
 
 
 def _filtering_operator(ei: _FilterElems, ej: _FilterElems) -> _FilterElems:
-    """Associative combine of filtering elements (Särkkä & G-F eq. 10); the
-    second inverse (I + J_j C_i)^-1 is U^T for symmetric C, J."""
+    """Associative combine of filtering elements (Särkkä & G-F eq. 10): one
+    fused kernel when `use_fused_combine` says so, else the unfused route."""
+    if (
+        ei.A.dim() == 3
+        and ei.A.shape == ej.A.shape
+        and fc.use_fused_combine(ei.A.shape, ei.A.dtype)
+    ):
+        return _FilterElems(*_FusedCombine.apply(
+            fc.fused_filtering_combine, _filtering_operator_unfused, _FilterElems, *ei, *ej))
+    return _filtering_operator_unfused(ei, ej)
+
+
+def _filtering_operator_unfused(ei: _FilterElems, ej: _FilterElems) -> _FilterElems:
+    """The combine as batched products and one solve (counterpart of the
+    reference's `_filtering_operator_xla`); the second inverse
+    (I + J_j C_i)^-1 is U^T for symmetric C, J."""
     U, AjU, b, C = _filtering_moments(ei, ej)
     A = bmm(AjU, ei.A)
     W = bmm(U, ei.A)
@@ -147,9 +169,45 @@ def _smoothing_final(ej: _SmootherElems, ei: _SmootherElems):
 
 
 def _smoothing_operator(ej: _SmootherElems, ei: _SmootherElems) -> _SmootherElems:
-    """Combine for the reverse scan, i earlier than j."""
+    """Combine for the reverse scan, i earlier than j: one fused kernel when
+    `use_fused_combine` says so, else the unfused route."""
+    if (
+        ej.E.dim() == 3
+        and ej.E.shape == ei.E.shape
+        and fc.use_fused_combine(ej.E.shape, ej.E.dtype, smoothing=True)
+    ):
+        return _SmootherElems(*_FusedCombine.apply(
+            fc.fused_smoothing_combine, _smoothing_operator_unfused, _SmootherElems, *ej, *ei))
+    return _smoothing_operator_unfused(ej, ei)
+
+
+def _smoothing_operator_unfused(ej: _SmootherElems, ei: _SmootherElems) -> _SmootherElems:
+    """Counterpart of the reference's `_smoothing_operator_xla`."""
     g, L = _smoothing_final(ej, ei)
     return _SmootherElems(E=bmm(ei.E, ej.E), g=g, L=L)
+
+
+class _FusedCombine(torch.autograd.Function):
+    """Forward: `fused(first, second)`, one kernel launch, on the leaves of
+    two elements of type `cls`. The kernels have no backward (nor have the
+    reference's): the cotangents are recomputed through `unfused`."""
+
+    @staticmethod
+    def forward(ctx, fused, unfused, cls, *leaves):
+        ctx.save_for_backward(*leaves)
+        ctx.unfused, ctx.cls = unfused, cls
+        x = [_unit_last(v) for v in leaves]
+        n = len(x) // 2
+        return tuple(fused(cls(*x[:n]), cls(*x[n:])))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        with torch.enable_grad():
+            x = [v.detach().requires_grad_(True) for v in ctx.saved_tensors]
+            n = len(x) // 2
+            out = ctx.unfused(ctx.cls(*x[:n]), ctx.cls(*x[n:]))
+            grads = torch.autograd.grad(tuple(out), x, cts)
+        return (None, None, None, *grads)
 
 
 def _ident_filter_elem(d, like):

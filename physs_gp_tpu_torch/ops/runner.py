@@ -1,17 +1,18 @@
 """Filter/smoother dispatch (PyTorch).
 
-Counterpart of `physs_gp_tpu/ops/runner.py` with the parallel filters only,
-in covariance form or square-root form (`sqrt=True`). Square-root variants
-take and return triangular factors inside; the runner converts at the
-boundary, so models always see covariance Ps (and, from the square-root
-smoother, the factors in `Ls`). The sequential filters and the time-sharded
+Counterpart of `physs_gp_tpu/ops/runner.py`: the parallel filters in
+covariance form or square-root form (`sqrt=True`), and the sequential
+filter in covariance form (`parallel=False`). Square-root variants take and
+return triangular factors inside; the runner converts at the boundary, so
+models always see covariance Ps (and, from the square-root smoother, the
+factors in `Ls`). The sequential square-root filter and the time-sharded
 multi-device pass are not ported yet and raise `NotImplementedError`.
 """
 from __future__ import annotations
 
 import torch
 
-from . import parallel_kalman, parallel_sqrt_kalman
+from . import kalman, parallel_kalman, parallel_sqrt_kalman
 from .gaussian import mask_covariance
 from .kalman import FilterResult, observation_mask
 from .matrix import safe_cholesky_rel
@@ -46,11 +47,11 @@ def _unpad(res, T: int):
     )
 
 
-def _check_supported(parallel, mesh):
+def _check_supported(parallel, sqrt, mesh):
     if mesh is not None:
         raise NotImplementedError("time-axis sharding is not ported yet")
-    if not parallel:
-        raise NotImplementedError("the sequential filters are not ported yet")
+    if sqrt and not parallel:
+        raise NotImplementedError("the sequential square-root filter is not ported yet")
 
 
 def _square(F: FilterResult) -> FilterResult:
@@ -66,7 +67,7 @@ def _mask_decoupled_R(R, Y):
     return mask_covariance(R, observation_mask(Y, R.dtype))
 
 
-def _run_filter_raw(ssm, R, Y, *, sqrt, chunk_size):
+def _run_filter_raw(ssm, R, Y, *, parallel, sqrt, chunk_size):
     """(covariance-form result, (Q factor, raw result)) of one filter pass."""
     if sqrt:
         Q_sqrt = safe_cholesky_rel(ssm.Q)
@@ -76,37 +77,44 @@ def _run_filter_raw(ssm, R, Y, *, sqrt, chunk_size):
             ssm.A, Q_sqrt, ssm.H, R_sqrt, Y, ssm.m0, P0_sqrt, chunk_size=chunk_size
         )
         return _square(f), (Q_sqrt, f)
-    f = parallel_kalman.parallel_kalman_filter(
-        ssm.A, ssm.Q, ssm.H, R, Y, ssm.m0, ssm.P0, chunk_size=chunk_size
-    )
+    if parallel:
+        f = parallel_kalman.parallel_kalman_filter(
+            ssm.A, ssm.Q, ssm.H, R, Y, ssm.m0, ssm.P0, chunk_size=chunk_size
+        )
+    else:
+        f = kalman.kalman_filter(ssm.A, ssm.Q, ssm.H, R, Y, ssm.m0, ssm.P0)
     return f, (None, f)
 
 
 def run_filter(ssm, R, Y, *, parallel=False, sqrt=False, chunk_size=None):
     """One filtering pass; returns (FilterResult, aux) with covariance Ps."""
-    _check_supported(parallel, None)
+    _check_supported(parallel, sqrt, None)
     T = Y.shape[0]
-    pad = _pad_amount(T, chunk_size)
+    pad = _pad_amount(T, chunk_size if parallel else None)
     if pad:
         ssm, R, Y = _pad_inputs(ssm, R, Y, pad)
-    f, aux = _run_filter_raw(ssm, R, Y, sqrt=sqrt, chunk_size=chunk_size)
+    f, aux = _run_filter_raw(ssm, R, Y, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size)
     return _unpad(f, T), aux
 
 
 def run_filter_smoother(ssm, R, Y, *, parallel=False, sqrt=False,
                         chunk_size=None, mesh=None):
     """Filter + smoother; both results carry covariance Ps."""
-    _check_supported(parallel, mesh)
+    _check_supported(parallel, sqrt, mesh)
     T = Y.shape[0]
-    pad = _pad_amount(T, chunk_size)
+    pad = _pad_amount(T, chunk_size if parallel else None)
     if pad:
         ssm, R, Y = _pad_inputs(ssm, R, Y, pad)
-    f_cov, (Q_sqrt, f_raw) = _run_filter_raw(ssm, R, Y, sqrt=sqrt, chunk_size=chunk_size)
+    f_cov, (Q_sqrt, f_raw) = _run_filter_raw(
+        ssm, R, Y, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size
+    )
     if sqrt:
         # covariance Ps plus the factors Ls (Gram-form scan, one final Cholesky)
         s = parallel_sqrt_kalman.parallel_sqrt_rts_smoother(
             ssm.A, Q_sqrt, f_raw, chunk_size=chunk_size
         )
-    else:
+    elif parallel:
         s = parallel_kalman.parallel_rts_smoother(ssm.A, ssm.Q, f_raw, chunk_size=chunk_size)
+    else:
+        s = kalman.rts_smoother(ssm.A, ssm.Q, f_raw)
     return _unpad(f_cov, T), _unpad(s, T)

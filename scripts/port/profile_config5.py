@@ -1,9 +1,10 @@
 """Profile one config-5 CVI step of the PyTorch port on a CUDA card.
 
-    python3 scripts/port/profile_config5.py [--sqrt] [T] [chunk]
+    python3 scripts/port/profile_config5.py [--sqrt | --fused] [T] [chunk]
 
 Builds `build_config5(T, chunk, float32)` (default T = 100 000, chunk
-25 000, as the benchmark runs it; `--sqrt` for the square-root form), takes
+25 000, as the benchmark runs it; `--sqrt` for the square-root form,
+`--fused` for the covariance form with `PHYSS_FUSED_COMBINE=1`), takes
 one warm-up step, then traces one step with `torch.profiler`. Prints the
 card, the step's wall time, the device-busy share (summed kernel time over
 wall time), the launches of each hand-written kernel in the step, the
@@ -29,8 +30,10 @@ def main():
     from physs_gp_tpu_torch.zoo.bench_configs import build_config5
 
     args = sys.argv[1:]
-    sqrt = "--sqrt" in args
-    args = [a for a in args if a != "--sqrt"]
+    sqrt, fused = "--sqrt" in args, "--fused" in args
+    args = [a for a in args if a not in ("--sqrt", "--fused")]
+    if fused:
+        os.environ["PHYSS_FUSED_COMBINE"] = "1"
     T = int(args[0]) if args else 100_000
     chunk = int(args[1]) if len(args) > 1 else 25_000
     smi = subprocess.run(
@@ -54,7 +57,7 @@ def main():
     # kernels only: autograd-Function ranges repeat their kernels' time
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
-    form = "square-root" if sqrt else "covariance"
+    form = "square-root" if sqrt else "covariance, fused combines" if fused else "covariance"
     print(f"[profile] {form} T={T} chunk={chunk} f32 step wall {wall * 1e3:.1f} ms, "
           f"device busy {dev_us / 1e3:.1f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f}% of wall)")
     print(f"[profile] launches in the step: {counts}")

@@ -142,6 +142,7 @@ def test_cpu_path_counts_no_launch():
     bc.batch_chol_gram(x, x, plus_eye=True)
     assert kernels.launch_counts() == {
         "bmm": 0, "gj_solve": 0, "gj_solve_logdet": 0, "lq": 0, "chol": 0, "chol_gram": 0,
+        "fused_filter": 0, "fused_smooth": 0,
     }
 
 

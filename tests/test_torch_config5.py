@@ -10,7 +10,10 @@ and ~4e-13). The committed golden file is checked against both packages.
 The square-root slice (`sqrt=True`) is held to its own golden file with the
 same tolerances; its reference run takes the TPU branch of the JAX
 smoother's `_factor_psd` (the pivot-floored Cholesky without jitter), which
-the port follows on every device.
+the port follows on every device. With `PHYSS_FUSED_COMBINE=1` the
+covariance slice runs its scans through the fused combines and is held to
+the same golden file at the same tolerances: fused and unfused are one
+function.
 """
 import os
 import subprocess
@@ -173,6 +176,23 @@ def test_jax_reproduces_golden(monkeypatch):
 def test_port_matches_golden_blocked_schedule(monkeypatch):
     monkeypatch.setenv("PHYSS_SCAN_BLOCKS", "8")
     model, elbos = _port_run(jbuild(T, CHUNK, dtype=jnp.float64))
+    _close(elbos[0], STEP0_ELBO, 1e-9)
+    _check_against(model, elbos, dict(np.load(GOLDEN)))
+
+
+def test_port_matches_golden_with_fused_combines(monkeypatch):
+    from physs_gp_tpu_torch.ops import parallel_kalman as tpk
+
+    calls = []
+    fused_filter, fused_smooth = tpk.fc.fused_filtering_combine, tpk.fc.fused_smoothing_combine
+    monkeypatch.setattr(tpk.fc, "fused_filtering_combine",
+                        lambda ei, ej: calls.append("filter") or fused_filter(ei, ej))
+    monkeypatch.setattr(tpk.fc, "fused_smoothing_combine",
+                        lambda ej, ei: calls.append("smooth") or fused_smooth(ej, ei))
+    monkeypatch.setenv("PHYSS_SCAN_BLOCKS", "8")
+    monkeypatch.setenv("PHYSS_FUSED_COMBINE", "1")
+    model, elbos = _port_run(jbuild(T, CHUNK, dtype=jnp.float64))
+    assert "filter" in calls and "smooth" in calls
     _close(elbos[0], STEP0_ELBO, 1e-9)
     _check_against(model, elbos, dict(np.load(GOLDEN)))
 

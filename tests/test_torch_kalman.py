@@ -4,7 +4,11 @@ A random d = 32, p = 32 LGSSM with NaN-masked observations (whole rows and
 single entries), T = 256, chunk 64. Both packages run the blocked scan
 schedule with 8 blocks (PHYSS_INNER_SCAN=blocked, PHYSS_SCAN_BLOCKS=8, set
 before JAX traces). Tolerance rtol 1e-9 on element fields, means,
-covariances and lml (float64).
+covariances and lml (float64). With `PHYSS_FUSED_COMBINE=1` the port's scans
+take the fused combines (their plain versions on the CPU) and are held to
+the unfused port and to JAX at the same tolerance. The port's sequential
+filter and smoother are held to JAX's at rtol 1e-10, and the parallel scans
+to the sequential pass.
 """
 import numpy as np
 import pytest
@@ -13,8 +17,11 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from physs_gp_tpu.ops import kalman as jk  # noqa: E402
 from physs_gp_tpu.ops import parallel_kalman as jpk  # noqa: E402
+from physs_gp_tpu_torch.ops import kalman as tk  # noqa: E402
 from physs_gp_tpu_torch.ops import parallel_kalman as tpk  # noqa: E402
+from physs_gp_tpu_torch.ops import runner  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -151,3 +158,98 @@ def test_scan_blocks_must_be_power_of_two(monkeypatch):
     _, te = _elems()
     with pytest.raises(ValueError):
         tpk.blocked_inclusive_scan(tpk._filtering_operator, te, tpk._ident_filter_elem(D, te.A))
+
+
+# ---------------------------------------------------------------------------
+# the fused combines inside the scans
+# ---------------------------------------------------------------------------
+
+
+def _port_pass(A, Q, H, R, y, m0, P0, chunk):
+    f = tpk.parallel_kalman_filter(*_tt(A, Q, H, R, y, m0, P0), chunk_size=chunk)
+    return f, tpk.parallel_rts_smoother(*_tt(A, Q), f, chunk_size=chunk)
+
+
+@pytest.mark.parametrize("chunk", [CHUNK, None])
+def test_fused_scans_match_unfused_and_jax(blocked_env, monkeypatch, chunk):
+    monkeypatch.delenv("PHYSS_FUSED_NARROW", raising=False)
+    monkeypatch.delenv("PHYSS_FUSED_COMBINE", raising=False)
+    lg = _lgssm(4)
+    A, Q = lg[:2]
+    jf = jax.jit(jpk.parallel_kalman_filter, static_argnames="chunk_size")(*_j(*lg), chunk_size=chunk)
+    js = jax.jit(jpk.parallel_rts_smoother, static_argnames="chunk_size")(
+        jnp.asarray(A), jnp.asarray(Q), jf, chunk_size=chunk
+    )
+    uf, us = _port_pass(*lg, chunk)
+    calls = []
+    fused_filter, fused_smooth = tpk.fc.fused_filtering_combine, tpk.fc.fused_smoothing_combine
+    monkeypatch.setattr(tpk.fc, "fused_filtering_combine",
+                        lambda ei, ej: calls.append("filter") or fused_filter(ei, ej))
+    monkeypatch.setattr(tpk.fc, "fused_smoothing_combine",
+                        lambda ej, ei: calls.append("smooth") or fused_smooth(ej, ei))
+    monkeypatch.setenv("PHYSS_FUSED_COMBINE", "1")
+    ff, fs = _port_pass(*lg, chunk)
+    # per chunk: L sequential combines + 3 Sklansky levels (8 blocks), + 1 for
+    # the smoother's init; the distribute combines stay unfused
+    n_chunks, L = (T // CHUNK, CHUNK // 8) if chunk else (1, T // 8)
+    assert calls.count("filter") == n_chunks * (L + 3)
+    assert calls.count("smooth") == n_chunks * (L + 4)
+    for got, unfused, ref in ((ff, uf, jf), (fs, us, js)):
+        for name in ("ms", "Ps", "lml", "lmls", "Pp", "Gs"):
+            if hasattr(got, name) and getattr(got, name) is not None:
+                _close(getattr(got, name), getattr(unfused, name).numpy())
+                _close(getattr(got, name), getattr(ref, name))
+
+
+# ---------------------------------------------------------------------------
+# the sequential filter and smoother
+# ---------------------------------------------------------------------------
+
+
+def test_sequential_filter_and_smoother_match_jax():
+    lg = _lgssm(5)
+    A, Q = lg[:2]
+    jf, js = jax.jit(jk.filter_smoother)(*_j(*lg))
+    tf, ts = tk.filter_smoother(*_tt(*lg))
+    assert tf.Pp is None and ts.Gs.shape == (T, D, D)
+    for name in ("ms", "Ps", "lml", "lmls"):
+        _close(getattr(tf, name), getattr(jf, name), rtol=1e-10, atol=1e-12)
+    for name in ("ms", "Ps", "Gs"):
+        _close(getattr(ts, name), getattr(js, name), rtol=1e-10, atol=1e-12)
+    assert float(ts.Gs[-1].abs().max()) == 0.0
+
+
+def test_masked_update_matches_jax():
+    _, _, H, R, y, m0, P0 = _lgssm(6)
+    k = int(np.argmax(np.isnan(y).any(1) & np.isfinite(y).any(1)))  # partially missing
+    mask = np.isfinite(y[k]).astype(np.float64)
+    ref = jax.jit(jk.masked_update)(*_j(m0, P0, H, R[k], y[k], mask))
+    out = tk.masked_update(*_tt(m0, P0, H, R[k], y[k], mask))
+    for a, b in zip(out, ref):
+        _close(a, b, rtol=1e-11, atol=1e-13)
+
+
+def test_parallel_matches_sequential_in_the_port(blocked_env):
+    lg = _lgssm(7)
+    pf, ps = _port_pass(*lg, CHUNK)
+    sf, ss = tk.filter_smoother(*_tt(*lg))
+    _close(pf.lml, sf.lml.numpy(), rtol=1e-9)
+    _close(pf.ms, sf.ms.numpy(), rtol=1e-7, atol=1e-9)
+    _close(pf.Ps, sf.Ps.numpy(), rtol=1e-7, atol=1e-9)
+    _close(ps.ms, ss.ms.numpy(), rtol=1e-7, atol=1e-9)
+    _close(ps.Ps, ss.Ps.numpy(), rtol=1e-7, atol=1e-9)
+    _close(ps.Gs, ss.Gs.numpy(), rtol=1e-6, atol=1e-8)
+
+
+def test_runner_takes_the_sequential_covariance_path():
+    from physs_gp_tpu_torch.ops.lgssm import LGSSM
+
+    A, Q, H, R, y, m0, P0 = _tt(*_lgssm(8))
+    ssm = LGSSM(A=A, Q=Q, H=H, m0=m0, P0=P0)
+    f, s = runner.run_filter_smoother(ssm, R, y, parallel=False, chunk_size=CHUNK)
+    rf, rs = tk.filter_smoother(A, Q, H, R, y, m0, P0)
+    assert torch.equal(f.ms, rf.ms) and torch.equal(s.Ps, rs.Ps) and f.Pp is None
+    f1, _ = runner.run_filter(ssm, R, y, parallel=False)
+    assert torch.equal(f1.lml, rf.lml)
+    with pytest.raises(NotImplementedError):
+        runner.run_filter_smoother(ssm, R, y, parallel=False, sqrt=True)

@@ -16,7 +16,8 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   4. anchors against the JAX reference, float64, T = 256, 3 steps: the
      covariance slice, unfused and with PHYSS_FUSED_COMBINE=1, against
      tests/data/config5_T256_golden.npz and the square-root slice against
-     tests/data/config5_sqrt_T256_golden.npz;
+     tests/data/config5_sqrt_T256_golden.npz, without and with the knob
+     (which must leave the square-root slice unfused);
   5. oracle, float64, T = 2048: one filter + smoother pass through the fused
      scans against the port's sequential Kalman filter and RTS smoother;
   6. full width, T = 100 000, chunk 25 000, 3 steps each: covariance float32
@@ -69,6 +70,8 @@ REPLACES = {
     "fused_smooth": "physs_gp_tpu/ops/pallas/fused_combine.py:161",
 }
 FUSED = ("fused_filter", "fused_smooth")
+# the full-width run whose count stands under `launches` in the summary
+LAUNCHES_PATH = {name: "cov fused f32" if name in FUSED else "sqrt f32" for name in SOURCES}
 
 
 def phase_device():
@@ -383,7 +386,8 @@ def _time_kernels(gen):
         row = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                "library_ms": None if lib is None else (l1 + l2) / 2,
                "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "timing": "events"}
         out[name] = row
         lib_txt = "none" if lib is None else f"{row['library_ms']:.4f} ms ({lib_label})"
         print(f"[kernels] time {name} {shape} f32: kernel {row['ms']:.4f} ms, plain "
@@ -452,7 +456,8 @@ def _time_fused(gen):
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
             row = {"ms": (k1 + k2) / 2 if dev is None else dev, "plain_ms": (p1 + p2) / 2,
                    "library_ms": None, "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "timing": "events" if dev is None else "device_back_to_back"}
             how = "" if dev is None else f" device time back to back ({(k1 + k2) / 2:.4f} ms per call as the host sends them)"
             print(f"[kernels] time {name} [{N},{d},{d}] f32: kernel {row['ms']:.4f} ms{how}, plain "
                   f"{row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} ms "
@@ -461,6 +466,17 @@ def _time_fused(gen):
                   f"(its own launches of bmm and gj_solve) {(u1 + u2) / 2:.4f} ms")
             if N == N_SCAN:
                 out[name] = row
+    # float64 at d = 32 needs the opt-in above 48 KB of shared memory: what
+    # one call costs as the host sends them, the attribute set once
+    f64 = torch.float64
+    ei, ej = _filter_elems(gen, N_SCAN, d, f64), _filter_elems(gen, N_SCAN, d, f64, first=2)
+    sj, si = _smoother_elems(gen, N_SCAN, d, f64), _smoother_elems(gen, N_SCAN, d, f64, last=2)
+    for name, kern in {"fused_filter": lambda: fc.fused_filtering_combine(ei, ej),
+                       "fused_smooth": lambda: fc.fused_smoothing_combine(sj, si)}.items():
+        kern()
+        torch.cuda.synchronize()
+        print(f"[kernels] time {name} [{N_SCAN},{d},{d}] f64: {_time(kern):.4f} ms per call "
+              f"as the host sends them, {_time_device(kern):.4f} ms device time back to back")
     return out
 
 
@@ -483,10 +499,12 @@ def _run_slice(T, chunk, dtype, steps, nan_guard, sqrt):
 def phase_slice_anchor(sqrt, fused=False):
     from physs_gp_tpu_torch.ops import cuda as kernels
 
+    """`fused` sets the knob; it acts on the covariance-form scans only, so
+    the square-root slice must launch neither fused combine with it set."""
     tag, golden = ("anchor sqrt", GOLDEN_SQRT) if sqrt else ("anchor", GOLDEN)
     env = {"PHYSS_SCAN_BLOCKS": "8"}
     if fused:
-        tag, env["PHYSS_FUSED_COMBINE"] = "anchor fused", "1"
+        tag, env["PHYSS_FUSED_COMBINE"] = tag + (" knob on" if sqrt else " fused"), "1"
     os.environ.update(env)
     kernels.reset_launch_counts(*FUSED)
     try:
@@ -497,7 +515,7 @@ def phase_slice_anchor(sqrt, fused=False):
             del os.environ[key]
     counts = kernels.launch_counts(*FUSED)
     print(f"[{tag}] launches of the fused combines: {counts}")
-    if any((n > 0) != fused for n in counts.values()):
+    if any((n > 0) != (fused and not sqrt) for n in counts.values()):
         raise AssertionError(f"{tag}: the fused combines ran {counts} with fused={fused}")
     gold = np.load(golden)
     rel = np.abs(elbos - gold["elbos"]) / np.abs(gold["elbos"])
@@ -598,11 +616,10 @@ def _full(sqrt, path_kernels, fused=False):
 
 
 def phase_slice_full():
-    """Launch counts for the kernels' summary: the fused combines' from the
-    fused covariance run, the others' from the square-root run."""
+    """The three full-width paths; returns each path's float32 launch counts."""
     os.environ["PHYSS_KZZ_JITTER"] = "1e-4"
     cov = ("bmm", "gj_solve", "gj_solve_logdet")
-    cov_elbos, _ = _full(False, cov)
+    cov_elbos, cov_counts = _full(False, cov)
     os.environ["PHYSS_FUSED_COMBINE"] = "1"
     try:
         fused_elbos, fused_counts = _full(False, cov + FUSED, fused=True)
@@ -619,7 +636,7 @@ def phase_slice_full():
     sqrt_elbos, counts = _full(True, tuple(k for k in SOURCES if k not in FUSED))
     gap = np.abs(sqrt_elbos[torch.float32] - cov_elbos[torch.float32]) / np.abs(cov_elbos[torch.float32])
     print(f"[full sqrt] float32 square-root vs covariance ELBO rel gap {gap.tolist()}")
-    return {**counts, **{k: fused_counts[k] for k in FUSED}}
+    return {"cov f32": cov_counts, "cov fused f32": fused_counts, "sqrt f32": counts}
 
 
 def main():
@@ -635,12 +652,17 @@ def main():
     phase_slice_anchor(sqrt=False)
     phase_slice_anchor(sqrt=False, fused=True)
     phase_slice_anchor(sqrt=True)
+    phase_slice_anchor(sqrt=True, fused=True)
     phase_oracle()
-    counts = phase_slice_full()
+    paths = phase_slice_full()
+    # `launches` of the fused combines from the fused covariance run, of the
+    # others from the square-root run; `launches_by_path` has every run's
     kernels = [
         {"name": name, "route": "cuda", "source": f"physs_gp_tpu_torch/csrc/{SOURCES[name]}.cu",
-         "replaces": REPLACES[name], "launches": counts[name], "max_abs_err": worst[name],
-         **times[name]}
+         "replaces": REPLACES[name],
+         "launches": paths[LAUNCHES_PATH[name]][name], "launches_path": LAUNCHES_PATH[name],
+         "launches_by_path": {path: counts[name] for path, counts in paths.items()},
+         "max_abs_err": worst[name], **times[name]}
         for name in SOURCES
     ]
     print(json.dumps({"kernels": kernels}))

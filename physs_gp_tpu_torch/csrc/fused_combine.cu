@@ -261,11 +261,16 @@ __global__ void fused_smooth_kernel(const SmoothArgs<T> args, int d) {
   store_sym(L_out, sEj, d, ld);
 }
 
+// Opt in to more than 48 KB of dynamic shared memory. `granted` is the
+// caller's static record of the largest size its kernel was given, so the
+// attribute is set when a launch first needs more, not on every launch.
 template <typename Kern>
-cudaError_t set_smem(Kern kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+cudaError_t set_smem(Kern kern, size_t smem, size_t& granted) {
+  if (smem <= granted) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) granted = smem;
+  return err;
 }
 
 template <typename T>
@@ -280,7 +285,8 @@ int launch_filter(const void* const* in, const long long* strides, void* const* 
   for (int q = 0; q < 5; ++q) args.out[q] = static_cast<T*>(out[q]);
   const size_t smem = (size_t)(9 * d * (d + 1) + 4 * d) * sizeof(T);
   auto kern = fused_filter_kernel<T>;
-  cudaError_t err = set_smem(kern, smem);
+  static size_t granted = 48 * 1024;
+  cudaError_t err = set_smem(kern, smem, granted);
   if (err != cudaSuccess) return (int)err;
   kern<<<N, threads, smem, stream>>>(args, d);
   return (int)cudaGetLastError();
@@ -298,7 +304,8 @@ int launch_smooth(const void* const* in, const long long* strides, void* const* 
   for (int q = 0; q < 3; ++q) args.out[q] = static_cast<T*>(out[q]);
   const size_t smem = (size_t)(5 * d * (d + 1) + d) * sizeof(T);
   auto kern = fused_smooth_kernel<T>;
-  cudaError_t err = set_smem(kern, smem);
+  static size_t granted = 48 * 1024;
+  cudaError_t err = set_smem(kern, smem, granted);
   if (err != cudaSuccess) return (int)err;
   kern<<<N, threads, smem, stream>>>(args, d);
   return (int)cudaGetLastError();

@@ -27,11 +27,12 @@ Smoothing combine (ej later suffix, ei earlier):
 - `fused_filter_plain` / `fused_smooth_plain` are the kernels' arithmetic in
   batched tensor ops; the wrappers take them for CPU tensors only. For CUDA
   tensors they launch the kernel or raise.
-- `use_fused_combine(shape, dtype)` is the routing decision of the scans: the
-  reference's knobs `PHYSS_FUSED_COMBINE=1` (every eligible combine) and
-  `PHYSS_FUSED_NARROW=<B>` (only batches <= B), read at call time, default
-  off; eligible means [N, d, d] with d >= 3 whose kernel fits one block's
-  shared memory. It does not look at the device.
+- `use_fused_combine(first, second, dtype)` is the routing decision of the
+  scans, from the shapes of the two operands' matrices: the reference's knob
+  `PHYSS_FUSED_COMBINE=1`, read at call time, default off, sends every
+  eligible combine to the kernel; eligible means two equal [N, d, d] shapes
+  with d >= 3 whose kernel fits one block's shared memory. It does not look
+  at the device.
 
 The wrappers carry no gradient: `ops/parallel_kalman.py` wraps them in a
 `torch.autograd.Function` whose backward recomputes the unfused combine.
@@ -43,7 +44,6 @@ import os
 
 import torch
 
-from . import build
 from .batched_linalg import gj_solve_plain
 from .build import SMEM_LIMIT, check_smem, dtype_code, launch, on_cpu, row_stride, stream_of, threads_for
 
@@ -54,8 +54,6 @@ __all__ = [
     "fused_smooth_plain",
     "use_fused_combine",
     "fits",
-    "launch_counts",
-    "reset_launch_counts",
 ]
 
 D_MIN = 3  # below it the closed-form d <= 2 algebra applies
@@ -79,14 +77,18 @@ def fits(d: int, dtype, smoothing: bool = False) -> bool:
     return d >= D_MIN and words * dtype.itemsize <= SMEM_LIMIT
 
 
-def use_fused_combine(shape, dtype, smoothing: bool = False) -> bool:
-    """Whether a combine of [N, d, d] operands takes the fused kernel."""
-    if len(shape) != 3 or shape[-1] != shape[-2] or not fits(shape[-1], dtype, smoothing):
+def use_fused_combine(first, second, dtype, smoothing: bool = False) -> bool:
+    """Whether a combine takes the fused kernel; `first` and `second` are the
+    shapes of the two operands' matrices."""
+    if os.environ.get("PHYSS_FUSED_COMBINE", "0") != "1":
         return False
-    if os.environ.get("PHYSS_FUSED_COMBINE", "0") == "1":
-        return True
-    narrow = int(os.environ.get("PHYSS_FUSED_NARROW", "0"))
-    return narrow > 0 and shape[0] <= narrow
+    first = tuple(first)
+    return (
+        first == tuple(second)
+        and len(first) == 3
+        and first[-1] == first[-2]
+        and fits(first[-1], dtype, smoothing)
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -192,14 +194,3 @@ def fused_smoothing_combine(ej, ei):
     if N:
         _launch("fused_smooth", "physs_fused_smooth", (*ej, *ei), tuple(out), N, d)
     return out
-
-
-_KERNELS = ("fused_filter", "fused_smooth")
-
-
-def launch_counts() -> dict:
-    return build.launch_counts(*_KERNELS)
-
-
-def reset_launch_counts() -> None:
-    build.reset_launch_counts(*_KERNELS)

@@ -32,6 +32,7 @@ __all__ = [
     "cholesky_solve",
     "gen_solve",
     "bmm",
+    "unit_last",
     "psd_solve",
     "psd_solve_logdet",
     "mat_inv",
@@ -104,8 +105,8 @@ class _KernelCholesky(torch.autograd.Function):
     def forward(ctx, A):
         ctx.save_for_backward(A)
         if A.dim() == 2:
-            return bc.batch_cholesky(_unit_last(A[None]))[0]
-        return bc.batch_cholesky(_unit_last(A))
+            return bc.batch_cholesky(unit_last(A[None]))[0]
+        return bc.batch_cholesky(unit_last(A))
 
     @staticmethod
     def backward(ctx, ct):
@@ -176,7 +177,7 @@ def _solve_shapes(A, B) -> bool:
     return d <= bl.D_MAX and words * A.element_size() <= SMEM_LIMIT
 
 
-def _unit_last(X):
+def unit_last(X):
     """X with unit stride along its last dimension (copy only if needed)."""
     if X.shape[-1] == 1 or X.stride(-1) == 1:
         return X
@@ -185,20 +186,20 @@ def _unit_last(X):
 
 def _psd_solve_primal(A, B):
     if _solve_shapes(A, B):
-        return bl.batch_solve(_unit_last(A), _unit_last(B))
+        return bl.batch_solve(unit_last(A), unit_last(B))
     return cholesky_solve(_cholesky_any(A), B)
 
 
 def _psd_solve_logdet_primal(A, B):
     if _solve_shapes(A, B):
-        return bl.batch_solve_logdet(_unit_last(A), _unit_last(B))
+        return bl.batch_solve_logdet(unit_last(A), unit_last(B))
     L = _cholesky_any(A)
     return cholesky_solve(L, B), log_det_from_chol(L)
 
 
 def _gen_solve_primal(A, B):
     if _solve_shapes(A, B):
-        return bl.batch_solve(_unit_last(A), _unit_last(B))
+        return bl.batch_solve(unit_last(A), unit_last(B))
     return torch.linalg.solve(A, B)
 
 
@@ -210,7 +211,7 @@ def _bmm_primal(A, B, ta: bool, tb: bool):
             A, ta = A.transpose(-1, -2), not ta
         if B.shape[-1] > 1 and B.stride(-1) != 1 and B.stride(-2) == 1:
             B, tb = B.transpose(-1, -2), not tb
-        return bl.batch_bmm(_unit_last(A), _unit_last(B), ta, tb)
+        return bl.batch_bmm(unit_last(A), unit_last(B), ta, tb)
     a = A.transpose(-1, -2) if ta else A
     b = B.transpose(-1, -2) if tb else B
     return torch.matmul(a, b)

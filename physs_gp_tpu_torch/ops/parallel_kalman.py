@@ -12,10 +12,10 @@ filtered state (filter) or the combined suffix element (smoother).
 
 `_filtering_operator` and `_smoothing_operator` send a combine to the fused
 kernels (`ops/cuda/fused_combine.py`, one launch per combine) when the
-reference's knobs ask for it (`PHYSS_FUSED_COMBINE=1`, or
-`PHYSS_FUSED_NARROW=<B>` for batches <= B; default off) and the shapes are
-eligible, else to the unfused route of batched products and one solve. The
-distribute-stage combines stay unfused, as in the reference.
+reference's knob asks for it (`PHYSS_FUSED_COMBINE=1`; default off) and the
+shapes are eligible, else to the unfused route of batched products and one
+solve. The distribute-stage combines stay unfused, as in the reference, and
+so does the square-root smoother's scan (`ops/parallel_sqrt_kalman.py`).
 
 The d = 2 flat path is not ported yet.
 """
@@ -30,7 +30,7 @@ import torch
 from .gaussian import mask_covariance, masked_mvn_logpdf
 from .cuda import fused_combine as fc
 from .kalman import FilterResult, SmootherResult, observation_mask
-from .matrix import _unit_last, bmm, gen_solve, psd_solve, symmetrize
+from .matrix import bmm, gen_solve, psd_solve, symmetrize, unit_last
 
 __all__ = [
     "parallel_kalman_filter",
@@ -132,11 +132,7 @@ def _filtering_moments(ei: _FilterElems, ej: _FilterElems):
 def _filtering_operator(ei: _FilterElems, ej: _FilterElems) -> _FilterElems:
     """Associative combine of filtering elements (Särkkä & G-F eq. 10): one
     fused kernel when `use_fused_combine` says so, else the unfused route."""
-    if (
-        ei.A.dim() == 3
-        and ei.A.shape == ej.A.shape
-        and fc.use_fused_combine(ei.A.shape, ei.A.dtype)
-    ):
+    if fc.use_fused_combine(ei.A.shape, ej.A.shape, ei.A.dtype):
         return _FilterElems(*_FusedCombine.apply(
             fc.fused_filtering_combine, _filtering_operator_unfused, _FilterElems, *ei, *ej))
     return _filtering_operator_unfused(ei, ej)
@@ -171,11 +167,7 @@ def _smoothing_final(ej: _SmootherElems, ei: _SmootherElems):
 def _smoothing_operator(ej: _SmootherElems, ei: _SmootherElems) -> _SmootherElems:
     """Combine for the reverse scan, i earlier than j: one fused kernel when
     `use_fused_combine` says so, else the unfused route."""
-    if (
-        ej.E.dim() == 3
-        and ej.E.shape == ei.E.shape
-        and fc.use_fused_combine(ej.E.shape, ej.E.dtype, smoothing=True)
-    ):
+    if fc.use_fused_combine(ej.E.shape, ei.E.shape, ej.E.dtype, smoothing=True):
         return _SmootherElems(*_FusedCombine.apply(
             fc.fused_smoothing_combine, _smoothing_operator_unfused, _SmootherElems, *ej, *ei))
     return _smoothing_operator_unfused(ej, ei)
@@ -196,7 +188,7 @@ class _FusedCombine(torch.autograd.Function):
     def forward(ctx, fused, unfused, cls, *leaves):
         ctx.save_for_backward(*leaves)
         ctx.unfused, ctx.cls = unfused, cls
-        x = [_unit_last(v) for v in leaves]
+        x = [unit_last(v) for v in leaves]
         n = len(x) // 2
         return tuple(fused(cls(*x[:n]), cls(*x[n:])))
 

@@ -15,7 +15,8 @@ covariance combine goes indefinite.
 The scans run the blocked schedule of `parallel_kalman.blocked_inclusive_scan`
 with the square-root identity element (A = I, the rest 0); chunks carry the
 filtered (m, U). The smoother scans in covariance (Gram) form with the
-covariance smoother's combine, then factors once. Triangular solves run the
+covariance smoother's unfused combine (the fused-combine knob acts on the
+covariance-form scans only), then factors once. Triangular solves run the
 batched Gauss-Jordan kernel (`gen_solve`), factors the LQ and Gram +
 Cholesky kernels (`tria`, `tria_sum`), the final factor the pivot-floored
 Cholesky kernel. Where the reference multiplies through `bmm` the port does
@@ -39,7 +40,7 @@ from .parallel_kalman import (
     _mtv,
     _mv,
     _smoothing_final,
-    _smoothing_operator,
+    _smoothing_operator_unfused,
     blocked_inclusive_scan,
 )
 from .sqrt_kalman import tria, tria_sum
@@ -322,7 +323,7 @@ def parallel_sqrt_rts_smoother(A, Q_sqrt, filtered: FilterResult,
     gs, Ls = [], []
     for s, e in _chunks(T, chunk_size):
         (g_c, L_c), carry = blocked_inclusive_scan(
-            _smoothing_operator, _map(lambda x: x[s:e], flipped),
+            _smoothing_operator_unfused, _map(lambda x: x[s:e], flipped),
             _ident_smoother_elem(d, Us), final_op=_smoothing_final, init=carry,
         )
         gs.append(g_c)

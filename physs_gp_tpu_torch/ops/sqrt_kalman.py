@@ -21,7 +21,7 @@ import torch
 from .cuda.batched_chol import batch_chol_gram
 from .cuda.batched_qr import batch_tria
 from .cuda.build import D_MAX
-from .matrix import _unit_last
+from .matrix import unit_last
 
 __all__ = ["tria", "tria_sum"]
 
@@ -92,7 +92,7 @@ class _TriaCore(torch.autograd.Function):
         ctx.save_for_backward(B)
         ctx.ref = ref
         d, m = B.shape[-2:]
-        L = batch_tria(_unit_last(B.reshape(-1, d, m)))
+        L = batch_tria(unit_last(B.reshape(-1, d, m)))
         return L.reshape(B.shape[:-1] + (d,))
 
     @staticmethod
@@ -119,7 +119,7 @@ class _CholGramCore(torch.autograd.Function):
     def forward(ctx, X, Y, plus_eye):
         ctx.save_for_backward(X, Y)
         ctx.plus_eye = plus_eye
-        return batch_chol_gram(_unit_last(X), None if Y is None else _unit_last(Y),
+        return batch_chol_gram(unit_last(X), None if Y is None else unit_last(Y),
                                plus_eye=plus_eye)
 
     @staticmethod

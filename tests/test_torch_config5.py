@@ -243,6 +243,22 @@ def test_port_matches_sqrt_golden(monkeypatch):
     _check_against(model, elbos, dict(np.load(GOLDEN_SQRT)))
 
 
+def test_sqrt_slice_takes_no_fused_combine(monkeypatch):
+    """The knob acts on the covariance-form scans only: with it set, the
+    square-root slice (whose smoother scans in Gram form) calls neither fused
+    combine and still gives the golden file's values."""
+    from physs_gp_tpu_torch.ops import parallel_kalman as tpk
+
+    calls = []
+    monkeypatch.setattr(tpk.fc, "fused_filtering_combine", lambda *a: calls.append("filter"))
+    monkeypatch.setattr(tpk.fc, "fused_smoothing_combine", lambda *a: calls.append("smooth"))
+    monkeypatch.setenv("PHYSS_SCAN_BLOCKS", "8")
+    monkeypatch.setenv("PHYSS_FUSED_COMBINE", "1")
+    model, elbos = _port_run(jbuild(T, CHUNK, dtype=jnp.float64, sqrt=True), sqrt=True)
+    assert calls == []
+    _check_against(model, elbos, dict(np.load(GOLDEN_SQRT)))
+
+
 def test_build_config5_defaults_to_the_card():
     import inspect
 

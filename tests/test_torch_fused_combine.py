@@ -16,12 +16,13 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from physs_gp_tpu_torch.ops import cuda as kernels  # noqa: E402
 from physs_gp_tpu_torch.ops import parallel_kalman as tpk  # noqa: E402
 from physs_gp_tpu_torch.ops.cuda import fused_combine as tfc  # noqa: E402
 
 torch.set_num_threads(1)
 
-KNOBS = ("PHYSS_FUSED_COMBINE", "PHYSS_FUSED_NARROW")
+FUSED = ("fused_filter", "fused_smooth")
 
 
 @pytest.fixture
@@ -40,8 +41,7 @@ def jx():
 
 @pytest.fixture
 def knobs_off(monkeypatch):
-    for k in KNOBS:
-        monkeypatch.delenv(k, raising=False)
+    monkeypatch.delenv("PHYSS_FUSED_COMBINE", raising=False)
     return monkeypatch
 
 
@@ -242,23 +242,27 @@ def test_strided_and_broadcast_operands_match_contiguous_copies():
 
 def test_use_fused_combine_knobs(knobs_off):
     f64, f32 = torch.float64, torch.float32
-    assert not tfc.use_fused_combine((256, 32, 32), f32)  # off by default
-    knobs_off.setenv("PHYSS_FUSED_NARROW", "256")
-    assert tfc.use_fused_combine((256, 32, 32), f32)
-    assert tfc.use_fused_combine((128, 32, 32), f64, smoothing=True)
-    assert not tfc.use_fused_combine((257, 32, 32), f32)  # above the batch bound
+
+    def use(shape, dtype, **kw):
+        return tfc.use_fused_combine(shape, shape, dtype, **kw)
+
+    assert not use((256, 32, 32), f32)  # off by default
     knobs_off.setenv("PHYSS_FUSED_COMBINE", "1")
-    assert tfc.use_fused_combine((25_000, 32, 32), f32)  # the first knob wins
-    assert tfc.use_fused_combine((1, 3, 3), f64)  # no batch or TPU width gate
-    assert not tfc.use_fused_combine((256, 2, 2), f64)
-    assert not tfc.use_fused_combine((32, 32), f64)
-    assert not tfc.use_fused_combine((4, 256, 32, 32), f64)
+    assert use((256, 32, 32), f32)
+    assert use((128, 32, 32), f64, smoothing=True)
+    assert use((25_000, 32, 32), f32)
+    assert use((1, 3, 3), f64)  # no batch or TPU width gate
+    assert not use((256, 2, 2), f64)
+    assert not use((32, 32), f64)
+    assert not use((4, 256, 32, 32), f64)
+    assert not tfc.use_fused_combine((1, 32, 32), (256, 32, 32), f64)  # unequal shapes
+    assert tfc.use_fused_combine(torch.Size((8, 5, 5)), (8, 5, 5), f64)
     # the filtering kernel holds d <= 56 in float64 and d <= 79 in float32
-    assert tfc.use_fused_combine((8, 56, 56), f64) and not tfc.use_fused_combine((8, 57, 57), f64)
-    assert tfc.use_fused_combine((8, 79, 79), f32) and not tfc.use_fused_combine((8, 80, 80), f32)
+    assert use((8, 56, 56), f64) and not use((8, 57, 57), f64)
+    assert use((8, 79, 79), f32) and not use((8, 80, 80), f32)
     # the smoothing kernel is smaller
-    assert tfc.use_fused_combine((8, 75, 75), f64, smoothing=True)
-    assert not tfc.use_fused_combine((8, 76, 76), f64, smoothing=True)
+    assert use((8, 75, 75), f64, smoothing=True)
+    assert not use((8, 76, 76), f64, smoothing=True)
 
 
 def test_operators_route_by_knob_and_shape(knobs_off):
@@ -279,9 +283,7 @@ def test_operators_route_by_knob_and_shape(knobs_off):
             _assert_fields(o, [v.numpy() for v in r], rtol=1e-10, atol=1e-12)
         return list(calls)
 
-    assert run(6, 5) == []  # knobs unset
-    knobs_off.setenv("PHYSS_FUSED_NARROW", "4")
-    assert run(6, 5) == [] and run(4, 5) == ["filter", "smooth"]
+    assert run(6, 5) == []  # knob unset
     knobs_off.setenv("PHYSS_FUSED_COMBINE", "1")
     assert run(6, 5) == ["filter", "smooth"]
     assert run(3, 57) == ["smooth"]  # the filtering kernel cannot hold d = 57 in float64
@@ -312,12 +314,12 @@ def test_direct_call_raises_on_what_the_kernel_does_not_take():
 
 def test_cpu_path_counts_no_launch():
     rng = np.random.default_rng(9)
-    tfc.reset_launch_counts()
+    kernels.reset_launch_counts(*FUSED)
     x = _t(_filter_fields(rng, 4, 5), tpk._FilterElems)
     s = _t(_smoother_fields(rng, 4, 5), tpk._SmootherElems)
     tfc.fused_filtering_combine(x, x)
     tfc.fused_smoothing_combine(s, s)
-    assert tfc.launch_counts() == {"fused_filter": 0, "fused_smooth": 0}
+    assert kernels.launch_counts(*FUSED) == {"fused_filter": 0, "fused_smooth": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -349,12 +351,12 @@ def test_cuda_kernels_match_plain(cuda, dtype, B, d):
     rng = np.random.default_rng(B + d)
     to = lambda e: tpk._map(lambda v: v.to(cuda, dtype), e)  # noqa: E731
     ei, ej = (to(_t(_filter_fields(rng, B, d), tpk._FilterElems)) for _ in range(2))
-    tfc.reset_launch_counts()
+    kernels.reset_launch_counts(*FUSED)
     _card_close(tfc.fused_filtering_combine(ei, ej), tfc.fused_filter_plain(ei, ej), _CARD_TOL[dtype])
     sj, si = (to(_t(_smoother_fields(rng, B, d), tpk._SmootherElems)) for _ in range(2))
     _card_close(tfc.fused_smoothing_combine(sj, si), tfc.fused_smooth_plain(sj, si), _CARD_TOL[dtype])
     torch.cuda.synchronize()
-    assert tfc.launch_counts() == {"fused_filter": 1, "fused_smooth": 1}
+    assert kernels.launch_counts(*FUSED) == {"fused_filter": 1, "fused_smooth": 1}
 
 
 @pytest.mark.cuda

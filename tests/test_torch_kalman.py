@@ -172,7 +172,6 @@ def _port_pass(A, Q, H, R, y, m0, P0, chunk):
 
 @pytest.mark.parametrize("chunk", [CHUNK, None])
 def test_fused_scans_match_unfused_and_jax(blocked_env, monkeypatch, chunk):
-    monkeypatch.delenv("PHYSS_FUSED_NARROW", raising=False)
     monkeypatch.delenv("PHYSS_FUSED_COMBINE", raising=False)
     lg = _lgssm(4)
     A, Q = lg[:2]

@@ -11,8 +11,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the card, in float64 and float32, at the main path's shapes (for the
      fused combines the blocked scan's strided and stride-0 views), wide and
      odd shapes, with all-zero, rank-deficient, identity and chunk-first
-     batch members; then kernel, plain and library call timed with CUDA
-     events beside the bound from bytes and operations;
+     batch members; the product and the Gram + Cholesky also on operands
+     that are not 16-byte aligned (a view one element into its storage, an
+     odd row stride), on a stride-0 batch and at N = 1, 255, 257; then
+     kernel, plain and library call timed with CUDA events beside the bound
+     from bytes and operations, the product and the Gram + Cholesky also at
+     the scan's batch [256, 32, 32] as device time back to back;
   4. anchors against the JAX reference, float64, T = 256, 3 steps: the
      covariance slice, unfused and with PHYSS_FUSED_COMBINE=1, against
      tests/data/config5_T256_golden.npz and the square-root slice against
@@ -160,6 +164,20 @@ def _scan_views(elems, ident, B, L, l):
     return carry, x
 
 
+def _layouts(x):
+    """The values of x [N, rows, cols] as the main path's views hand them to
+    a kernel: contiguous, starting one element into the storage, with an odd
+    row stride (both off the 16-byte staging), and member 0 as a stride-0
+    batch."""
+    N, rows, cols = x.shape
+    shifted = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    shifted[1:] = x.reshape(-1)
+    odd = torch.zeros(N, rows, cols + 3 - cols % 2, dtype=x.dtype, device=x.device)
+    odd[..., :cols] = x
+    return {"contiguous": x, "shifted": shifted[1:].view(N, rows, cols),
+            "odd row stride": odd[..., :cols], "stride-0 batch": x[:1].expand(N, rows, cols)}
+
+
 def _chol_rank(d):
     # at d >= 32 a rank-2 Gram overflows the reference algorithm's pivot floor
     return 2 if d <= 8 else d - 1
@@ -195,6 +213,7 @@ def phase_kernels():
     from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
     from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
     from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
+    from physs_gp_tpu_torch.ops.cuda import build
     from physs_gp_tpu_torch.ops.cuda import fused_combine as fc
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -248,6 +267,18 @@ def phase_kernels():
             B = _randn(gen, *sb).to(dtype)
             check("bmm", "bmm", bl.batch_bmm(A, B, ta, tb), bl.bmm_plain(A, B, ta, tb),
                   dtype, f"{list(sa)}x{list(sb)} ta={ta:d} tb={tb:d}")
+        # the same on unaligned, odd-strided and stride-0 operands, ragged batches
+        pairs = [("shifted", "contiguous"), ("contiguous", "odd row stride"),
+                 ("stride-0 batch", "shifted"), ("odd row stride", "stride-0 batch")]
+        for N in (1, 255, 257, N_SCAN):
+            As, Bs = _layouts(_randn(gen, N, D, D).to(dtype)), _layouts(_randn(gen, N, D, D).to(dtype))
+            if build.aligned16(As["shifted"]) or build.aligned16(As["odd row stride"]) \
+                    or not build.aligned16(As["stride-0 batch"]):
+                raise AssertionError("bmm: the operand layouts do not exercise both stagings")
+            for (la, lb), (ta, tb) in zip(pairs, [(False, True), (False, False), (True, False), (True, True)]):
+                check("bmm", "bmm", bl.batch_bmm(As[la], Bs[lb], ta, tb),
+                      bl.bmm_plain(As[la], Bs[lb], ta, tb), dtype,
+                      f"[{N},{D},{D}] {la} x {lb} ta={ta:d} tb={tb:d}")
         # solves: identity-dominated and SPD systems at the main-path widths
         for N, d, r, mk in [(N_MAIN, D, 1, _spd), (N_MAIN, D, D, _icj),
                             (N_MAIN, D, 2 * D + 1, _spd), (N_MAIN, D, 3 * D + 1, _spd),
@@ -296,6 +327,13 @@ def phase_kernels():
             check_factor("chol_gram", bc.batch_chol_gram(X, Y, eye),
                          bc.chol_gram_plain(X, Y, eye), dtype,
                          f"[{N},{d},{mx}]+[{N},{d},{my}] plus_eye={eye:d}", not eye)
+        for N in (1, 255, 257, N_SCAN):
+            Xs = _layouts(_randn(gen, N, D, D).to(dtype))
+            Ys = _layouts(_randn(gen, N, D, D).to(dtype))
+            for lx, ly in pairs:
+                check_factor("chol_gram", bc.batch_chol_gram(Xs[lx], Ys[ly]),
+                             bc.chol_gram_plain(Xs[lx], Ys[ly]), dtype,
+                             f"[{N},{D},{D}] {lx} + [{N},{D},{D}] {ly}", False)
         # fused combines: the sequential pass's and the Sklansky levels'
         # batches, full width, odd and the widest shapes, then the scan's views
         for N, d in [(N_SCAN, D), (N_SCAN // 2, D), (N_MAIN, D), (300, 7), (16, d_wide)]:
@@ -322,6 +360,8 @@ def phase_kernels():
                         fc.fused_smooth_plain(a, b), dtype, f"[{N_SCAN},{D},{D}] {label}")
     torch.cuda.synchronize()
     times = _time_kernels(gen)
+    for name, row in _time_scan_batch(gen).items():
+        times[name]["at_scan_batch"] = row
     times.update(_time_fused(gen))
     return worst, times
 
@@ -417,6 +457,49 @@ def _time_device(fn, n=200):
         if queued:
             return start.elapsed_time(end) / n
     raise AssertionError("the host could not enqueue the calls ahead of the device")
+
+
+def _time_scan_batch(gen):
+    """The product and the Gram + Cholesky, float32, at the blocked scan's
+    batch [256, 32, 32], where nearly all their launches of a step run:
+    device time back to back for kernel and library call (the calls run
+    shorter than their launch path takes on the host), operands warm in L2
+    as the scan leaves them. The library Cholesky reads its status back on
+    the host and cannot be queued: its time is per call as the host sends
+    them (CUDA events around a run of calls), and is labelled so."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+
+    f32, n, d = torch.float32, N_SCAN, D
+    A = _randn(gen, n, d, d).to(f32)
+    B = _randn(gen, n, d, d).to(f32)
+    pre = _randn(gen, n, d, 2 * d).to(f32)
+    X, Y = pre[..., :d], pre[..., d:]
+    timed = {  # kernel, library, its label, its clock, bytes, flops
+        "bmm": (lambda: bl.batch_bmm(A, B, False, True), lambda: torch.matmul(A, B.mT),
+                "torch.matmul, device time back to back", _time_device,
+                _nbytes(A, B) + 4 * n * d * d, 2 * n * d ** 3),
+        "chol_gram": (lambda: bc.batch_chol_gram(X, Y),
+                      lambda: torch.linalg.cholesky(torch.bmm(pre, pre.mT)),
+                      "two calls: torch.bmm + torch.linalg.cholesky, as the host sends them",
+                      _time, _nbytes(pre) + 4 * n * d * d, n * (d * d * 2 * d + d ** 3 // 3)),
+    }
+    out = {}
+    for name, (kern, lib, lib_label, lib_clock, nbytes, flops) in timed.items():
+        kern(), lib()
+        torch.cuda.synchronize()
+        k1, l1 = _time_device(kern), lib_clock(lib)
+        l2, k2 = lib_clock(lib), _time_device(kern)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        row = {"ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "timing": "device_back_to_back"}
+        out[name] = row
+        print(f"[kernels] time {name} [{n},{d},{d}] f32: kernel {row['ms']:.4f} ms device time "
+              f"back to back, library {row['library_ms']:.4f} ms ({lib_label}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP)")
+    return out
 
 
 def _time_fused(gen):

@@ -1,37 +1,72 @@
 // Batched triangular factorisations for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernels
-//   lq_kernel<T>          <- _lq_kernel in physs_gp_tpu/ops/pallas/batched_qr.py
-//                            (batch_tria: Householder LQ, L L^T = B B^T)
-//   chol_kernel<T, false> <- _chol_kernel in physs_gp_tpu/ops/pallas/batched_chol.py
-//                            (batch_cholesky: explicit PSD A)
-//   chol_kernel<T, true>  <- _chol_gram_kernel in the same file
-//                            (batch_chol_gram: L = chol(X X^T + Y Y^T [+ I]))
+//   lq_kernel<T>            <- _lq_kernel in physs_gp_tpu/ops/pallas/batched_qr.py
+//                              (batch_tria: Householder LQ, L L^T = B B^T)
+//   chol_*_kernel<T, false> <- _chol_kernel in physs_gp_tpu/ops/pallas/batched_chol.py
+//                              (batch_cholesky: explicit PSD A)
+//   chol_*_kernel<T, true>  <- _chol_gram_kernel in the same file
+//                              (batch_chol_gram: L = chol(X X^T + Y Y^T [+ I]))
 //
-// The TPU kernels put the batch on the 128 vector lanes; here one block owns
-// one matrix, read row-major as given (batch and row strides are arguments,
-// the last dimension has unit stride), and writes a contiguous lower factor.
+// The TPU kernels put the batch on the 128 vector lanes; here the matrices
+// are read row-major as given (batch and row strides are arguments, the last
+// dimension has unit stride), and the lower factor is written contiguous.
 //
-// What bounds them on this card: at the main path's shapes (d = 32, m <= 64,
-// N = 25 000 to 100 000) the arithmetic is ~2 d^2 m flops (LQ) or ~d^3 / 3
-// (Cholesky) per 8-16 KB (f32) of operands, far under the ~20 flops per byte
-// where the fp32 pipes would saturate, so bytes would bound them; but each
-// factorisation carries a serial dependence over the pivot or reflector index
-// k (d steps, each a reduction followed by a rank-1 update), so the barrier-
-// separated steps per block, not bytes, set the time. The design keeps the
-// matrix in shared memory for all d steps (one read, one write of device
-// memory), reduces with warp shuffles, and relies on many resident blocks
-// to hide the per-step latency. wgmma, TMA and several matrices per warp are
-// later work.
+// Cholesky and Gram + Cholesky. What bounds them: at the main path's shapes
+// (d = 32, N = 256 in the blocked scan, 25 000 to 100 000 at full width) the
+// arithmetic is d^3 / 3 (+ 2 d^2 m for the Gram) flops on 8-12 KB (f32) per
+// matrix, under the ~20 flops per byte where the fp32 pipes would saturate:
+// device-memory bytes are the bound. A block per matrix with two block-wide
+// barriers per pivot is held by those 2 d barriers and by a Gram that reads
+// two shared-memory words per multiply-add, some ten times above the bound.
+// What the design does about it, for d <= 32 (chol_warp_kernel):
+//   - one warp owns one matrix, a block holds up to 8 of them (fewer when
+//     the batch is small, so that 256 matrices spread over every SM), and
+//     after the staging barrier the warps never wait for each other;
+//   - lane i keeps row i of A in 32 registers. The Gram is formed straight
+//     into them from [X | Y] staged once with cp.async (16 bytes at a time
+//     when base and strides allow): per 16 bytes of lane i's own row, one
+//     broadcast 16-byte load of row j feeds the multiply-adds of a_ij, all j;
+//     every lane computes its full row (half of it is the unused upper
+//     triangle: that is the price of no cross-lane traffic);
+//   - the elimination is right-looking, the order of the TPU kernel: at step
+//     k lane k's floored pivot goes round by one shuffle, every lane scales
+//     its a_ik, column k goes through 128 (256) bytes of the warp's own
+//     shared memory (double-buffered, one __syncwarp per step) and comes
+//     back as broadcast 16-byte loads for the rank-1 update of the
+//     registers. All register indices are static (the loops over k and j are
+//     unrolled). d < 32 is the 32 x 32 problem with zero rows and columns
+//     behind it (the tile's rows from d on are zero-filled), cut off after
+//     step d, so that the inner loops carry no test on d: a branch per load
+//     would keep the loads from overlapping, and one warp's latency is the
+//     whole time of a launch at the scan's batch;
+//   - the factor leaves through the warp's tile so that the stores to
+//     device memory are coalesced, 16 bytes a lane when d is a multiple of 4.
+// d > 32 does not fit a lane's registers (d up to 80 would need 3 x 96 per
+// lane): those shapes, off the main path, stay on one block per matrix in
+// shared memory (chol_block_kernel), selected by d in the launcher.
+// Numerics are the TPU kernel's in both: pivot k is max(a_kk, eps_rel d0_k +
+// 1e-30) with d0 the diagonal before the elimination, a NaN pivot stays NaN,
+// all-zero and semi-definite members stay finite, the upper triangle is zero.
 //
-// Numerics follow the TPU kernels step for step (same reflector, same pivot
-// floor, same canonical signs), so the plain PyTorch versions in
-// ops/cuda/batched_{qr,chol}.py agree with these kernels to rounding.
+// LQ. ~2 d^2 m flops per 8 KB: bytes would bound it, but each of the d
+// reflectors is a reduction followed by a rank-1 update, so the barrier-
+// separated steps per block set the time. One block per matrix, the matrix
+// in shared memory for all d steps, reductions with warp shuffles, many
+// resident blocks to hide the per-step latency.
+//
+// The plain PyTorch versions in ops/cuda/batched_{qr,chol}.py run the same
+// steps (same reflector, same pivot floor, same canonical signs) and agree
+// with these kernels to rounding.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tiles.cuh"
+
 namespace {
+
+using tiles::Pack;
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -121,19 +156,177 @@ __global__ void lq_kernel(const T* __restrict__ B, T* __restrict__ L, int d, int
 }
 
 // ---------------------------------------------------------------------------
-// Right-looking Cholesky with the per-row pivot floor, one matrix per block:
-// pivot_k = max(a_kk, eps_rel * d0_k + 1e-30), d0 the diagonal before the
-// elimination. GRAM forms A = X X^T (+ Y Y^T) (+ I) in shared memory first;
-// otherwise A is read from the lower triangle of the input. Only the lower
-// triangle is kept ([d][d + 1], padded against bank conflicts); output is
-// L contiguous [N, d, d] with a zero upper triangle. Never NaN for PSD or
-// all-zero input.
+// Right-looking Cholesky of the 32 x 32 (or smaller) matrix whose row `lane`
+// sits in this lane's registers, with the per-row pivot floor
+// pivot_k = max(a_kk, eps_rel * d0_k + 1e-30), d0 the diagonal on entry.
+// Rows and columns from d on are zero on entry and take no part. On return
+// row[j], j <= lane < d, is L[lane][j]; entries right of the diagonal are not
+// meaningful. cb: 64 elements of this warp's shared memory.
+// ---------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ void eliminate_rows(T (&row)[32], int d, int lane, T eps_rel,
+                                               T* cb) {
+  constexpr int W = Pack<T>::W;
+  T d0 = T(0);
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+    if (j == lane) d0 = row[j];
+  const T fl = eps_rel * d0 + T(1e-30);
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    if (k >= d) break;
+    const T akk = row[k];
+    const T own = sqrt(akk < fl ? fl : akk);  // NaN propagates, as jnp.maximum
+    const T lkk = __shfl_sync(0xffffffffu, own, k);
+    const T inv = T(1) / lkk;
+    const T c = row[k] * inv;
+    row[k] = lane == k ? lkk : c;
+    if (k + 1 >= d) break;
+    T* buf = cb + (k & 1) * 32;  // step k + 1 writes the other half
+    buf[lane] = c;
+    __syncwarp();
+#pragma unroll
+    for (int q = (k + 1) / W; q < 32 / W; ++q) {  // no test on d: the loads overlap
+      const Pack<T> cj = *reinterpret_cast<const Pack<T>*>(buf + q * W);
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        if (q * W + e > k) row[q * W + e] -= c * cj.v[e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// d <= 32: one warp per matrix, blockDim.x / 32 matrices per block. GRAM
+// forms A = X X^T (+ Y Y^T) (+ I) from [X | Y] staged side by side (Y from
+// column ceil4(mx)); otherwise the lower triangle of X is staged. Output is
+// L contiguous [N, d, d] with a zero upper triangle.
 // ---------------------------------------------------------------------------
 template <typename T, bool GRAM>
-__global__ void chol_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-                            T* __restrict__ L, int d, int mx, int my, long long sX,
-                            long long ldX, long long sY, long long ldY, int plus_eye,
-                            T eps_rel) {
+__global__ void __launch_bounds__(256)
+chol_warp_kernel(const T* __restrict__ X, const T* __restrict__ Y, T* __restrict__ L,
+                 int N, int d, int mx, int my, long long sX, long long ldX,
+                 long long sY, long long ldY, int plus_eye, T eps_rel, int vecX,
+                 int vecY) {
+  constexpr int W = Pack<T>::W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int G = nt >> 5;
+  const int cx = GRAM ? tiles::ceil4(mx) : 0;  // Y's first column in the tile
+  const int width = GRAM ? cx + tiles::ceil4(my) : d;
+  const int pitch = tiles::row_pitch<T>(width > d ? width : d);
+  const int slice = 32 * pitch;
+  T* S = reinterpret_cast<T*>(smem_raw);  // [G][32][pitch], rows >= d zero
+  T* cbuf = S + (size_t)G * slice;        // [G][2][32]
+  const int b0 = blockIdx.x * G;
+
+  if (GRAM) {
+    tiles::stage<T, false>(S, slice, pitch, X, sX, ldX, d, mx, 32, b0, N, G, vecX != 0, tid, nt);
+    if (my > 0)
+      tiles::stage<T, false>(S + cx, slice, pitch, Y, sY, ldY, d, my, 32, b0, N, G, vecY != 0,
+                             tid, nt);
+  } else {
+    tiles::stage<T, true>(S, slice, pitch, X, sX, ldX, d, d, 32, b0, N, G, vecX != 0, tid, nt);
+  }
+  tiles::cp_async_wait_all();
+  __syncthreads();
+
+  const int w = tid >> 5, lane = tid & 31;
+  const long long b = b0 + w;
+  if (b >= N) return;  // whole warps leave; no block-wide barrier follows
+  T* Sw = S + (size_t)w * slice;
+  T* own = Sw + lane * pitch;
+  T row[32];
+  if (GRAM) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) row[j] = T(0);
+    for (int l0 = 0; l0 < width; l0 += W) {
+      const Pack<T> xi = *reinterpret_cast<const Pack<T>*>(own + l0);
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {  // no test on d: the 32 loads overlap
+        const Pack<T> xj = *reinterpret_cast<const Pack<T>*>(Sw + j * pitch + l0);
+#pragma unroll
+        for (int e = 0; e < W; ++e) row[j] += xi.v[e] * xj.v[e];
+      }
+    }
+    if (plus_eye) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if (j == lane) row[j] += T(1);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 32 / W; ++q) {
+      Pack<T> v;
+#pragma unroll
+      for (int e = 0; e < W; ++e) v.v[e] = T(0);
+      if (q * W < d) v = *reinterpret_cast<const Pack<T>*>(own + q * W);
+#pragma unroll
+      for (int e = 0; e < W; ++e) row[q * W + e] = v.v[e];
+    }
+  }
+
+  eliminate_rows(row, d, lane, eps_rel, cbuf + w * 64);
+
+  __syncwarp();  // every lane is done reading the staged operands
+  if (lane < d) {
+#pragma unroll
+    for (int q = 0; q < 32 / W; ++q) {
+      if (q * W >= d) break;
+      Pack<T> v;
+#pragma unroll
+      for (int e = 0; e < W; ++e) v.v[e] = q * W + e <= lane ? row[q * W + e] : T(0);
+      *reinterpret_cast<Pack<T>*>(own + q * W) = v;
+    }
+  }
+  __syncwarp();
+  T* out = L + b * d * d;
+  if ((d & 3) == 0) {
+    const int groups = d / W;
+    for (int idx = lane; idx < d * groups; idx += 32) {
+      const int r = idx / groups, c0 = (idx - r * groups) * W;
+      *reinterpret_cast<Pack<T>*>(out + r * d + c0) =
+          *reinterpret_cast<const Pack<T>*>(Sw + r * pitch + c0);
+    }
+  } else {
+    for (int idx = lane; idx < d * d; idx += 32) {
+      const int r = idx / d;
+      out[idx] = Sw[r * pitch + idx - r * d];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// d > 32: one block per matrix, the lower triangle in shared memory as
+// [d][d + 1]; the same right-looking elimination with block-wide barriers.
+// ---------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ void eliminate_block(T* A, int lda, const T* d0, T* c, int d,
+                                                T eps_rel, int tid, int nt) {
+  for (int k = 0; k < d; ++k) {
+    const T akk = A[k * lda + k];
+    const T fl = eps_rel * d0[k] + T(1e-30);
+    const T lkk = sqrt(akk < fl ? fl : akk);  // NaN propagates, as jnp.maximum
+    const T inv = T(1) / lkk;
+    for (int i = k + 1 + tid; i < d; i += nt) c[i] = A[i * lda + k] * inv;
+    __syncthreads();
+    if (tid == 0) A[k * lda + k] = lkk;
+    const int n = d - k - 1;
+    for (int idx = tid; idx < n * n; idx += nt) {
+      const int r = idx / n, s = idx - r * n;
+      if (s > r) continue;
+      const int i = k + 1 + r, j = k + 1 + s;
+      A[i * lda + j] -= c[i] * c[j];
+    }
+    for (int i = k + 1 + tid; i < d; i += nt) A[i * lda + k] = c[i];
+    __syncthreads();
+  }
+}
+
+template <typename T, bool GRAM>
+__global__ void chol_block_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+                                  T* __restrict__ L, int d, int mx, int my, long long sX,
+                                  long long ldX, long long sY, long long ldY,
+                                  int plus_eye, T eps_rel) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lda = d + 1;
   T* A = reinterpret_cast<T*>(smem_raw);  // [d][d + 1]
@@ -174,24 +367,7 @@ __global__ void chol_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   for (int i = tid; i < d; i += nt) d0[i] = A[i * lda + i];
   __syncthreads();
 
-  for (int k = 0; k < d; ++k) {
-    const T akk = A[k * lda + k];
-    const T fl = eps_rel * d0[k] + T(1e-30);
-    const T lkk = sqrt(akk < fl ? fl : akk);  // NaN propagates, as jnp.maximum
-    const T inv = T(1) / lkk;
-    for (int i = k + 1 + tid; i < d; i += nt) c[i] = A[i * lda + k] * inv;
-    __syncthreads();
-    if (tid == 0) A[k * lda + k] = lkk;
-    const int n = d - k - 1;
-    for (int idx = tid; idx < n * n; idx += nt) {
-      const int r = idx / n, s = idx - r * n;
-      if (s > r) continue;
-      const int i = k + 1 + r, j = k + 1 + s;
-      A[i * lda + j] -= c[i] * c[j];
-    }
-    for (int i = k + 1 + tid; i < d; i += nt) A[i * lda + k] = c[i];
-    __syncthreads();
-  }
+  eliminate_block(A, lda, d0, c, d, eps_rel, tid, nt);
 
   T* out = L + b * d * d;
   for (int idx = tid; idx < d * d; idx += nt) {
@@ -200,38 +376,50 @@ __global__ void chol_kernel(const T* __restrict__ X, const T* __restrict__ Y,
   }
 }
 
-template <typename Kern>
-cudaError_t set_smem(Kern kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 template <typename T>
 int launch_lq(const void* B, void* L, int N, int d, int m, long long sB, long long ldB,
               int threads, cudaStream_t stream) {
   const size_t smem = (size_t)(d * m + m + d + 2) * sizeof(T);
   auto kern = lq_kernel<T>;
-  cudaError_t err = set_smem(kern, smem);
+  static size_t granted = 48 * 1024;
+  cudaError_t err = tiles::set_smem(kern, smem, granted);
   if (err != cudaSuccess) return (int)err;
   kern<<<N, threads, smem, stream>>>(static_cast<const T*>(B), static_cast<T*>(L), d, m,
                                      sB, ldB);
   return (int)cudaGetLastError();
 }
 
+// d <= 32: G matrices (warps) per block; d > 32: one block of `threads` per matrix.
 template <typename T, bool GRAM>
 int launch_chol(const void* X, const void* Y, void* L, int N, int d, int mx, int my,
                 long long sX, long long ldX, long long sY, long long ldY, int plus_eye,
-                double eps_rel, int threads, cudaStream_t stream) {
-  size_t words = (size_t)d * (d + 1) + 2 * d;
-  if (GRAM) words += (size_t)d * (mx + 1) + (size_t)d * (my + 1);
-  const size_t smem = words * sizeof(T);
-  auto kern = chol_kernel<T, GRAM>;
-  cudaError_t err = set_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<N, threads, smem, stream>>>(static_cast<const T*>(X), static_cast<const T*>(Y),
-                                     static_cast<T*>(L), d, mx, my, sX, ldX, sY, ldY,
-                                     plus_eye, (T)eps_rel);
+                double eps_rel, int G, int threads, int vecX, int vecY,
+                cudaStream_t stream) {
+  const T* x = static_cast<const T*>(X);
+  const T* y = static_cast<const T*>(Y);
+  T* l = static_cast<T*>(L);
+  cudaError_t err;
+  if (d <= 32) {
+    const int width = GRAM ? tiles::ceil4(mx) + tiles::ceil4(my) : d;
+    const size_t smem =
+        (size_t)G * (32 * tiles::row_pitch<T>(width > d ? width : d) + 64) * sizeof(T);
+    auto kern = chol_warp_kernel<T, GRAM>;
+    static size_t granted = 48 * 1024;
+    err = tiles::set_smem(kern, smem, granted);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(N + G - 1) / G, 32 * G, smem, stream>>>(x, y, l, N, d, mx, my, sX, ldX, sY, ldY,
+                                                    plus_eye, (T)eps_rel, vecX, vecY);
+  } else {
+    size_t words = (size_t)d * (d + 1) + 2 * d;
+    if (GRAM) words += (size_t)d * (mx + 1) + (size_t)d * (my + 1);
+    const size_t smem = words * sizeof(T);
+    auto kern = chol_block_kernel<T, GRAM>;
+    static size_t granted = 48 * 1024;
+    err = tiles::set_smem(kern, smem, granted);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<N, threads, smem, stream>>>(x, y, l, d, mx, my, sX, ldX, sY, ldY, plus_eye,
+                                       (T)eps_rel);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -248,21 +436,23 @@ extern "C" int physs_lq(int dtype, const void* B, void* L, int N, int d, int m,
 
 // gram = 0: L = chol(X) for X [N, d, d] (lower triangle read; Y, mx, my unused).
 // gram = 1: L = chol(X X^T + Y Y^T [+ I]), X [N, d, mx], Y [N, d, my] (my may be 0).
+// vecX / vecY: the operand's base address, batch stride and row stride are
+// multiples of 16 bytes (16-byte staging; read for d <= 32 only).
 extern "C" int physs_chol(int dtype, int gram, const void* X, const void* Y, void* L,
                           int N, int d, int mx, int my, long long sX, long long ldX,
                           long long sY, long long ldY, int plus_eye, double eps_rel,
-                          int threads, void* stream) {
+                          int G, int threads, int vecX, int vecY, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (gram)
       return launch_chol<double, true>(X, Y, L, N, d, mx, my, sX, ldX, sY, ldY, plus_eye,
-                                       eps_rel, threads, s);
+                                       eps_rel, G, threads, vecX, vecY, s);
     return launch_chol<double, false>(X, Y, L, N, d, mx, my, sX, ldX, sY, ldY, plus_eye,
-                                      eps_rel, threads, s);
+                                      eps_rel, G, threads, vecX, vecY, s);
   }
   if (gram)
     return launch_chol<float, true>(X, Y, L, N, d, mx, my, sX, ldX, sY, ldY, plus_eye,
-                                    eps_rel, threads, s);
+                                    eps_rel, G, threads, vecX, vecY, s);
   return launch_chol<float, false>(X, Y, L, N, d, mx, my, sX, ldX, sY, ldY, plus_eye,
-                                   eps_rel, threads, s);
+                                   eps_rel, G, threads, vecX, vecY, s);
 }

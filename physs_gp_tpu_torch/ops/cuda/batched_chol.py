@@ -9,31 +9,67 @@ scale would crush legitimate small directions). `eps_rel` defaults to 5e-7
 in float32 and 1e-14 in float64.
 
 - `batch_cholesky(A)`: L with L Lᵀ ≈ A for explicit PSD A [N, d, d], from
-  its lower triangle (replaces `_chol_kernel`; `chol_kernel<T, false>`).
+  its lower triangle (replaces `_chol_kernel`; the kernels' GRAM = false).
 - `batch_chol_gram(X, Y, plus_eye)`: L = chol(X Xᵀ + Y Yᵀ [+ I]) with the
-  Gram formed inside the kernel (replaces `_chol_gram_kernel`;
-  `chol_kernel<T, true>`). Forming the Gram squares the spread of the
-  spectrum, so it is for covariance-side factors only.
+  Gram formed inside the kernel (replaces `_chol_gram_kernel`; GRAM =
+  true). Forming the Gram squares the spread of the spectrum, so it is for
+  covariance-side factors only.
 
-Both kernels are in `csrc/batched_factor.cu`. `cholesky_plain` and
-`chol_gram_plain` are the same elimination in batched tensor ops, taken for
-CPU tensors. `ops/cuda/build.py` counts the launches (`launch_counts`).
+Both kernels are in `csrc/batched_factor.cu`: for d <= 32 one warp owns a
+matrix with a row per lane in registers (`chol_warp_kernel`), above that one
+block per matrix in shared memory (`chol_block_kernel`); `chol_plan` gives
+the launch shape, and operands whose base and strides are multiples of 16
+bytes are staged 16 bytes at a time (`build.layout_aligned16`).
+`cholesky_plain` and `chol_gram_plain` are the same elimination in batched
+tensor ops, taken for CPU tensors. `ops/cuda/build.py` counts the launches
+(`launch_counts`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import build
-from .build import D_MAX, check_smem, dtype_code, launch, on_cpu, row_stride, stream_of, threads_for
+from .build import (
+    D_MAX, SM_COUNT, ceil4, check_smem, dtype_code, launch, layout_aligned16, on_cpu, row_pitch,
+    row_stride, stream_of, threads_for,
+)
 
 __all__ = [
     "batch_cholesky",
     "batch_chol_gram",
     "cholesky_plain",
     "chol_gram_plain",
+    "chol_plan",
     "launch_counts",
     "reset_launch_counts",
 ]
+
+
+WARP_D = 32  # up to here one warp owns a matrix, one row per lane
+_MAX_WARPS = 8  # matrices per block at a large batch
+_GROUP_SMEM = 75 * 1024  # three blocks of grouped matrices fit an SM
+
+
+@functools.lru_cache(maxsize=None)
+def chol_plan(N: int, d: int, mx: int, my: int, gram: bool, itemsize: int):
+    """(G, threads, shared-memory bytes) of one Cholesky launch.
+
+    d <= 32: one warp per matrix, G matrices per block, each with a
+    [32][pitch] tile (the staged [X | Y], Y from column ceil4(mx), or the
+    lower triangle of A; the factor leaves through it) and 64 elements for
+    the column of the step. G is at most 8 and what 75 KB hold, but no more
+    than leaves every SM two blocks: the scan's batch of 256 goes one matrix
+    per block. d > 32: one block per matrix, the lower triangle as
+    [d][d + 1] beside the staged factors."""
+    if d <= WARP_D:
+        width = ceil4(mx) + ceil4(my) if gram else d
+        per = (WARP_D * row_pitch(max(width, d), itemsize) + 64) * itemsize
+        G = max(1, min(_MAX_WARPS, _GROUP_SMEM // per, N // (2 * SM_COUNT)))
+        return G, 32 * G, G * per
+    words = d * (d + 1) + 2 * d + (d * (mx + 1) + d * (my + 1) if gram else 0)
+    return 1, threads_for(d * d), words * itemsize
 
 
 def _eps_rel(dtype, eps_rel):
@@ -77,17 +113,20 @@ def _launch(name, kernel, X, Y, gram: bool, plus_eye: bool, eps_rel):
     my = 0 if Y is None else Y.shape[-1]
     if d > D_MAX or mx > D_MAX or my > D_MAX:
         raise ValueError(f"{name}: [{d}, {mx}] + [{d}, {my}] exceeds {D_MAX}")
-    words = d * (d + 1) + 2 * d + (d * (mx + 1) + d * (my + 1) if gram else 0)
-    check_smem(name, words, X)
+    es = X.element_size()
+    G, threads, smem = chol_plan(N, d, mx, my, gram, es)
+    check_smem(name, smem // es, X)
     L = torch.empty((N, d, d), dtype=X.dtype, device=X.device)
     if N == 0:
         return L
     Yk = X if Y is None else Y
+    pX, sX, ldX = X.data_ptr(), X.stride(0), row_stride(X)
+    pY, sY, ldY = Yk.data_ptr(), Yk.stride(0), row_stride(Yk)
     launch(
-        kernel, "batched_factor", "physs_chol", dtype_code(X), int(gram), X.data_ptr(),
-        Yk.data_ptr(), L.data_ptr(), N, d, mx, my, X.stride(0), row_stride(X),
-        Yk.stride(0), row_stride(Yk), int(plus_eye), _eps_rel(X.dtype, eps_rel),
-        threads_for(d * d), stream_of(X),
+        kernel, "batched_factor", "physs_chol", dtype_code(X), int(gram), pX, pY,
+        L.data_ptr(), N, d, mx, my, sX, ldX, sY, ldY, int(plus_eye),
+        _eps_rel(X.dtype, eps_rel), G, threads, int(layout_aligned16(pX, sX, ldX, es)),
+        int(layout_aligned16(pY, sY, ldY, es)), stream_of(X),
     )
     return L
 

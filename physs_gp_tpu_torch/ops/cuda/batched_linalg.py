@@ -16,17 +16,25 @@ batched tensor ops) for a tensor that lies on the CPU; for a CUDA tensor it
 launches the kernel or raises. Operands are [N, rows, cols] with unit stride
 along the last dimension; the batch and row strides are passed to the kernel,
 so column slices and broadcast (stride-0) batches need no copy. Outputs are
-new contiguous tensors.
+new contiguous tensors. The product's launch shape (products per block,
+threads, shared memory) comes from `bmm_plan`; an operand whose base address,
+batch stride and row stride are multiples of 16 bytes is staged 16 bytes at a
+time, any other one element at a time (`build.layout_aligned16`).
 
 The kernels are built at first use by `ops/cuda/build.py`, which counts
 their launches (`launch_counts`).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build
-from .build import D_MAX, check_smem, dtype_code, launch, on_cpu, row_stride, stream_of, threads_for
+from .build import (
+    D_MAX, SM_COUNT, ceil4, check_smem, dtype_code, launch, layout_aligned16, on_cpu, row_pitch,
+    row_stride, stream_of, threads_for,
+)
 
 __all__ = [
     "batch_bmm",
@@ -34,13 +42,35 @@ __all__ = [
     "batch_solve",
     "batch_solve_logdet",
     "bmm_plain",
+    "bmm_plan",
     "gj_solve_plain",
     "gj_solve_logdet_plain",
     "launch_counts",
     "reset_launch_counts",
 ]
 
-_THREADS = 256
+_THREADS = 256  # threads a block of grouped products aims at
+_MAX_THREADS = 512  # the product kernel's launch bound
+_GROUP_SMEM = 48 * 1024  # grouped products stay under the opt-in limit
+
+
+@functools.lru_cache(maxsize=None)
+def bmm_plan(N: int, m: int, n: int, k: int, ta: bool, tb: bool, itemsize: int):
+    """(G, threads, shared-memory bytes) of one product launch.
+
+    Each thread owns a 4 x 4 tile of C, so a product takes ceil(m / 4) *
+    ceil(n / 4) threads; a block holds G products. G is what 256 threads
+    and 48 KB of shared memory hold, but no more than leaves every SM two
+    blocks: a small batch (the scan's 256) goes one product per block.
+    Operands are staged in their stored layout, rows padded to 4 and to the
+    kernels' pitch (`build.row_pitch`)."""
+    ra, ca = (k, m) if ta else (m, k)
+    rb, cb = (n, k) if tb else (k, n)
+    per = (ceil4(ra) * row_pitch(ca, itemsize) + ceil4(rb) * row_pitch(cb, itemsize)) * itemsize
+    tiles = -(-m // 4) * -(-n // 4)
+    G = max(1, min(_THREADS // tiles, _GROUP_SMEM // per, N // (2 * SM_COUNT)))
+    threads = min(_MAX_THREADS, -(-G * tiles // 32) * 32)
+    return G, threads, G * per
 
 
 # ---------------------------------------------------------------------------
@@ -108,14 +138,16 @@ def batch_bmm(A, B, ta: bool = False, tb: bool = False):
     C = torch.empty((N, m, n), dtype=A.dtype, device=A.device)
     if N == 0:
         return C
-    check_smem("batch_bmm", m * k + k * n, A)
-    per = (m * k + k * n) * A.element_size()
-    # several small products per block so that each block keeps its threads busy
-    G = max(1, min(_THREADS // (m * n), (48 * 1024) // per, N))
+    es = A.element_size()
+    G, threads, smem = bmm_plan(N, m, n, k, ta, tb, es)
+    check_smem("batch_bmm", smem // es, A)
+    pA, sA, ldA = A.data_ptr(), A.stride(0), row_stride(A)
+    pB, sB, ldB = B.data_ptr(), B.stride(0), row_stride(B)
     launch(
         "bmm", "batched_linalg", "physs_bmm", dtype_code(A), int(ta), int(tb),
-        A.data_ptr(), B.data_ptr(), C.data_ptr(), N, m, n, k, A.stride(0),
-        row_stride(A), B.stride(0), row_stride(B), G, _THREADS, stream_of(A),
+        pA, pB, C.data_ptr(), N, m, n, k, sA, ldA, sB, ldB, G, threads,
+        int(layout_aligned16(pA, sA, ldA, es)), int(layout_aligned16(pB, sB, ldB, es)),
+        stream_of(A),
     )
     return C
 

@@ -1,7 +1,8 @@
 """Build, load and call the port's CUDA sources (`csrc/*.cu`).
 
 Each source is compiled by `nvcc` for sm_90a at first use into `_build/`
-beside this package, under a name keyed by a hash of the source and flags,
+beside this package, under a name keyed by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags,
 and loaded through ctypes. `build()` starts one `nvcc` per source that is
 not built yet, all side by side, and waits for them together. The helpers
 below are the operand checks and launch plumbing the wrappers share;
@@ -33,17 +34,18 @@ _NVCC_FLAGS = [
 ]
 SMEM_LIMIT = 232_448  # bytes of dynamic shared memory one block may use
 D_MAX = 80  # largest state dimension the kernels cover
+SM_COUNT = 132  # streaming multiprocessors of an H100 SXM: small batches spread over them
 
 _p, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 # entry points of each source: name -> argtypes (all return int, a cudaError_t)
 _ENTRY_POINTS = {
     "batched_linalg": {
-        "physs_bmm": [_i, _i, _i, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i, _p],
+        "physs_bmm": [_i, _i, _i, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _i, _i, _i, _p],
         "physs_gj_solve": [_i, _i, _p, _p, _p, _p, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _p],
     },
     "batched_factor": {
         "physs_lq": [_i, _p, _p, _i, _i, _i, _ll, _ll, _i, _p],
-        "physs_chol": [_i, _i, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _d, _i, _p],
+        "physs_chol": [_i, _i, _p, _p, _p, _i, _i, _i, _i, _ll, _ll, _ll, _ll, _i, _d, _i, _i, _i, _i, _p],
     },
     # host arrays of input pointers, (batch, row) strides and output pointers
     "fused_combine": {
@@ -68,7 +70,8 @@ def _nvcc() -> str:
 
 def _target(name: str):
     src = _PKG / "csrc" / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted((_PKG / "csrc").glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, _BUILD_DIR / f"lib{name}_{key}.so"
 
 
@@ -198,6 +201,31 @@ def stream_of(x) -> int:
 
 def row_stride(x) -> int:
     return x.stride(-2) if x.shape[-2] > 1 else x.shape[-1]
+
+
+def ceil4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def row_pitch(cols: int, itemsize: int) -> int:
+    """Elements between the rows of a shared-memory tile of `cols` columns,
+    as `csrc/tiles.cuh` lays it out: cols rounded up to 4, then to 16
+    (mod 32) bytes, so that rows start 16-byte aligned and neighbouring rows
+    lie 4 banks apart."""
+    nbytes = ceil4(cols) * itemsize
+    if nbytes % 32 == 0:
+        nbytes += 16
+    return nbytes // itemsize
+
+
+def layout_aligned16(ptr: int, batch_stride: int, ld: int, itemsize: int) -> bool:
+    """Whether 16-byte loads may stage an operand: its base address, batch
+    stride and row stride `ld` (in elements) are all multiples of 16 bytes."""
+    return ptr % 16 == 0 and (batch_stride * itemsize) % 16 == 0 and (ld * itemsize) % 16 == 0
+
+
+def aligned16(x) -> bool:
+    return layout_aligned16(x.data_ptr(), x.stride(0), row_stride(x), x.element_size())
 
 
 def threads_for(work: int) -> int:

@@ -8,10 +8,12 @@ Builds `build_config5(T, chunk, float32)` (default T = 100 000, chunk
 one warm-up step, then traces one step with `torch.profiler`. Prints the
 card, the step's wall time, the device-busy share (summed kernel time over
 wall time), the launches of each hand-written kernel in the step, the
-kernels that take the most device time, and the profiler's table by device
+kernels that take the most device time, every hand-written kernel of the
+port with its device time and calls, and the profiler's table by device
 time.
 """
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +68,11 @@ def main():
         if e.self_device_time_total <= 0:
             break
         print(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms  {e.count:7d} calls  {e.key[:90]}")
+    for e in sorted(kernels, key=lambda e: e.key):
+        ours = re.match(r"void \(anonymous namespace\)::(\w+_kernel<[^(]*>)\(", e.key)
+        if ours:
+            print(f"[profile] port kernel {e.self_device_time_total / 1e3:9.2f} ms  "
+                  f"{e.count:7d} calls  {ours.group(1)}")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
     return 0
 

@@ -12,8 +12,10 @@ batch member); every member's L Lᵀ agrees with the exact product to 1e-10
 of the member's diagonal scale, or to 1e-6 for the floored pivots of
 rank-deficient Cholesky inputs (the floor is eps_rel = 1e-14 of the row's
 diagonal, and the elimination amplifies rounding noise through it). The
-`cuda` cases compare each CUDA kernel with its plain version and skip
-without a card.
+Cholesky launch shape (`chol_plan`) is pure Python and is held here for
+every d up to 80 in both types. The `cuda` cases compare each CUDA kernel
+with its plain version, on aligned, unaligned, strided and stride-0 operands
+and ragged batches, and skip without a card.
 """
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ torch = pytest.importorskip("torch")
 from physs_gp_tpu_torch.ops import cuda as kernels  # noqa: E402
 from physs_gp_tpu_torch.ops.cuda import batched_chol as bc  # noqa: E402
 from physs_gp_tpu_torch.ops.cuda import batched_qr as bq  # noqa: E402
+from physs_gp_tpu_torch.ops.cuda import build  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -156,6 +159,47 @@ def test_wrappers_reject_bad_operands():
 
 
 # ---------------------------------------------------------------------------
+# The launcher's choices, pure Python
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("d", [1, 2, 7, 16, 31, 32, 33, 48, 64, 79, 80])
+def test_chol_plan_fits_the_card(d, itemsize):
+    """Every factor width up to 80, with and without the Gram, small and
+    large batches: a warp per matrix up to d = 32 and a block per matrix
+    above, threads within the launch bounds, shared memory within what a
+    block may use, the tile wide enough for [X | Y] and for the factor."""
+    for gram in (False, True):
+        for mx in (range(1, 81) if gram else (d,)):
+            for my in ((0, 1, 7, 32, 33, 80) if gram else (0,)):
+                for N in (1, 128, 256, 25_000, 100_000):
+                    G, threads, smem = bc.chol_plan(N, d, mx, my, gram, itemsize)
+                    assert smem <= build.SMEM_LIMIT
+                    if d <= bc.WARP_D:
+                        assert 1 <= G <= min(8, max(1, N)) and threads == 32 * G
+                        width = build.ceil4(mx) + build.ceil4(my) if gram else d
+                        pitch = build.row_pitch(max(width, d), itemsize)
+                        assert pitch >= build.ceil4(d) and pitch >= width
+                        assert smem == G * (32 * pitch + 64) * itemsize
+                        if G > 1:  # grouped matrices leave every SM two blocks
+                            assert -(-N // G) >= 2 * build.SM_COUNT
+                    else:
+                        assert G == 1 and 32 <= threads <= 256 and threads % 32 == 0
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_chol_plan_at_the_main_shapes(itemsize):
+    """d = 32: 8 (float32) or 4 (float64) matrices per block at full width,
+    three such blocks to an SM; one warp per block at the scan's batch."""
+    G, threads, smem = bc.chol_plan(25_000, 32, 32, 32, True, itemsize)
+    assert G == (8 if itemsize == 4 else 4) and 3 * smem <= build.SMEM_LIMIT
+    assert bc.chol_plan(256, 32, 32, 32, True, itemsize)[:2] == (1, 32)
+    assert bc.chol_plan(100_000, 32, 32, 0, False, itemsize)[:2] == (8, 256)
+    assert bc.chol_plan(500, 80, 80, 80, True, itemsize)[:2] == (1, 256)
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -247,3 +291,47 @@ def test_cuda_sqrt_routing_matches_cpu(cuda, dtype):
     for a, b in zip(on_card, run("cpu")):
         err = (a.cpu() - b).abs().max() / b.abs().max()
         assert float(err) <= 10 * _CARD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,d,mx,my", [(1, 32, 32, 32), (255, 32, 32, 32), (257, 32, 32, 32),
+                                       (1100, 32, 16, 0), (2200, 31, 33, 7), (300, 7, 7, 9),
+                                       (40, 48, 48, 48)])
+def test_cuda_chol_layouts_and_ragged_batches(cuda, dtype, N, d, mx, my):
+    """Gram + Cholesky and Cholesky on unaligned, odd-strided and stride-0
+    operands and on batches that do not fill the last block."""
+    rng = np.random.default_rng(N + d + mx)
+    tol = _CARD_TOL[dtype]
+
+    def layouts(cols):
+        x = _t(rng.normal(size=(N, d, cols)) / np.sqrt(cols)).to(cuda, dtype)
+        shifted = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda)
+        shifted[1:] = x.reshape(-1)
+        odd = torch.zeros(N, d, cols + 3 - cols % 2, dtype=dtype, device=cuda)
+        odd[..., :cols] = x
+        return {"contiguous": x, "shifted": shifted[1:].view(N, d, cols),
+                "odd row stride": odd[..., :cols], "stride-0 batch": x[:1].expand(N, d, cols)}
+
+    Xs = layouts(mx)
+    Ys = layouts(my) if my else None
+    assert not build.aligned16(Xs["shifted"]) and not build.aligned16(Xs["odd row stride"])
+    for lx, ly in [("contiguous", "contiguous"), ("shifted", "odd row stride"),
+                   ("odd row stride", "stride-0 batch"), ("stride-0 batch", "shifted")]:
+        X, Y = Xs[lx], None if Ys is None else Ys[ly]
+        plus_eye = Y is None or mx + my < d
+        L, Lp = bc.batch_chol_gram(X, Y, plus_eye), bc.chol_gram_plain(X, Y, plus_eye)
+        assert L.is_contiguous() and torch.isfinite(L).all()
+        assert (torch.triu(L, 1) == 0).all()
+        assert float((L - Lp).abs().max() / Lp.abs().max()) <= 100 * tol
+        _close_gram(L, Lp @ Lp.transpose(-1, -2), tol)
+    A = layouts(d)["contiguous"]
+    P = A @ A.transpose(-1, -2) + 0.1 * torch.eye(d, dtype=dtype, device=cuda)
+    shifted = torch.zeros(P.numel() + 1, dtype=dtype, device=cuda)
+    shifted[1:] = P.reshape(-1)
+    for view in (P, torch.cat([P, P], -1)[..., d:], shifted[1:].view(N, d, d),
+                 P[:1].expand(N, d, d)):
+        L, Lp = bc.batch_cholesky(view), bc.cholesky_plain(view)
+        assert float((L - Lp).abs().max() / Lp.abs().max()) <= 100 * tol
+        assert (torch.triu(L, 1) == 0).all()
+    torch.cuda.synchronize()

@@ -4,14 +4,19 @@ The plain PyTorch versions (what the port runs on the CPU, and what the CUDA
 kernels are held to on the card) are compared with the JAX package's Pallas
 kernels run in interpret mode, on the same numpy inputs, in float64:
 rtol 1e-12 for products, 1e-10 for solves and log-determinants. Larger state
-dimensions (64, 80) are checked against numpy.linalg. The `cuda` cases
-compare each CUDA kernel with its plain version and skip without a card.
+dimensions (64, 80) are checked against numpy.linalg. The product's launch
+shape (`bmm_plan`) and the 16-byte staging rule (`build.aligned16`) are pure
+Python and are held here for every (m, n, k) up to 80 in both types. The
+`cuda` cases compare each CUDA kernel with its plain version, on aligned,
+unaligned, strided and stride-0 operands and ragged batches, and skip
+without a card.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl  # noqa: E402
+from physs_gp_tpu_torch.ops.cuda import build  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -124,6 +129,82 @@ def test_wrappers_reject_bad_operands():
 
 
 # ---------------------------------------------------------------------------
+# The launcher's choices, pure Python
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("m", [1, 3, 4, 7, 16, 31, 32, 33, 64, 65, 79, 80])
+def test_bmm_plan_fits_the_card(m, itemsize):
+    """Every (m, n, k) up to 80, every transpose, small and large batches:
+    at least one product per block, whole warps within the kernel's launch
+    bound, shared memory within what a block may use, and every tile of
+    every product of the block reachable by the block's threads."""
+    for n in range(1, 81):
+        for k in (1, 2, 7, 31, 32, 33, 65, 80):
+            for ta in (False, True):
+                for tb in (False, True):
+                    for N in (1, 128, 256, 25_000):
+                        G, threads, smem = bl.bmm_plan(N, m, n, k, ta, tb, itemsize)
+                        assert 1 <= G <= max(1, N)
+                        assert 32 <= threads <= 512 and threads % 32 == 0
+                        assert smem <= build.SMEM_LIMIT
+                        ra, ca = (k, m) if ta else (m, k)
+                        rb, cb = (n, k) if tb else (k, n)
+                        words = build.ceil4(ra) * build.row_pitch(ca, itemsize) \
+                            + build.ceil4(rb) * build.row_pitch(cb, itemsize)
+                        assert smem == G * words * itemsize
+                        if G > 1:  # grouped products leave every SM two blocks
+                            assert -(-N // G) >= 2 * build.SM_COUNT and smem <= 48 * 1024
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_bmm_plan_groups_at_d32(itemsize):
+    """d = 32: four products per 256-thread block in float32 at full width
+    (the earlier 256 // (m n) gave 0 there), one per 64-thread block at the
+    scan's batch so that 256 products reach every SM."""
+    G, threads, smem = bl.bmm_plan(25_000, 32, 32, 32, False, True, itemsize)
+    assert G == (4 if itemsize == 4 else 2) and threads == 64 * G
+    assert bl.bmm_plan(256, 32, 32, 32, False, True, itemsize)[:2] == (1, 64)
+    assert bl.bmm_plan(1, 80, 80, 80, False, False, itemsize)[:2] == (1, 416)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_row_pitch_alignment_and_banks(itemsize):
+    for cols in range(1, 200):
+        pitch = build.row_pitch(cols, itemsize)
+        assert pitch >= build.ceil4(cols) and pitch - build.ceil4(cols) <= 16 // itemsize
+        assert (pitch * itemsize) % 32 == 16  # rows 16-byte aligned, 4 banks apart
+
+
+@pytest.mark.parametrize(
+    "ptr,batch,row,itemsize,expected",
+    [(4096, 1024, 32, 4, True), (4096, 0, 32, 4, True), (4100, 1024, 32, 4, False),
+     (4096, 1023, 32, 4, False), (4096, 1024, 33, 4, False), (4096, 1024, 65, 4, False),
+     (4096, 1024, 2, 8, True), (4104, 1024, 2, 8, False), (4096, 1024, 33, 8, False),
+     (4096, 1025, 32, 8, False), (4096, 1056, 36, 4, True), (4112, 0, 0, 8, True)],
+)
+def test_vector_staging_only_for_16_byte_layouts(ptr, batch, row, itemsize, expected):
+    assert build.layout_aligned16(ptr, batch, row, itemsize) is expected
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_aligned16_of_views(dtype):
+    """The scan's operands: contiguous and stride-0 batches take 16-byte
+    staging; a view that starts one element into its storage or has an odd
+    row stride does not."""
+    N, d = 5, 32
+    base = torch.zeros(N * d * d + 4, dtype=dtype)
+    assert base.data_ptr() % 16 == 0
+    assert build.aligned16(base[: N * d * d].view(N, d, d))
+    assert build.aligned16(base[: d * d].view(1, d, d).expand(N, d, d))
+    assert build.aligned16(torch.zeros(N, d, 2 * d, dtype=dtype)[..., d:])
+    assert not build.aligned16(base[1: 1 + N * d * d].view(N, d, d))
+    assert not build.aligned16(torch.zeros(N, d, d + 1, dtype=dtype)[..., :d])
+    assert not build.aligned16(torch.zeros(N, d, 2 * d + 1, dtype=dtype)[..., d:2 * d])
+
+
+# ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -195,3 +276,45 @@ def test_cuda_routing_of_views(cuda, dtype):
     tol = _CARD_TOL[dtype][1]
     for a, b in zip(on_card, run("cpu")):
         _close(a, b, tol)
+
+
+def _operand_layouts(rng, N, rows, cols, dtype, dev):
+    """The same [N, rows, cols] values in four layouts: contiguous, starting
+    one element into the storage, with an odd row stride, and (member 0
+    only) as a stride-0 batch."""
+    x = _t(rng.normal(size=(N, rows, cols))).to(dev, dtype)
+    shifted = torch.zeros(x.numel() + 1, dtype=dtype, device=dev)
+    shifted[1:] = x.reshape(-1)
+    odd = torch.zeros(N, rows, cols + 3 - cols % 2, dtype=dtype, device=dev)
+    odd[..., :cols] = x
+    return {
+        "contiguous": x,
+        "shifted": shifted[1:].view(N, rows, cols),
+        "odd row stride": odd[..., :cols],
+        "stride-0 batch": x[:1].expand(N, rows, cols),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,m,n,k", [(1, 32, 32, 32), (255, 32, 32, 32), (257, 32, 32, 32),
+                                     (1100, 32, 65, 32), (300, 7, 5, 9), (3, 80, 65, 80)])
+def test_cuda_bmm_layouts_and_ragged_batches(cuda, dtype, N, m, n, k):
+    """Unaligned, odd-strided and stride-0 operands and batches that do not
+    fill the last block, in all four transpose cases."""
+    rng = np.random.default_rng(N + m + n)
+    tol = _CARD_TOL[dtype][0]
+    for ta in (False, True):
+        for tb in (False, True):
+            As = _operand_layouts(rng, N, *((k, m) if ta else (m, k)), dtype, cuda)
+            Bs = _operand_layouts(rng, N, *((n, k) if tb else (k, n)), dtype, cuda)
+            assert build.aligned16(As["contiguous"]) or (m * k) % 4
+            assert not build.aligned16(As["shifted"]) and not build.aligned16(As["odd row stride"])
+            for la, lb in [("contiguous", "contiguous"), ("shifted", "contiguous"),
+                           ("contiguous", "odd row stride"), ("stride-0 batch", "shifted"),
+                           ("odd row stride", "stride-0 batch")]:
+                A, B = As[la], Bs[lb]
+                out = bl.batch_bmm(A, B, ta, tb)
+                assert out.shape == (N, m, n) and out.is_contiguous()
+                _close(out, bl.bmm_plain(A, B, ta, tb), tol)
+    torch.cuda.synchronize()

@@ -9,14 +9,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      one nvcc per source, side by side;
   3. kernels: each of the eight kernels against its plain PyTorch version on
      the card, in float64 and float32, at the main path's shapes (for the
-     fused combines the blocked scan's strided and stride-0 views), wide and
-     odd shapes, with all-zero, rank-deficient, identity and chunk-first
-     batch members; the product and the Gram + Cholesky also on operands
-     that are not 16-byte aligned (a view one element into its storage, an
-     odd row stride), on a stride-0 batch and at N = 1, 255, 257; then
-     kernel, plain and library call timed with CUDA events beside the bound
-     from bytes and operations, the product and the Gram + Cholesky also at
-     the scan's batch [256, 32, 32] as device time back to back;
+     fused combines the blocked scan's strided and stride-0 views; for the
+     solve the scan's [256, 32, 32] inverse with a stride-0 identity and the
+     square-root scan's [512, 32, 32] with r = 64; for the LQ [512, 32, 64]
+     and [256, 32, 64]), wide and odd shapes (d = 7, 31; d = 64 and 80 on
+     the block kernels), with all-zero, rank-deficient, identity and
+     chunk-first batch members; the product, the Gram + Cholesky, the solve
+     and the LQ also on operands that are not 16-byte aligned (a view one
+     element into its storage, an odd row stride), on a stride-0 batch and
+     at N = 1, 255, 257; then kernel, plain and library call timed with CUDA
+     events beside the bound from bytes and operations, the product, the
+     Gram + Cholesky, the solve and the LQ also at the scans' batches
+     ([256, 32, 32]; the solve also [512, 32, 32] with r = 64, the LQ
+     [512, 32, 64] and [256, 32, 64]) as device time back to back;
   4. anchors against the JAX reference, float64, T = 256, 3 steps: the
      covariance slice, unfused and with PHYSS_FUSED_COMBINE=1, against
      tests/data/config5_T256_golden.npz and the square-root slice against
@@ -27,7 +32,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   6. full width, T = 100 000, chunk 25 000, 3 steps each: covariance float32
      then float64, the same with PHYSS_FUSED_COMBINE=1, square-root float32
      then float64; launch counters reset just before each float32 run and
-     read just after.
+     read just after, with the route each solve, LQ and Cholesky launch
+     took (a warp per matrix for d <= 32, a block above): on the main path
+     every one takes the warp kernels.
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -245,6 +252,14 @@ def phase_kernels():
         if not keep.all():
             report(name, "rankdef", *_rel(G[1], Gp[1]), dtype, f"{label} rank-deficient L L^T")
 
+    def check_solve(name, X, Xp, dtype, label):
+        """Members with a zero pivot (all-zero, singular) are non-finite in
+        both; the rest against the plain solve."""
+        fin, finp = (torch.isfinite(x).flatten(1).all(1) for x in (X, Xp))
+        if not torch.equal(fin, finp) or (X.shape[0] >= 3 and fin[0]):
+            raise AssertionError(f"{name} {label}: the non-finite members differ")
+        check(name, "solve", X[fin], Xp[fin], dtype, label)
+
     def check_fused(name, out, ref, dtype, label):
         for field, a, b in zip(out._fields, out, ref):
             if not a.is_contiguous():
@@ -294,16 +309,49 @@ def phase_kernels():
             Xp, ldp = bl.gj_solve_logdet_plain(M, R)
             check("gj_solve_logdet", "solve", X, Xp, dtype, f"[{N},{d},{d}] r={r} X")
             check("gj_solve_logdet", "logdet", ld, ldp, dtype, f"[{N},{d},{d}] r={r} logdet")
+        # the scans' solves (stride-0 identity, r = 64), ragged batches and
+        # layouts, d = 31 and 64 (block kernel), zero / identity / singular
+        # members: a zero pivot is non-finite in kernel and plain alike
+        eye = torch.eye(D, dtype=dtype, device="cuda")
+        for N, d, r, rhs in [(N_SCAN, D, D, "stride-0 identity"), (N_SCAN // 2, D, D, "stride-0 identity"),
+                             (2 * N_SCAN, D, 2 * D, "contiguous"), (1, D, D, "odd row stride"),
+                             (255, D, D + 1, "shifted"), (257, 31, 3 * D + 1, "odd row stride"),
+                             (300, 7, 3, "shifted"), (2000, 64, 2 * 64 + 1, "contiguous")]:
+            if d > D and not wide:
+                continue
+            M = _spd(gen, N, d, dtype)
+            if N >= 3:
+                M[0], M[1], M[2, 0] = 0.0, torch.eye(d, dtype=dtype, device="cuda"), 0.0
+            R = eye[:d, :d].expand(N, d, d) if rhs == "stride-0 identity" \
+                else _layouts(_randn(gen, N, d, r).to(dtype))[rhs]
+            for layout, Mv in _layouts(M).items():
+                if layout == "stride-0 batch":
+                    continue
+                label = f"[{N},{d},{d}] {layout} r={r} {rhs}" + (", zero/identity/singular members" if N >= 3 else "")
+                check_solve("gj_solve", bl.batch_solve(Mv, R), bl.gj_solve_plain(Mv, R), dtype, label)
+                X, ld = bl.batch_solve_logdet(Mv, R)
+                Xp, ldp = bl.gj_solve_logdet_plain(Mv, R)
+                check_solve("gj_solve_logdet", X, Xp, dtype, label + " X")
+                check_solve("gj_solve_logdet", ld[:, None, None], ldp[:, None, None], dtype,
+                            label + " logdet")
         # LQ: L_S, Xi, Z and lml pre-arrays, the combine's stacked Xi/Lam
-        for N, d, m in [(N_MAIN, D, 2 * D), (N_MAIN, D, D), (512, D, 2 * D),
-                        (N_LML, D, 2 * D), (2000, 64, 128), (500, 80, 160), (300, 7, 9)]:
+        for N, d, m in [(N_MAIN, D, 2 * D), (N_MAIN, D, D), (2 * N_SCAN, D, 2 * D), (N_SCAN, D, 2 * D),
+                        (N_LML, D, 2 * D), (2000, 64, 128), (500, 80, 160), (300, 7, 9),
+                        (300, 31, 63), (300, D, 40)]:
             if d > D and not wide:
                 continue
             B = _factors(gen, N, d, m, dtype)
+            B[2] = 0.0
+            B[2, :, :d] = torch.eye(d, dtype=dtype, device="cuda")
             L = bq.batch_tria(B)
-            if not (L[0] == 0).all():
-                raise AssertionError("lq: an all-zero pre-array must give L = 0")
+            if not (L[0] == 0).all() or not torch.equal(L[2], B[2, :, :d]):
+                raise AssertionError("lq: an all-zero pre-array must give L = 0, [I | 0] L = I")
             check_factor("lq", L, bq.tria_plain(B), dtype, f"[{N},{d},{m}]", False)
+        for N in (1, 255, 257, N_SCAN):
+            Bs = _layouts(_randn(gen, N, D, 2 * D).to(dtype))
+            for layout, B in Bs.items():
+                check_factor("lq", bq.batch_tria(B), bq.tria_plain(B), dtype,
+                             f"[{N},{D},{2 * D}] {layout}", False)
         # Cholesky: Q, R, P0 and the smoothed covariances
         for N, d in [(N_LML, D), (3, D), (2000, 64), (500, 80), (300, 7)]:
             if d > D and not wide:
@@ -360,8 +408,8 @@ def phase_kernels():
                         fc.fused_smooth_plain(a, b), dtype, f"[{N_SCAN},{D},{D}] {label}")
     torch.cuda.synchronize()
     times = _time_kernels(gen)
-    for name, row in _time_scan_batch(gen).items():
-        times[name]["at_scan_batch"] = row
+    for name, rows in _time_scan_batch(gen).items():
+        times[name]["at_scan_batch"] = rows
     times.update(_time_fused(gen))
     return worst, times
 
@@ -460,44 +508,71 @@ def _time_device(fn, n=200):
 
 
 def _time_scan_batch(gen):
-    """The product and the Gram + Cholesky, float32, at the blocked scan's
-    batch [256, 32, 32], where nearly all their launches of a step run:
-    device time back to back for kernel and library call (the calls run
-    shorter than their launch path takes on the host), operands warm in L2
-    as the scan leaves them. The library Cholesky reads its status back on
-    the host and cannot be queued: its time is per call as the host sends
-    them (CUDA events around a run of calls), and is labelled so."""
+    """The product, the Gram + Cholesky, the solve and the LQ, float32, at
+    the blocked scans' batches, where nearly all their launches of a step
+    run: [256, 32, 32] (the solve: the covariance scan's inverse, a
+    stride-0 identity on the right; also the square-root scan's
+    [512, 32, 32] with r = 64), the LQ at [512, 32, 64] (the stacked Xi/Lam
+    pre-arrays) and [256, 32, 64]. Device time back to back for the kernels
+    and for library calls that can be queued (the calls run shorter than
+    their launch path takes on the host), operands warm in L2 as the scan
+    leaves them. The library Cholesky and solve read their status back on
+    the host and cannot be queued: their time is per call as the host sends
+    them (CUDA events around a run of calls), and is labelled so. Returns
+    {kernel: [row per shape]}."""
     from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
     from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
 
     f32, n, d = torch.float32, N_SCAN, D
     A = _randn(gen, n, d, d).to(f32)
     B = _randn(gen, n, d, d).to(f32)
     pre = _randn(gen, n, d, 2 * d).to(f32)
     X, Y = pre[..., :d], pre[..., d:]
-    timed = {  # kernel, library, its label, its clock, bytes, flops
-        "bmm": (lambda: bl.batch_bmm(A, B, False, True), lambda: torch.matmul(A, B.mT),
-                "torch.matmul, device time back to back", _time_device,
-                _nbytes(A, B) + 4 * n * d * d, 2 * n * d ** 3),
-        "chol_gram": (lambda: bc.batch_chol_gram(X, Y),
-                      lambda: torch.linalg.cholesky(torch.bmm(pre, pre.mT)),
-                      "two calls: torch.bmm + torch.linalg.cholesky, as the host sends them",
-                      _time, _nbytes(pre) + 4 * n * d * d, n * (d * d * 2 * d + d ** 3 // 3)),
-    }
+    S = _spd(gen, n, d, f32)
+    eye = torch.eye(d, device="cuda").expand(n, d, d)
+    S2 = _spd(gen, 2 * n, d, f32)
+    R2 = _randn(gen, 2 * n, d, 2 * d).to(f32)
+    pre2 = _randn(gen, 2 * n, d, 2 * d).to(f32)
+    host = "as the host sends them"
+    timed = [  # kernel, shape, call, library call, its label, its clock, bytes, flops
+        ("bmm", f"[{n},{d},{d}]", lambda: bl.batch_bmm(A, B, False, True), lambda: torch.matmul(A, B.mT),
+         "torch.matmul, device time back to back", _time_device,
+         _nbytes(A, B) + 4 * n * d * d, 2 * n * d ** 3),
+        ("chol_gram", f"[{n},{d},{d}]", lambda: bc.batch_chol_gram(X, Y),
+         lambda: torch.linalg.cholesky(torch.bmm(pre, pre.mT)),
+         f"two calls: torch.bmm + torch.linalg.cholesky, {host}",
+         _time, _nbytes(pre) + 4 * n * d * d, n * (d * d * 2 * d + d ** 3 // 3)),
+        ("gj_solve", f"[{n},{d},{d}] r={d} (stride-0 I)", lambda: bl.batch_solve(S, eye),
+         lambda: torch.linalg.solve(S, eye), f"torch.linalg.solve, {host}", _time,
+         _nbytes(S, eye) + 4 * n * d * d, n * (2 * d ** 3 // 3 + 2 * d ** 3)),
+        ("gj_solve", f"[{2 * n},{d},{d}] r={2 * d}", lambda: bl.batch_solve(S2, R2),
+         lambda: torch.linalg.solve(S2, R2), f"torch.linalg.solve, {host}", _time,
+         _nbytes(S2, R2) + 4 * 2 * n * d * 2 * d, 2 * n * (2 * d ** 3 // 3 + 4 * d ** 3)),
+        ("lq", f"[{2 * n},{d},{2 * d}]", lambda: bq.batch_tria(pre2),
+         lambda: torch.linalg.qr(pre2.mT, mode="r"),
+         "torch.linalg.qr(B^T, mode='r'), device time back to back", _time_device,
+         _nbytes(pre2) + 4 * 2 * n * d * d, 2 * n * (4 * d ** 3 - 2 * d ** 3 // 3)),
+        ("lq", f"[{n},{d},{2 * d}]", lambda: bq.batch_tria(pre),
+         lambda: torch.linalg.qr(pre.mT, mode="r"),
+         "torch.linalg.qr(B^T, mode='r'), device time back to back", _time_device,
+         _nbytes(pre) + 4 * n * d * d, n * (4 * d ** 3 - 2 * d ** 3 // 3)),
+    ]
     out = {}
-    for name, (kern, lib, lib_label, lib_clock, nbytes, flops) in timed.items():
+    for name, shape, kern, lib, lib_label, lib_clock, nbytes, flops in timed:
         kern(), lib()
         torch.cuda.synchronize()
         k1, l1 = _time_device(kern), lib_clock(lib)
         l2, k2 = lib_clock(lib), _time_device(kern)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-        row = {"ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2, "bound_ms": max(t_bytes, t_ops),
+        row = {"shape": shape, "ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2,
+               "library": lib_label, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "timing": "device_back_to_back"}
-        out[name] = row
-        print(f"[kernels] time {name} [{n},{d},{d}] f32: kernel {row['ms']:.4f} ms device time "
+        out.setdefault(name, []).append(row)
+        print(f"[kernels] time {name} {shape} f32: kernel {row['ms']:.4f} ms device time "
               f"back to back, library {row['library_ms']:.4f} ms ({lib_label}), bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.3f} GFLOP)")
     return out
 
@@ -656,7 +731,10 @@ def phase_oracle():
 
 
 def _full(sqrt, path_kernels, fused=False):
-    """f32 then f64 at T = 100 000; returns (ELBOs by dtype, f32 launch counts)."""
+    """f32 then f64 at T = 100 000; returns (ELBOs by dtype, f32 launch
+    counts, f32 launches by route). Every launch of the solve, the LQ and
+    the Cholesky kernels on the main path (d = 32, m <= 64) must take the
+    warp-per-matrix kernels."""
     from physs_gp_tpu_torch.ops import cuda as kernels
 
     tag = "full sqrt" if sqrt else "full fused" if fused else "full"
@@ -668,7 +746,7 @@ def _full(sqrt, path_kernels, fused=False):
             kernels.reset_launch_counts()
         model, elbos, walls = _run_slice(100_000, 25_000, dtype, 3, nan_guard=False, sqrt=sqrt)
         if dtype == torch.float32:
-            counts = kernels.launch_counts()
+            counts, routes = kernels.launch_counts(), kernels.route_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         finite = bool(np.all(np.isfinite(elbos))
                       and torch.isfinite(model.sites.V).all()
@@ -681,8 +759,11 @@ def _full(sqrt, path_kernels, fused=False):
         out[dtype] = elbos
         del model
     print(f"[{tag}] launches in the float32 run: {counts}")
+    print(f"[{tag}] launches by route in the float32 run: {routes}")
     if not all(counts[k] > 0 for k in path_kernels):
         raise AssertionError(f"{tag}: a kernel of the path was never launched")
+    if any(r["block"] for r in routes.values()):
+        raise AssertionError(f"{tag}: a block-per-matrix kernel ran on the main path")
     if not fused and any(counts[k] for k in FUSED):
         raise AssertionError(f"{tag}: a fused combine ran with its knobs unset")
     # Step 0 starts from the broad initial sites, where the fp32 projection
@@ -695,17 +776,18 @@ def _full(sqrt, path_kernels, fused=False):
           f"(bound 1e-2 on steps 1 and 2; step 0 reported)")
     if not gap[1:].max() <= 1e-2:
         raise AssertionError(f"{tag}: float32 and float64 ELBOs disagree")
-    return out, counts
+    return out, counts, routes
 
 
 def phase_slice_full():
-    """The three full-width paths; returns each path's float32 launch counts."""
+    """The three full-width paths; returns each path's float32 launch counts
+    and launches by route."""
     os.environ["PHYSS_KZZ_JITTER"] = "1e-4"
     cov = ("bmm", "gj_solve", "gj_solve_logdet")
-    cov_elbos, cov_counts = _full(False, cov)
+    cov_elbos, cov_counts, cov_routes = _full(False, cov)
     os.environ["PHYSS_FUSED_COMBINE"] = "1"
     try:
-        fused_elbos, fused_counts = _full(False, cov + FUSED, fused=True)
+        fused_elbos, fused_counts, fused_routes = _full(False, cov + FUSED, fused=True)
     finally:
         del os.environ["PHYSS_FUSED_COMBINE"]
     # fused and unfused are one function: float64 to rounding on every step,
@@ -716,10 +798,11 @@ def phase_slice_full():
               f"(bound {tol:g}{'' if steps.start == 0 else ' on steps 1 and 2'})")
         if not gap[steps].max() <= tol:
             raise AssertionError(f"full fused: {dtype} fused and unfused ELBOs disagree")
-    sqrt_elbos, counts = _full(True, tuple(k for k in SOURCES if k not in FUSED))
+    sqrt_elbos, counts, routes = _full(True, tuple(k for k in SOURCES if k not in FUSED))
     gap = np.abs(sqrt_elbos[torch.float32] - cov_elbos[torch.float32]) / np.abs(cov_elbos[torch.float32])
     print(f"[full sqrt] float32 square-root vs covariance ELBO rel gap {gap.tolist()}")
-    return {"cov f32": cov_counts, "cov fused f32": fused_counts, "sqrt f32": counts}
+    return ({"cov f32": cov_counts, "cov fused f32": fused_counts, "sqrt f32": counts},
+            {"cov f32": cov_routes, "cov fused f32": fused_routes, "sqrt f32": routes})
 
 
 def main():
@@ -737,14 +820,18 @@ def main():
     phase_slice_anchor(sqrt=True)
     phase_slice_anchor(sqrt=True, fused=True)
     phase_oracle()
-    paths = phase_slice_full()
+    paths, routes = phase_slice_full()
     # `launches` of the fused combines from the fused covariance run, of the
-    # others from the square-root run; `launches_by_path` has every run's
+    # others from the square-root run; `launches_by_path` has every run's,
+    # `launches_by_kernel` the split of that run's launches between the
+    # warp- and block-per-matrix kernels, where a wrapper has both
     kernels = [
         {"name": name, "route": "cuda", "source": f"physs_gp_tpu_torch/csrc/{SOURCES[name]}.cu",
          "replaces": REPLACES[name],
          "launches": paths[LAUNCHES_PATH[name]][name], "launches_path": LAUNCHES_PATH[name],
          "launches_by_path": {path: counts[name] for path, counts in paths.items()},
+         **({"launches_by_kernel": routes[LAUNCHES_PATH[name]][name]}
+            if name in routes[LAUNCHES_PATH[name]] else {}),
          "max_abs_err": worst[name], **times[name]}
         for name in SOURCES
     ]

@@ -1,7 +1,7 @@
 // Batched triangular factorisations for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernels
-//   lq_kernel<T>            <- _lq_kernel in physs_gp_tpu/ops/pallas/batched_qr.py
+//   lq_*_kernel<T>          <- _lq_kernel in physs_gp_tpu/ops/pallas/batched_qr.py
 //                              (batch_tria: Householder LQ, L L^T = B B^T)
 //   chol_*_kernel<T, false> <- _chol_kernel in physs_gp_tpu/ops/pallas/batched_chol.py
 //                              (batch_cholesky: explicit PSD A)
@@ -49,11 +49,35 @@
 // 1e-30) with d0 the diagonal before the elimination, a NaN pivot stays NaN,
 // all-zero and semi-definite members stay finite, the upper triangle is zero.
 //
-// LQ. ~2 d^2 m flops per 8 KB: bytes would bound it, but each of the d
-// reflectors is a reduction followed by a rank-1 update, so the barrier-
-// separated steps per block set the time. One block per matrix, the matrix
-// in shared memory for all d steps, reductions with warp shuffles, many
-// resident blocks to hide the per-step latency.
+// LQ. ~2 d^2 m flops on 12 KB (f32, d = 32, m = 64) per matrix: bytes would
+// bound it, but each of the d reflectors is a reduction over row k followed
+// by a rank-1 update of the rows below, so the d dependent steps set the
+// time. A block per matrix with three block-wide barriers per reflector, a
+// norm computed by one warp while seven waited, a shuffle reduction per row
+// and a runtime division per updated element sat at 4 % of the bound. What
+// the design does about it, for d <= 32 and m <= 64 (lq_warp_kernel):
+//   - a row per lane: one warp owns the matrix, staged into its own
+//     [32][pitch] tile with cp.async (16 bytes when base and strides allow,
+//     rows from d on and columns from m on zero-filled: no block barrier at
+//     all), and lane i keeps row i, MW = 32 or 64 values, in registers;
+//   - at step k lane k reduces its own row's tail alone, with no shuffles,
+//     in four independent partial sums (the step's critical path), forms
+//     alpha, v and beta, and writes v to a double-buffered MW values of the
+//     warp's shared memory (zero below column k); after one __syncwarp every
+//     lane takes w_i = row_i . v from its registers and broadcast 16-byte
+//     loads (four partial sums again) and applies row_i -= beta w_i v. Lanes
+//     at or above k update only their upper triangle, which is discarded,
+//     so no lane branches; lane k's diagonal becomes alpha. The update reads
+//     v a second time from shared memory instead of holding MW more
+//     registers (f64 would spill);
+//   - register indices are static (loops over k and j unrolled, loops start
+//     at the 16-byte group of column k), d < 32 is the zero-padded problem
+//     cut off after step d;
+//   - the signs come from one ballot of the diagonal, and L leaves through
+//     the warp's tile so that the stores are coalesced.
+// d > 32 or m > 64 (off the main path) do not fit a lane's registers: those
+// shapes stay on one block per matrix in shared memory (lq_block_kernel),
+// selected by shape in the launcher.
 //
 // The plain PyTorch versions in ops/cuda/batched_{qr,chol}.py run the same
 // steps (same reflector, same pivot floor, same canonical signs) and agree
@@ -75,7 +99,8 @@ __device__ __forceinline__ T warp_sum(T v) {
 }
 
 // ---------------------------------------------------------------------------
-// Householder LQ of B [d, m] (m >= d), one matrix per block. Step k reflects
+// Householder LQ of B [d, m] (m >= d), one matrix per block (d > 32 or
+// m > 64). Step k reflects
 // row k's tail (columns >= k) onto alpha e_k with a right reflector
 // I - beta v v^T supported on columns >= k, and applies it to the rows below.
 // A zero tail gets beta = 0 (identity), so zero and rank-deficient inputs
@@ -83,7 +108,7 @@ __device__ __forceinline__ T warp_sum(T v) {
 // upper triangle zero.
 // ---------------------------------------------------------------------------
 template <typename T>
-__global__ void lq_kernel(const T* __restrict__ B, T* __restrict__ L, int d, int m,
+__global__ void lq_block_kernel(const T* __restrict__ B, T* __restrict__ L, int d, int m,
                           long long sB, long long ldB) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* W = reinterpret_cast<T*>(smem_raw);  // [d][m] working copy of B
@@ -152,6 +177,138 @@ __global__ void lq_kernel(const T* __restrict__ B, T* __restrict__ L, int d, int
       val = W[(size_t)j * m + j] < T(0) ? -lij : lij;
     }
     out[idx] = val;
+  }
+}
+
+// A 16-byte group from shared memory that the compiler may not merge with an
+// earlier load of the same address: the LQ update reads v again instead of
+// keeping MW more values live from the dot product.
+template <typename T>
+__device__ __forceinline__ Pack<T> lds_again(const T* p) {
+  Pack<T> r;
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (sizeof(T) == 4)
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(r.v[0]), "=f"(r.v[1]), "=f"(r.v[2]), "=f"(r.v[3])
+                 : "r"(a));
+  else
+    asm volatile("ld.shared.v2.f64 {%0, %1}, [%2];" : "=d"(r.v[0]), "=d"(r.v[1]) : "r"(a));
+  return r;
+}
+
+// Shared memory of one warp of lq_warp_kernel, in elements: the [32][pitch]
+// tile, two reflectors of MW values, two betas (padded to 16 bytes).
+template <typename T, int MW>
+__host__ __device__ inline int lq_slice() {
+  return 32 * tiles::row_pitch<T>(MW) + 2 * MW + Pack<T>::W;
+}
+
+// ---------------------------------------------------------------------------
+// d <= 32, m <= MW (32 or 64): one warp per matrix, blockDim.x / 32 matrices
+// per block, row `lane` of B in registers (header). vec: B's base, batch
+// stride and row stride allow 16-byte staging.
+// ---------------------------------------------------------------------------
+template <typename T, int MW>
+__global__ void __launch_bounds__(256)
+lq_warp_kernel(const T* __restrict__ B, T* __restrict__ L, int N, int d, int m,
+               long long sB, long long ldB, int vec) {
+  constexpr int W = Pack<T>::W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + w;
+  if (b >= N) return;  // whole warps leave; the block never synchronises
+  const int pitch = tiles::row_pitch<T>(MW);
+  T* S = reinterpret_cast<T*>(smem_raw) + (size_t)w * lq_slice<T, MW>();
+  T* vbuf = S + 32 * pitch;  // [2][MW]
+  T* betas = vbuf + 2 * MW;  // [2]
+  T* own = S + lane * pitch;
+
+  tiles::stage_warp<T, MW>(S, pitch, B + b * sB, ldB, d, m, vec != 0, lane);
+  tiles::cp_async_wait_all();
+  __syncwarp();
+  T x[MW];
+#pragma unroll
+  for (int q = 0; q < MW / W; ++q) {
+    const Pack<T> p = *reinterpret_cast<const Pack<T>*>(own + q * W);
+#pragma unroll
+    for (int e = 0; e < W; ++e) x[q * W + e] = p.v[e];
+  }
+
+  T alpha_own = T(0);
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    if (k >= d) break;
+    T* v = vbuf + (k & 1) * MW;  // step k + 1 writes the other half
+    if (lane == k) {
+      T acc[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+      for (int j = k + 1; j < MW; ++j) acc[j & 3] += x[j] * x[j];
+      const T tail = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      const T xk = x[k];
+      const T norm = sqrt(xk * xk + tail);
+      const T alpha = xk < T(0) ? norm : -norm;
+      const T vk = xk - alpha;
+      const T vtv = vk * vk + tail;
+      betas[k & 1] = vtv > T(0) ? T(2) / vtv : T(0);  // a zero tail reflects nothing
+      alpha_own = alpha;
+#pragma unroll
+      for (int q = k / W; q < MW / W; ++q) {
+        Pack<T> p;
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          const int j = q * W + e;
+          p.v[e] = j < k ? T(0) : j == k ? vk : x[j];
+        }
+        *reinterpret_cast<Pack<T>*>(v + q * W) = p;
+      }
+    }
+    __syncwarp();
+    const T beta = betas[k & 1];
+    T acc[4] = {T(0), T(0), T(0), T(0)};
+#pragma unroll
+    for (int q = k / W; q < MW / W; ++q) {
+      const Pack<T> p = *reinterpret_cast<const Pack<T>*>(v + q * W);
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        if (q * W + e >= k) acc[(q * W + e) & 3] += x[q * W + e] * p.v[e];
+    }
+    const T t = beta * ((acc[0] + acc[1]) + (acc[2] + acc[3]));
+#pragma unroll
+    for (int q = k / W; q < MW / W; ++q) {
+      const Pack<T> p = lds_again(v + q * W);
+#pragma unroll
+      for (int e = 0; e < W; ++e)
+        if (q * W + e >= k) x[q * W + e] -= t * p.v[e];
+    }
+    x[k] = lane == k ? alpha_own : x[k];
+  }
+
+  // L[i][j] = x[j] for j <= i, column j negated where its diagonal is < 0
+  const unsigned neg = __ballot_sync(0xffffffffu, alpha_own < T(0));
+#pragma unroll
+  for (int q = 0; q < 32 / W; ++q) {
+    Pack<T> p;
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      const int j = q * W + e;
+      p.v[e] = j > lane ? T(0) : (neg >> j) & 1u ? -x[j] : x[j];
+    }
+    *reinterpret_cast<Pack<T>*>(own + q * W) = p;
+  }
+  __syncwarp();
+  // [d][d] out of the tile, a lane per element (per 16 bytes when d % 4 == 0):
+  // `groups` lanes a row, 32 / groups rows a pass
+  const int ew = (d & 3) == 0 ? W : 1;
+  const int groups = d / ew, rows = 32 / groups;
+  const int r0 = lane / groups, c0 = (lane - r0 * groups) * ew;
+  if (r0 >= rows) return;
+  T* out = L + b * d * d;
+  for (int r = r0; r < d; r += rows) {
+    if (ew == W)
+      *reinterpret_cast<Pack<T>*>(out + r * d + c0) =
+          *reinterpret_cast<const Pack<T>*>(S + r * pitch + c0);
+    else
+      out[r * d + c0] = S[r * pitch + c0];
   }
 }
 
@@ -376,16 +533,38 @@ __global__ void chol_block_kernel(const T* __restrict__ X, const T* __restrict__
   }
 }
 
+// 1 <= d <= 32, m <= 64: lq_warp_kernel, `threads` = 32 G from lq_plan;
+// otherwise one block of `threads` per matrix (lq_block_kernel).
+template <typename T, int MW>
+cudaError_t launch_lq_warp(const T* B, T* L, int N, int d, int m, long long sB,
+                           long long ldB, int threads, cudaStream_t stream) {
+  const int G = threads / 32;
+  const size_t smem = (size_t)G * lq_slice<T, MW>() * sizeof(T);
+  const int vec = ((reinterpret_cast<size_t>(B) | (size_t)(sB * (long long)sizeof(T)) |
+                    (size_t)(ldB * (long long)sizeof(T))) & 15) == 0;
+  auto kern = lq_warp_kernel<T, MW>;
+  static size_t granted = 48 * 1024;
+  cudaError_t err = tiles::set_smem(kern, smem, granted);
+  if (err != cudaSuccess) return err;
+  kern<<<(N + G - 1) / G, threads, smem, stream>>>(B, L, N, d, m, sB, ldB, vec);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_lq(const void* B, void* L, int N, int d, int m, long long sB, long long ldB,
               int threads, cudaStream_t stream) {
+  const T* b = static_cast<const T*>(B);
+  T* l = static_cast<T*>(L);
+  if (d >= 1 && d <= 32 && m <= 32)
+    return (int)launch_lq_warp<T, 32>(b, l, N, d, m, sB, ldB, threads, stream);
+  if (d >= 1 && d <= 32 && m <= 64)
+    return (int)launch_lq_warp<T, 64>(b, l, N, d, m, sB, ldB, threads, stream);
   const size_t smem = (size_t)(d * m + m + d + 2) * sizeof(T);
-  auto kern = lq_kernel<T>;
+  auto kern = lq_block_kernel<T>;
   static size_t granted = 48 * 1024;
   cudaError_t err = tiles::set_smem(kern, smem, granted);
   if (err != cudaSuccess) return (int)err;
-  kern<<<N, threads, smem, stream>>>(static_cast<const T*>(B), static_cast<T*>(L), d, m,
-                                     sB, ldB);
+  kern<<<N, threads, smem, stream>>>(b, l, d, m, sB, ldB);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernels of physs_gp_tpu/ops/pallas/batched_linalg.py:
 //   bmm_kernel        <- _mm_kernel_g (batch_bmm) and _mm_kernel (batch_matmul)
-//   gj_solve_kernel   <- _gj_solve_kernel (batch_solve), LOGDET = false
+//   gj_*_kernel       <- _gj_solve_kernel (batch_solve), LOGDET = false
 //                     <- _gj_solve_logdet_kernel (batch_solve_logdet), LOGDET = true
 //
 // The TPU kernels put the batch on the 128 vector lanes ([d, d, B] layout,
@@ -43,11 +43,34 @@
 // float32 stays float32 (FFMA, no tensor cores); sums run over the
 // contraction index in order.
 //
-// gj_solve. The Gauss-Jordan solve does ~d^2 (d + r) flops on d (d + r)
-// values but carries a serial dependence over the pivot k, so it is bound by
-// the d barrier-separated steps per block (latency), not by bytes or flops:
-// one system per block, staged once into shared memory, all arithmetic out
-// of shared memory, many resident blocks to hide the per-step latency.
+// gj_solve. The Gauss-Jordan solve does d^2 (d + r) multiply-adds on
+// d (d + r) values, ~8 per byte at d = 32: bytes would bound it, but pivot
+// k + 1 needs every update of step k, so the d dependent steps per matrix
+// set the time. A block per matrix with two block-wide barriers per pivot,
+// a runtime division per element and three shared-memory words per
+// multiply-add sat at 5 % of the bound. What the design does about it, for
+// d <= 32 (gj_warp_kernel):
+//   - a column per lane. One warp owns the matrix: lane j keeps column j of
+//     M and column j of R in registers (loaded straight from device memory:
+//     at fixed row, the 32 lanes read 32 neighbouring words, so the loads
+//     coalesce for any batch or row stride, and stride-0 batches hit L1);
+//   - at step k lane k publishes its column (the multipliers c_i, with
+//     1 / pivot in slot k) as one row of a [32][32] history in the warp's
+//     shared memory; after one __syncwarp every lane scales its row-k entry
+//     and applies the rank-1 update from broadcast 16-byte loads, all
+//     register indices static (the loops over k and i are unrolled, d < 32
+//     is the zero-padded 32 x 32 problem cut off after step d);
+//   - the history is the whole elimination: R columns 32 .. r - 1 run on
+//     further warps of the matrix after one block barrier, the same d steps
+//     read from the history with no synchronisation, element for element
+//     the arithmetic of the joint elimination. A block holds up to 8 warps;
+//     small batches (the scan's 256 or 512 systems) run one matrix a block;
+//   - X leaves coalesced from registers (at fixed row, lanes store
+//     neighbouring columns); with LOGDET each lane keeps its pivot and lane
+//     0 sums the logs in k order.
+// d > 32 (off the main path) does not fit a lane's registers, and r > 256
+// needs more than 8 warps: those shapes stay on one block per matrix in
+// shared memory (gj_block_kernel), selected by shape in the launcher.
 //
 // No pivoting, exactly as on the TPU: the systems are SPD or identity-dominated
 // (I + C J). A zero pivot gives inf/NaN, as it does there.
@@ -177,12 +200,12 @@ bmm_kernel(const T* __restrict__ A, const T* __restrict__ B, T* __restrict__ C, 
 }
 
 // ---------------------------------------------------------------------------
-// Unpivoted Gauss-Jordan solve of M X = R, one system per block.
-// W = [M | R] lives in shared memory as [d][d + r]; X contiguous [N, d, r];
-// with LOGDET, ld[b] = sum_k log|pivot_k| (= log det M for SPD M).
+// Unpivoted Gauss-Jordan solve of M X = R, one system per block (d > 32 or
+// r > 256). W = [M | R] lives in shared memory as [d][d + r]; X contiguous
+// [N, d, r]; with LOGDET, ld[b] = sum_k log|pivot_k| (= log det M for SPD M).
 // ---------------------------------------------------------------------------
 template <typename T, bool LOGDET>
-__global__ void gj_solve_kernel(const T* __restrict__ M, const T* __restrict__ R,
+__global__ void gj_block_kernel(const T* __restrict__ M, const T* __restrict__ R,
                                 T* __restrict__ X, T* __restrict__ ld, int d,
                                 int r, long long sM, long long ldM, long long sR,
                                 long long ldR) {
@@ -231,6 +254,129 @@ __global__ void gj_solve_kernel(const T* __restrict__ M, const T* __restrict__ R
   if (LOGDET && threadIdx.x == 0) ld[b] = logdet;
 }
 
+// ---------------------------------------------------------------------------
+// d <= 32: the same elimination with a column per lane (header). Column
+// `col` of the [rows, cols] operand at p into z, zero where col >= cols or
+// i >= rows; the loads are unconditional (clamped indices) so that they
+// all overlap.
+// ---------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ void load_column(T (&z)[32], const T* __restrict__ p, long long ld,
+                                            int rows, int col, int cols) {
+  const bool ok = col < cols;
+  p += ok ? col : cols - 1;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const T v = p[(long long)(i < rows ? i : rows - 1) * ld];
+    z[i] = ok && i < rows ? v : T(0);
+  }
+}
+
+// Step k on this lane's column y (and x, the column of M, WITH_M): h is row
+// k of the history, the multipliers c_i = column k before the step with
+// 1 / pivot_k in slot k. Row k is scaled by 1 / pivot_k, every other row i
+// loses c_i times it.
+template <typename T, bool WITH_M>
+__device__ __forceinline__ void gj_step(T (&x)[32], T (&y)[32], const T* h, int k) {
+  constexpr int W = Pack<T>::W;
+  T c[32];
+#pragma unroll
+  for (int q = 0; q < 32 / W; ++q) {
+    const Pack<T> p = *reinterpret_cast<const Pack<T>*>(h + q * W);
+#pragma unroll
+    for (int e = 0; e < W; ++e) c[q * W + e] = p.v[e];
+  }
+  const T inv = c[k];
+  const T xk = WITH_M ? x[k] * inv : T(0), yk = y[k] * inv;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (i == k) continue;
+    if (WITH_M) x[i] -= c[i] * xk;
+    y[i] -= c[i] * yk;
+  }
+  if (WITH_M) x[k] = xk;
+  y[k] = yk;
+}
+
+// blockDim.x = 32 * wpm * G: wpm = ceil(r / 32) warps per matrix (at least
+// one), G matrices per block. Warp 0 of a matrix eliminates M with R's
+// columns 0 .. 31 and writes the history; warp w > 0 takes R's columns
+// 32 w .. 32 w + 31 through the history after the block barrier (only when
+// r > 32). Shared memory per matrix: the [32][32] history and 32 logs.
+template <typename T, bool LOGDET>
+__global__ void __launch_bounds__(256)
+gj_warp_kernel(const T* __restrict__ M, const T* __restrict__ R, T* __restrict__ X,
+               T* __restrict__ ld, int N, int d, int r, long long sM, long long ldM,
+               long long sR, long long ldR) {
+  constexpr int W = Pack<T>::W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wpm = r > 32 ? (r + 31) >> 5 : 1;
+  const int G = blockDim.x / (32 * wpm);
+  const int g = warp / wpm, w = warp - g * wpm;
+  const long long b = (long long)blockIdx.x * G + g;
+  const long long bc = b < N ? b : N - 1;  // past the end: a copy, never stored
+  T* H = reinterpret_cast<T*>(smem_raw) + (size_t)g * (32 * 32 + 32);
+  const int col = 32 * w + lane;
+  T y[32];
+  if (r > 0) {
+    load_column(y, R + bc * sR, ldR, d, col, r);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[i] = T(0);
+  }
+
+  if (w == 0) {
+    T x[32];
+    load_column(x, M + bc * sM, ldM, d, lane, d);
+    T piv = T(1);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      if (k >= d) break;
+      T* h = H + k * 32;
+      if (lane == k) {  // publish column k, 1 / pivot in slot k
+        piv = x[k];
+        const T inv = T(1) / piv;
+#pragma unroll
+        for (int q = 0; q < 32 / W; ++q) {
+          Pack<T> p;
+#pragma unroll
+          for (int e = 0; e < W; ++e) p.v[e] = q * W + e == k ? inv : x[q * W + e];
+          *reinterpret_cast<Pack<T>*>(h + q * W) = p;
+        }
+      }
+      __syncwarp();
+      gj_step<T, true>(x, y, h, k);
+    }
+    if (LOGDET) {
+      T* logs = H + 32 * 32;
+      logs[lane] = log(fabs(piv));
+      __syncwarp();
+      if (lane == 0 && b < N) {
+        T s = T(0);
+        for (int k = 0; k < d; ++k) s += logs[k];
+        ld[b] = s;
+      }
+    }
+  }
+  if (wpm > 1) {  // r is uniform: the whole block takes this barrier or none does
+    __syncthreads();
+    if (w > 0) {
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        if (k >= d) break;
+        gj_step<T, false>(y, y, H + k * 32, k);
+      }
+    }
+  }
+  if (b < N && col < r) {
+    T* out = X + b * d * r + col;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (i < d) out[(long long)i * r] = y[i];
+  }
+}
+
 template <typename T, bool TA, bool TB>
 int launch_bmm(const void* A, const void* B, void* C, int N, int m, int n, int k,
                long long sA, long long ldA, long long sB, long long ldB, int G,
@@ -263,18 +409,34 @@ int dispatch_bmm(int ta, int tb, const void* A, const void* B, void* C, int N,
   return launch_bmm<T, false, false>(A, B, C, N, m, n, k, sA, ldA, sB, ldB, G, threads, vecA, vecB, s);
 }
 
+// 1 <= d <= 32 and r <= 256: gj_warp_kernel, `threads` = 32 * wpm * G from
+// gj_plan; otherwise one block of `threads` per matrix (gj_block_kernel).
 template <typename T, bool LOGDET>
 int launch_gj(const void* M, const void* R, void* X, void* ld, int N, int d,
               int r, long long sM, long long ldM, long long sR, long long ldR,
               int threads, cudaStream_t stream) {
-  const size_t smem = (size_t)(d * (d + r) + d + (d + r)) * sizeof(T);
-  auto kern = gj_solve_kernel<T, LOGDET>;
-  static size_t granted = 48 * 1024;
-  cudaError_t err = tiles::set_smem(kern, smem, granted);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<N, threads, smem, stream>>>(
-      static_cast<const T*>(M), static_cast<const T*>(R), static_cast<T*>(X),
-      static_cast<T*>(ld), d, r, sM, ldM, sR, ldR);
+  const T* m = static_cast<const T*>(M);
+  const T* rr = static_cast<const T*>(R);
+  T* x = static_cast<T*>(X);
+  T* l = static_cast<T*>(ld);
+  cudaError_t err;
+  if (d >= 1 && d <= 32 && r <= 256) {
+    const int wpm = r > 32 ? (r + 31) / 32 : 1;
+    const int G = threads / (32 * wpm);
+    const size_t smem = (size_t)G * (32 * 32 + 32) * sizeof(T);
+    auto kern = gj_warp_kernel<T, LOGDET>;
+    static size_t granted = 48 * 1024;
+    err = tiles::set_smem(kern, smem, granted);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(N + G - 1) / G, threads, smem, stream>>>(m, rr, x, l, N, d, r, sM, ldM, sR, ldR);
+  } else {
+    const size_t smem = (size_t)(d * (d + r) + d + (d + r)) * sizeof(T);
+    auto kern = gj_block_kernel<T, LOGDET>;
+    static size_t granted = 48 * 1024;
+    err = tiles::set_smem(kern, smem, granted);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<N, threads, smem, stream>>>(m, rr, x, l, d, r, sM, ldM, sR, ldR);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -50,6 +50,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// One 16-byte group of a tile row: the first `valid` elements from p (one
+// 16-byte cp.async when `vec`, else one per element), the rest zero.
+template <typename T>
+__device__ __forceinline__ void stage_group(T* dst, const T* p, int valid, bool vec) {
+  constexpr int W = Pack<T>::W;
+  if (valid <= 0) {
+    Pack<T> zero;
+#pragma unroll
+    for (int e = 0; e < W; ++e) zero.v[e] = T(0);
+    *reinterpret_cast<Pack<T>*>(dst) = zero;
+  } else if (vec) {
+    cp_async<16>(dst, p, valid * (int)sizeof(T));
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      if (e < valid)
+        cp_async<(int)sizeof(T)>(dst + e, p + e, (int)sizeof(T));
+      else
+        dst[e] = T(0);
+    }
+  }
+}
+
 // Stage G matrices [rows, cols] (members b0 .. b0 + G - 1 of a batch of N;
 // batch stride sb and row stride ld in elements, unit stride along a row)
 // into S: member g at S + g * slice, row r at + r * pitch, in the stored
@@ -70,29 +93,31 @@ __device__ __forceinline__ void stage(T* S, int slice, int pitch, const T* __res
   for (int idx = tid; idx < G * per; idx += nt) {
     const int g = idx / per, rem = idx - g * per;
     const int r = rem / groups, c0 = (rem - r * groups) * W;
-    T* dst = S + (size_t)g * slice + (size_t)r * pitch + c0;
     int valid = (b0 + g < N && r < rows) ? min(W, cols - c0) : 0;
     if (LOWER && c0 > r) valid = 0;
-    if (valid <= 0) {
-      Pack<T> zero;
-#pragma unroll
-      for (int e = 0; e < W; ++e) zero.v[e] = T(0);
-      *reinterpret_cast<Pack<T>*>(dst) = zero;
-      continue;
-    }
-    const T* p = src + (long long)(b0 + g) * sb + (long long)r * ld + c0;
-    if (vec) {
-      cp_async<16>(dst, p, valid * (int)sizeof(T));
-    } else {
-#pragma unroll
-      for (int e = 0; e < W; ++e) {
-        if (e < valid)
-          cp_async<(int)sizeof(T)>(dst + e, p + e, (int)sizeof(T));
-        else
-          dst[e] = T(0);
-      }
-    }
+    stage_group(S + (size_t)g * slice + (size_t)r * pitch + c0,
+                src + (long long)(b0 + g) * sb + (long long)r * ld + c0, valid, vec);
   }
+}
+
+// Stage one matrix [rows, cols] at src (row stride ld, unit stride along a
+// row) into S [32][pitch] with the 32 lanes of one warp: WIDTH columns per
+// row (a multiple of 4, at least cols), rows from `rows` on and columns from
+// `cols` on zero-filled. A row is WIDTH / W 16-byte groups and 32 is a
+// multiple of that count, so a lane's group and first row come from shifts
+// of its lane index, and a step of the loop covers 32 / groups rows. `vec`:
+// src and ld allow 16-byte copies. The caller waits and calls __syncwarp.
+template <typename T, int WIDTH>
+__device__ __forceinline__ void stage_warp(T* S, int pitch, const T* __restrict__ src,
+                                           long long ld, int rows, int cols, bool vec,
+                                           int lane) {
+  constexpr int W = Pack<T>::W;
+  constexpr int groups = WIDTH / W;
+  static_assert(WIDTH % 4 == 0 && 32 % groups == 0, "a warp covers whole rows");
+  const int c0 = (lane % groups) * W;
+  for (int r = lane / groups; r < 32; r += 32 / groups)
+    stage_group(S + r * pitch + c0, src + (long long)r * ld + c0,
+                r < rows ? min(W, cols - c0) : 0, vec);
 }
 
 // Opt in to more than 48 KB of dynamic shared memory. `granted` is the

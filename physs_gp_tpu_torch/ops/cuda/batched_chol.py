@@ -32,8 +32,8 @@ import torch
 
 from . import build
 from .build import (
-    D_MAX, SM_COUNT, ceil4, check_smem, dtype_code, launch, layout_aligned16, on_cpu, row_pitch,
-    row_stride, stream_of, threads_for,
+    D_MAX, SM_COUNT, WARP_D, WARP_GROUP, WARP_GROUP_SMEM, ceil4, check_smem, dtype_code, launch,
+    layout_aligned16, on_cpu, row_pitch, row_stride, stream_of, threads_for,
 )
 
 __all__ = [
@@ -45,11 +45,6 @@ __all__ = [
     "launch_counts",
     "reset_launch_counts",
 ]
-
-
-WARP_D = 32  # up to here one warp owns a matrix, one row per lane
-_MAX_WARPS = 8  # matrices per block at a large batch
-_GROUP_SMEM = 75 * 1024  # three blocks of grouped matrices fit an SM
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,7 +61,7 @@ def chol_plan(N: int, d: int, mx: int, my: int, gram: bool, itemsize: int):
     if d <= WARP_D:
         width = ceil4(mx) + ceil4(my) if gram else d
         per = (WARP_D * row_pitch(max(width, d), itemsize) + 64) * itemsize
-        G = max(1, min(_MAX_WARPS, _GROUP_SMEM // per, N // (2 * SM_COUNT)))
+        G = max(1, min(WARP_GROUP, WARP_GROUP_SMEM // per, N // (2 * SM_COUNT)))
         return G, 32 * G, G * per
     words = d * (d + 1) + 2 * d + (d * (mx + 1) + d * (my + 1) if gram else 0)
     return 1, threads_for(d * d), words * itemsize
@@ -127,6 +122,7 @@ def _launch(name, kernel, X, Y, gram: bool, plus_eye: bool, eps_rel):
         L.data_ptr(), N, d, mx, my, sX, ldX, sY, ldY, int(plus_eye),
         _eps_rel(X.dtype, eps_rel), G, threads, int(layout_aligned16(pX, sX, ldX, es)),
         int(layout_aligned16(pY, sY, ldY, es)), stream_of(X),
+        route="warp" if d <= WARP_D else "block",
     )
     return L
 

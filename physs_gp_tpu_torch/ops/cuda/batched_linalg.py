@@ -19,7 +19,11 @@ so column slices and broadcast (stride-0) batches need no copy. Outputs are
 new contiguous tensors. The product's launch shape (products per block,
 threads, shared memory) comes from `bmm_plan`; an operand whose base address,
 batch stride and row stride are multiples of 16 bytes is staged 16 bytes at a
-time, any other one element at a time (`build.layout_aligned16`).
+time, any other one element at a time (`build.layout_aligned16`). The solves'
+launch shape comes from `gj_plan`: for d <= 32 (and r <= 256) a warp per
+system with a column per lane (`gj_warp_kernel`), above that a block per
+system in shared memory (`gj_block_kernel`); `build.route_counts` tells the
+two apart.
 
 The kernels are built at first use by `ops/cuda/build.py`, which counts
 their launches (`launch_counts`).
@@ -32,8 +36,8 @@ import torch
 
 from . import build
 from .build import (
-    D_MAX, SM_COUNT, ceil4, check_smem, dtype_code, launch, layout_aligned16, on_cpu, row_pitch,
-    row_stride, stream_of, threads_for,
+    D_MAX, SM_COUNT, WARP_D, WARP_GROUP, ceil4, check_smem, dtype_code, launch, layout_aligned16,
+    on_cpu, row_pitch, row_stride, stream_of, threads_for,
 )
 
 __all__ = [
@@ -43,6 +47,7 @@ __all__ = [
     "batch_solve_logdet",
     "bmm_plain",
     "bmm_plan",
+    "gj_plan",
     "gj_solve_plain",
     "gj_solve_logdet_plain",
     "launch_counts",
@@ -52,6 +57,7 @@ __all__ = [
 _THREADS = 256  # threads a block of grouped products aims at
 _MAX_THREADS = 512  # the product kernel's launch bound
 _GROUP_SMEM = 48 * 1024  # grouped products stay under the opt-in limit
+WARP_R = 32 * WARP_GROUP  # right-hand sides a warp-per-system launch holds: a lane each
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,6 +77,29 @@ def bmm_plan(N: int, m: int, n: int, k: int, ta: bool, tb: bool, itemsize: int):
     G = max(1, min(_THREADS // tiles, _GROUP_SMEM // per, N // (2 * SM_COUNT)))
     threads = min(_MAX_THREADS, -(-G * tiles // 32) * 32)
     return G, threads, G * per
+
+
+def _gj_warp(d: int, r: int) -> bool:
+    """Whether the warp-per-system kernel takes the shape (the launcher's test)."""
+    return 1 <= d <= WARP_D and r <= WARP_R
+
+
+@functools.lru_cache(maxsize=None)
+def gj_plan(N: int, d: int, r: int, itemsize: int):
+    """(G, threads, shared-memory bytes) of one Gauss-Jordan launch.
+
+    1 <= d <= 32 and r <= 256: one warp eliminates M with R's first 32
+    columns, and each further 32 columns of R take one more warp (wpm =
+    max(1, ceil(r / 32)) warps per system); a block holds G systems, at
+    most 8 warps, but no more than leaves every SM two blocks: the scan's
+    256 or 512 systems go one per block. Shared memory per system: the
+    [32][32] history of multipliers and 32 logs. Otherwise one block per
+    system with [M | R] in shared memory."""
+    if _gj_warp(d, r):
+        wpm = max(1, -(-r // 32))
+        G = max(1, min(WARP_GROUP // wpm, N // (2 * SM_COUNT)))
+        return G, 32 * wpm * G, G * (32 * 32 + 32) * itemsize
+    return 1, threads_for(d * (d + r)), (d * (d + r) + d + (d + r)) * itemsize
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +195,9 @@ def _solve(name, M, R, logdet: bool):
     r = R.shape[-1]
     if d > D_MAX:
         raise ValueError(f"{name}: d = {d} exceeds {D_MAX}")
-    check_smem(name, d * (d + r) + d + (d + r), M)
+    es = M.element_size()
+    _, threads, smem = gj_plan(N, d, r, es)
+    check_smem(name, smem // es, M)
     X = torch.empty((N, d, r), dtype=M.dtype, device=M.device)
     ld = torch.empty((N,), dtype=M.dtype, device=M.device)
     if N == 0:
@@ -175,7 +206,7 @@ def _solve(name, M, R, logdet: bool):
         "gj_solve_logdet" if logdet else "gj_solve", "batched_linalg", "physs_gj_solve",
         dtype_code(M), int(logdet), M.data_ptr(), R.data_ptr(), X.data_ptr(),
         ld.data_ptr(), N, d, r, M.stride(0), row_stride(M), R.stride(0),
-        row_stride(R), threads_for(d * (d + r)), stream_of(M),
+        row_stride(R), threads, stream_of(M), route="warp" if _gj_warp(d, r) else "block",
     )
     return X, ld
 

@@ -4,19 +4,52 @@ Counterpart of `physs_gp_tpu/ops/pallas/batched_qr.py`. `batch_tria(B)`
 returns, for B [N, d, m] with m >= d, the lower-triangular L [N, d, d] with
 L Lᵀ = B Bᵀ, its diagonal made non-negative by flipping the sign of each
 column whose diagonal entry is negative (0 counts as positive), and an
-exactly zero upper triangle. The kernel is `lq_kernel<T>` in
-`csrc/batched_factor.cu` (replaces `_lq_kernel`); `tria_plain` is the same
-Householder LQ in batched tensor ops, taken for CPU tensors. `ops/cuda/build.py`
-counts the launches (`launch_counts`).
+exactly zero upper triangle. The kernels are in `csrc/batched_factor.cu`
+(they replace `_lq_kernel`): for d <= 32 and m <= 64 one warp owns a matrix
+with a row per lane in registers (`lq_warp_kernel`), above that one block per
+matrix in shared memory (`lq_block_kernel`); `lq_plan` gives the launch shape.
+`tria_plain` is the same Householder LQ in batched tensor ops, taken for CPU
+tensors. `ops/cuda/build.py` counts the launches (`launch_counts`, and
+`route_counts` for the two kernels).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import build
-from .build import D_MAX, check_smem, dtype_code, launch, on_cpu, row_stride, stream_of, threads_for
+from .build import (
+    D_MAX, SM_COUNT, WARP_D, WARP_GROUP, WARP_GROUP_SMEM, check_smem, dtype_code, launch, on_cpu,
+    row_pitch, row_stride, stream_of, threads_for,
+)
 
-__all__ = ["batch_tria", "tria_plain", "launch_counts", "reset_launch_counts"]
+__all__ = ["batch_tria", "lq_plan", "tria_plain", "launch_counts", "reset_launch_counts"]
+
+WARP_M = 64  # a lane of the warp-per-matrix LQ holds up to 64 columns of its row
+
+
+def _lq_warp(d: int, m: int) -> bool:
+    """Whether the warp-per-matrix kernel takes the shape (the launcher's test)."""
+    return 1 <= d <= WARP_D and m <= WARP_M
+
+
+@functools.lru_cache(maxsize=None)
+def lq_plan(N: int, d: int, m: int, itemsize: int):
+    """(G, threads, shared-memory bytes) of one LQ launch.
+
+    1 <= d <= 32, m <= 64: one warp per matrix, G per block; each warp has a
+    [32][pitch] tile for MW = 32 or 64 columns (B staged in, L staged out),
+    two reflectors of MW values and two betas (16 bytes). G is at most 8
+    and what 75 KB hold, but no more than leaves every SM two blocks: the
+    scan's 256 or 512 matrices go one per block. Otherwise one block per
+    matrix with B in shared memory."""
+    if _lq_warp(d, m):
+        mw = 32 if m <= 32 else 64
+        per = (WARP_D * row_pitch(mw, itemsize) + 2 * mw + 16 // itemsize) * itemsize
+        G = max(1, min(WARP_GROUP, WARP_GROUP_SMEM // per, N // (2 * SM_COUNT)))
+        return G, 32 * G, G * per
+    return 1, threads_for((d - 1) * m), (d * m + m + d + 2) * itemsize
 
 
 def tria_plain(B):
@@ -53,13 +86,16 @@ def batch_tria(B):
     N, d, m = B.shape
     if d > D_MAX or m > 2 * D_MAX:
         raise ValueError(f"batch_tria: [{d}, {m}] exceeds d <= {D_MAX}, m <= {2 * D_MAX}")
-    check_smem("batch_tria", d * m + m + d + 2, B)
+    es = B.element_size()
+    _, threads, smem = lq_plan(N, d, m, es)
+    check_smem("batch_tria", smem // es, B)
     L = torch.empty((N, d, d), dtype=B.dtype, device=B.device)
     if N == 0:
         return L
     launch(
         "lq", "batched_factor", "physs_lq", dtype_code(B), B.data_ptr(), L.data_ptr(),
-        N, d, m, B.stride(0), row_stride(B), threads_for((d - 1) * m), stream_of(B),
+        N, d, m, B.stride(0), row_stride(B), threads, stream_of(B),
+        route="warp" if _lq_warp(d, m) else "block",
     )
     return L
 

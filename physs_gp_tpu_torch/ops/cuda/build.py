@@ -22,8 +22,8 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "build", "library", "build_info", "SMEM_LIMIT", "D_MAX", "LAUNCHES", "launch",
-    "launch_counts", "reset_launch_counts",
+    "build", "library", "build_info", "SMEM_LIMIT", "D_MAX", "LAUNCHES", "ROUTES", "launch",
+    "launch_counts", "reset_launch_counts", "route_counts",
 ]
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -35,6 +35,13 @@ _NVCC_FLAGS = [
 SMEM_LIMIT = 232_448  # bytes of dynamic shared memory one block may use
 D_MAX = 80  # largest state dimension the kernels cover
 SM_COUNT = 132  # streaming multiprocessors of an H100 SXM: small batches spread over them
+# The warp-per-matrix kernels (Cholesky, LQ, Gauss-Jordan): up to WARP_D
+# rows (or columns) a matrix, one per lane; at most WARP_GROUP warps a block,
+# and for the Cholesky and LQ tiles at most WARP_GROUP_SMEM bytes a block,
+# so that three blocks share an SM.
+WARP_D = 32
+WARP_GROUP = 8
+WARP_GROUP_SMEM = 75 * 1024
 
 _p, _i, _ll, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 # entry points of each source: name -> argtypes (all return int, a cudaError_t)
@@ -176,13 +183,20 @@ LAUNCHES = dict.fromkeys(
 )
 
 
-def launch(kernel: str, source: str, entry: str, *args) -> None:
+# launches per kernel and design, where a wrapper picks one of two kernels by
+# shape ("warp": a warp per matrix, "block": a block per matrix)
+ROUTES: dict = {}
+
+
+def launch(kernel: str, source: str, entry: str, *args, route: str | None = None) -> None:
     """Call `entry` of `source`'s library, raise on its error, count one
-    launch of `kernel`."""
+    launch of `kernel` (and of its `route`, when the wrapper names one)."""
     err = getattr(library(source), entry)(*args)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
     LAUNCHES[kernel] += 1
+    if route is not None:
+        ROUTES.setdefault(kernel, {"warp": 0, "block": 0})[route] += 1
 
 
 def launch_counts(*kernels: str) -> dict:
@@ -190,9 +204,16 @@ def launch_counts(*kernels: str) -> dict:
     return {k: LAUNCHES[k] for k in (kernels or LAUNCHES)}
 
 
+def route_counts(*kernels: str) -> dict:
+    """{kernel: {"warp": n, "block": n}} for the named kernels that chose a
+    route since the last reset (all of them when none is named)."""
+    return {k: dict(v) for k, v in ROUTES.items() if not kernels or k in kernels}
+
+
 def reset_launch_counts(*kernels: str) -> None:
     for k in kernels or tuple(LAUNCHES):
         LAUNCHES[k] = 0
+        ROUTES.pop(k, None)
 
 
 def stream_of(x) -> int:

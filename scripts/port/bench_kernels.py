@@ -1,13 +1,19 @@
-"""Time the batched product and the Cholesky kernels of the PyTorch port on
-a CUDA card, at the two batches the config-5 step launches them at.
+"""Time the batched kernels of the PyTorch port on a CUDA card, at the
+batches the config-5 step launches them at.
 
-    python3 scripts/port/bench_kernels.py [--root TREE] [--label NAME]
+    python3 scripts/port/bench_kernels.py [--root TREE] [--label NAME] [--only K,K]
 
 For float32 and float64, at [256, 32, 32] (the blocked scan's batch: nearly
 every launch of a step) and [25000, 32, 32] (one chunk at full width), it
 times `batch_bmm` in three transpose cases, `batch_chol_gram` and
-`batch_cholesky` (the latter also at [100000, 32, 32]) beside the PyTorch
-call that computes the same function. Every figure is device time per call:
+`batch_cholesky` (the latter also at [100000, 32, 32]); `batch_solve` at
+[256, 32, 32] with a stride-0 identity (r = 32, the scan's inverse), at
+[512, 32, 32] with r = 64 (the square-root scan's) and at [25000, 32, 32]
+with r = 65, `batch_solve_logdet` at [25000, 32, 32] with a stride-0
+identity; `batch_tria` at [512, 32, 64], [256, 32, 64] and [25000, 32, 64];
+each beside the PyTorch call that computes the same function (`--only`
+keeps the named kernels: bmm, chol_gram, chol, gj_solve, gj_solve_logdet,
+lq). Every figure is device time per call:
 200 calls (40 at full width) are enqueued while the device is busy with
 large products, so that they run back to back between two CUDA events and
 the host's launch path is not in the figure; a call that synchronises
@@ -56,13 +62,16 @@ def main():
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     parser.add_argument("--label", default="tree")
+    parser.add_argument("--only", default="", help="comma-separated kernel names")
     args = parser.parse_args()
+    only = set(filter(None, args.only.split(",")))
     if not torch.cuda.is_available():
         print("bench_kernels: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
     from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
     from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
     from physs_gp_tpu_torch.ops.cuda import build
 
     build.build()
@@ -75,6 +84,8 @@ def main():
     rows = []
 
     def row(name, shape, dtype, kern, lib):
+        if only and name.split()[0] not in only:
+            return
         kern(), lib()
         torch.cuda.synchronize()
         n = 200 if shape[0] <= 1000 else 40
@@ -86,6 +97,10 @@ def main():
         print(f"[bench {args.label}] {name} {list(shape)} {str(dtype)[6:]}: kernel "
               f"{k1:.4f} {k2:.4f} ms{'' if kq else ' (host-paced)'}, library "
               f"{l1:.4f} {l2:.4f} ms{'' if lq else ' (host-paced)'}")
+
+    def spd(N, dtype):
+        A = torch.randn(N, D, D, generator=gen, device="cuda", dtype=dtype)
+        return A @ A.mT / D + 5 * torch.eye(D, device="cuda", dtype=dtype)
 
     for dtype in (torch.float32, torch.float64):
         for N in (256, 25_000):
@@ -102,6 +117,21 @@ def main():
                 lambda: torch.linalg.cholesky(torch.bmm(pre, pre.mT)))
             row("chol", (N, D, D), dtype, lambda: bc.batch_cholesky(P),
                 lambda: torch.linalg.cholesky(P))
+        # the solves and the LQ at the scans' batches and at full width
+        for N, r in ((256, "I"), (512, 2 * D), (25_000, 2 * D + 1), (25_000, "I logdet")):
+            S = spd(N, dtype)
+            if isinstance(r, str):
+                R = torch.eye(D, device="cuda", dtype=dtype).expand(N, D, D)
+            else:
+                R = torch.randn(N, D, r, generator=gen, device="cuda", dtype=dtype)
+            name = "gj_solve_logdet" if r == "I logdet" else "gj_solve"
+            kern = (lambda: bl.batch_solve_logdet(S, R)) if r == "I logdet" else (lambda: bl.batch_solve(S, R))
+            row(f"{name} r={R.shape[-1]}{' (stride-0 I)' if isinstance(r, str) else ''}",
+                (N, D, D), dtype, kern, lambda: torch.linalg.solve(S, R))
+        for N in (512, 256, 25_000):
+            pre = torch.randn(N, D, 2 * D, generator=gen, device="cuda", dtype=dtype)
+            row("lq", (N, D, 2 * D), dtype, lambda: bq.batch_tria(pre),
+                lambda: torch.linalg.qr(pre.mT, mode="r"))
     P = torch.randn(100_000, D, 2 * D, generator=gen, device="cuda")
     P = P @ P.mT
     row("chol", (100_000, D, D), torch.float32, lambda: bc.batch_cholesky(P),

@@ -12,8 +12,8 @@ batch member); every member's L Lᵀ agrees with the exact product to 1e-10
 of the member's diagonal scale, or to 1e-6 for the floored pivots of
 rank-deficient Cholesky inputs (the floor is eps_rel = 1e-14 of the row's
 diagonal, and the elimination amplifies rounding noise through it). The
-Cholesky launch shape (`chol_plan`) is pure Python and is held here for
-every d up to 80 in both types. The `cuda` cases compare each CUDA kernel
+Cholesky and LQ launch shapes (`chol_plan`, `lq_plan`) are pure Python and
+are held here for every d up to 80 (and m up to 160) in both types. The `cuda` cases compare each CUDA kernel
 with its plain version, on aligned, unaligned, strided and stride-0 operands
 and ragged batches, and skip without a card.
 """
@@ -147,6 +147,7 @@ def test_cpu_path_counts_no_launch():
         "bmm": 0, "gj_solve": 0, "gj_solve_logdet": 0, "lq": 0, "chol": 0, "chol_gram": 0,
         "fused_filter": 0, "fused_smooth": 0,
     }
+    assert kernels.route_counts() == {}
 
 
 def test_wrappers_reject_bad_operands():
@@ -197,6 +198,45 @@ def test_chol_plan_at_the_main_shapes(itemsize):
     assert bc.chol_plan(256, 32, 32, 32, True, itemsize)[:2] == (1, 32)
     assert bc.chol_plan(100_000, 32, 32, 0, False, itemsize)[:2] == (8, 256)
     assert bc.chol_plan(500, 80, 80, 80, True, itemsize)[:2] == (1, 256)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("d", [1, 2, 7, 16, 31, 32, 33, 48, 64, 79, 80])
+def test_lq_plan_fits_the_card(d, itemsize):
+    """Every pre-array [d, m] up to d = 80, m = 160, small and large
+    batches: a warp per matrix up to d = 32, m = 64 (a tile of 32 or 64
+    columns), a block per matrix above; whole warps within the launch bound,
+    shared memory within what a block may use."""
+    for m in range(d, 161):
+        for N in (1, 128, 256, 512, 25_000, 100_000):
+            G, threads, smem = bq.lq_plan(N, d, m, itemsize)
+            assert smem <= build.SMEM_LIMIT
+            assert 32 <= threads <= 256 and threads % 32 == 0
+            if d <= bq.WARP_D and m <= bq.WARP_M:
+                mw = 32 if m <= 32 else 64
+                per = 32 * build.row_pitch(mw, itemsize) + 2 * mw + 16 // itemsize
+                assert build.row_pitch(mw, itemsize) >= mw
+                assert 1 <= G <= min(8, max(1, N)) and threads == 32 * G
+                assert smem == G * per * itemsize
+                if G > 1:  # grouped matrices leave every SM two blocks
+                    assert -(-N // G) >= 2 * build.SM_COUNT
+            else:
+                assert G == 1 and smem == (d * m + m + d + 2) * itemsize
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_lq_plan_at_the_main_shapes(itemsize):
+    """The square-root scan's [512, 32, 64] and [256, 32, 64] run one matrix
+    a block, so that every SM gets work; full width packs 8 (float32) or 4
+    (float64) matrices a block, three blocks to an SM; d = 64 and 80 keep a
+    block per matrix."""
+    assert bq.lq_plan(512, 32, 64, itemsize)[:2] == (1, 32)
+    assert bq.lq_plan(256, 32, 64, itemsize)[:2] == (1, 32)
+    G, threads, smem = bq.lq_plan(25_000, 32, 64, itemsize)
+    assert G == (8 if itemsize == 4 else 4) and 3 * smem <= build.SMEM_LIMIT
+    assert bq.lq_plan(100_000, 32, 32, itemsize)[:2] == (8, 256)
+    assert bq.lq_plan(2000, 64, 128, itemsize)[:2] == (1, 256)
+    assert bq.lq_plan(500, 80, 160, itemsize)[:2] == (1, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -335,3 +375,42 @@ def test_cuda_chol_layouts_and_ragged_batches(cuda, dtype, N, d, mx, my):
         assert float((L - Lp).abs().max() / Lp.abs().max()) <= 100 * tol
         assert (torch.triu(L, 1) == 0).all()
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N,d,m", [(512, 32, 64), (256, 32, 64), (25_000, 32, 64), (1, 32, 64),
+                                   (255, 32, 32), (257, 31, 63), (300, 7, 9), (300, 32, 40),
+                                   (40, 64, 128), (3, 80, 160)])
+def test_cuda_lq_layouts_and_ragged_batches(cuda, dtype, N, d, m):
+    """The scan's and the full width's shapes, ragged batches, d = 7, 31, 32
+    on the warp kernel and 64, 80 on the block kernel, on contiguous,
+    unaligned, odd-strided and stride-0 pre-arrays with all-zero,
+    rank-deficient and identity members."""
+    rng = np.random.default_rng(N + d + m)
+    tol = _CARD_TOL[dtype]
+    x = _t(_factors(rng, N, d, m) if N > 1 else rng.normal(size=(N, d, m))).to(cuda, dtype)
+    if N > 2:
+        x[2] = 0.0
+        x[2, :, :d] = torch.eye(d, dtype=dtype, device=cuda)
+    shifted = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda)
+    shifted[1:] = x.reshape(-1)
+    odd = torch.zeros(N, d, m + 3 - m % 2, dtype=dtype, device=cuda)
+    odd[..., :m] = x
+    views = {"contiguous": x, "shifted": shifted[1:].view(N, d, m),
+             "odd row stride": odd[..., :m], "stride-0 batch": x[N - 1:].expand(N, d, m)}
+    assert not build.aligned16(views["shifted"]) and not build.aligned16(views["odd row stride"])
+    kernels.reset_launch_counts()
+    for label, B in views.items():
+        L, Lp = bq.batch_tria(B), bq.tria_plain(B)
+        assert L.is_contiguous() and torch.isfinite(L).all(), label
+        assert (torch.triu(L, 1) == 0).all() and (torch.diagonal(L, dim1=-2, dim2=-1) >= 0).all()
+        if label != "stride-0 batch" and N > 1:
+            assert (L[0] == 0).all()
+            if N > 2:
+                assert torch.equal(L[2], torch.eye(d, dtype=dtype, device=cuda))
+        _close_gram(L, Lp @ Lp.transpose(-1, -2), tol)
+        assert float((L - Lp).abs().max() / Lp.abs().max()) <= 100 * tol
+    torch.cuda.synchronize()
+    route = "warp" if d <= 32 and m <= 64 else "block"
+    assert kernels.route_counts("lq")["lq"][route] == len(views)

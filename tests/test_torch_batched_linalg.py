@@ -6,10 +6,11 @@ kernels run in interpret mode, on the same numpy inputs, in float64:
 rtol 1e-12 for products, 1e-10 for solves and log-determinants. Larger state
 dimensions (64, 80) are checked against numpy.linalg. The product's launch
 shape (`bmm_plan`) and the 16-byte staging rule (`build.aligned16`) are pure
-Python and are held here for every (m, n, k) up to 80 in both types. The
-`cuda` cases compare each CUDA kernel with its plain version, on aligned,
-unaligned, strided and stride-0 operands and ragged batches, and skip
-without a card.
+Python and are held here for every (m, n, k) up to 80 in both types, as is
+the solve's (`gj_plan`: a warp per system for d <= 32, a block above) for
+every d up to 80. The `cuda` cases compare each CUDA kernel with its plain
+version, on aligned, unaligned, strided and stride-0 operands and ragged
+batches, and skip without a card.
 """
 import numpy as np
 import pytest
@@ -118,6 +119,7 @@ def test_cpu_path_counts_no_launch():
     bl.batch_solve(x, x)
     bl.batch_solve_logdet(x, x)
     assert bl.launch_counts() == {"bmm": 0, "gj_solve": 0, "gj_solve_logdet": 0}
+    assert build.route_counts("gj_solve", "gj_solve_logdet") == {}
 
 
 def test_wrappers_reject_bad_operands():
@@ -167,6 +169,46 @@ def test_bmm_plan_groups_at_d32(itemsize):
     assert G == (4 if itemsize == 4 else 2) and threads == 64 * G
     assert bl.bmm_plan(256, 32, 32, 32, False, True, itemsize)[:2] == (1, 64)
     assert bl.bmm_plan(1, 80, 80, 80, False, False, itemsize)[:2] == (1, 416)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("d", [1, 2, 7, 16, 31, 32, 33, 48, 64, 79, 80])
+def test_gj_plan_fits_the_card(d, itemsize):
+    """Every system width up to 80, right-hand sides from none to past the
+    warp kernel's 256, small and large batches: a warp per system with
+    ceil(r / 32) warps (at least one) up to d = 32, a block per system
+    above; whole warps within the launch bound of 256, shared memory within
+    what a block may use (the wrapper refuses a block-kernel shape that
+    needs more)."""
+    for r in (0, 1, 2, 31, 32, 33, 64, 65, 96, 97, 128, 255, 256, 257, 300):
+        for N in (1, 128, 256, 512, 25_000, 100_000):
+            G, threads, smem = bl.gj_plan(N, d, r, itemsize)
+            assert 32 <= threads <= 256 and threads % 32 == 0
+            if d <= bl.WARP_D and r <= bl.WARP_R:
+                wpm = max(1, -(-r // 32))
+                assert 1 <= G <= max(1, N) and threads == 32 * wpm * G
+                assert smem == G * (32 * 32 + 32) * itemsize <= build.SMEM_LIMIT
+                if G > 1:  # grouped systems leave every SM two blocks
+                    assert -(-N // G) >= 2 * build.SM_COUNT
+            else:
+                assert G == 1 and smem == (d * (d + r) + d + (d + r)) * itemsize
+                assert smem <= build.SMEM_LIMIT or r > 2 * d + 1
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_gj_plan_at_the_main_shapes(itemsize):
+    """The scan's inverse [256, 32, 32] (r = 32) and the square-root scan's
+    [512, 32, 32] (r = 64) run one system a block, so that every SM gets
+    work; full width packs 8 warps a block; d = 64 and 80 keep a block per
+    system."""
+    assert bl.gj_plan(256, 32, 32, itemsize)[:2] == (1, 32)
+    assert bl.gj_plan(128, 32, 32, itemsize)[:2] == (1, 32)
+    assert bl.gj_plan(512, 32, 64, itemsize)[:2] == (1, 64)
+    assert bl.gj_plan(25_000, 32, 65, itemsize)[:2] == (2, 192)
+    assert bl.gj_plan(25_000, 32, 1, itemsize)[:2] == (8, 256)
+    assert bl.gj_plan(100_000, 32, 32, itemsize)[:2] == (8, 256)
+    assert bl.gj_plan(2000, 64, 65, itemsize)[:2] == (1, 256)
+    assert bl.gj_plan(1, 80, 80, itemsize)[:2] == (1, 256)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
@@ -282,7 +324,12 @@ def _operand_layouts(rng, N, rows, cols, dtype, dev):
     """The same [N, rows, cols] values in four layouts: contiguous, starting
     one element into the storage, with an odd row stride, and (member 0
     only) as a stride-0 batch."""
-    x = _t(rng.normal(size=(N, rows, cols))).to(dev, dtype)
+    return _layouts_of(_t(rng.normal(size=(N, rows, cols))).to(dev, dtype))
+
+
+def _layouts_of(x):
+    N, rows, cols = x.shape
+    dtype, dev = x.dtype, x.device
     shifted = torch.zeros(x.numel() + 1, dtype=dtype, device=dev)
     shifted[1:] = x.reshape(-1)
     odd = torch.zeros(N, rows, cols + 3 - cols % 2, dtype=dtype, device=dev)
@@ -318,3 +365,61 @@ def test_cuda_bmm_layouts_and_ragged_batches(cuda, dtype, N, m, n, k):
                 assert out.shape == (N, m, n) and out.is_contiguous()
                 _close(out, bl.bmm_plain(A, B, ta, tb), tol)
     torch.cuda.synchronize()
+
+
+def _solve_members(rng, N, d, dtype, dev):
+    """SPD systems with, where the batch allows, member 0 all zero, member 1
+    the identity and member 2 rank-deficient (a zero first row)."""
+    M = _t(_spd(rng, N, d)).to(dev, dtype)
+    if N >= 3:
+        M[0] = 0.0
+        M[1] = torch.eye(d, dtype=dtype, device=dev)
+        M[2, 0] = 0.0
+    return M
+
+
+def _close_solve(X, Xp, tol):
+    """Finite members against the plain solve; a member with a zero pivot
+    (all-zero, rank-deficient) is non-finite in both, as on the TPU."""
+    fin, finp = torch.isfinite(X).flatten(1).all(1), torch.isfinite(Xp).flatten(1).all(1)
+    assert torch.equal(fin, finp)
+    _close(X[fin], Xp[fin], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize(
+    "N,d,r,rhs",
+    [(256, 32, 32, "stride-0 identity"), (128, 32, 32, "stride-0 identity"),
+     (512, 32, 64, "contiguous"), (25_000, 32, 65, "contiguous"), (25_000, 32, 1, "contiguous"),
+     (1, 32, 32, "odd row stride"), (255, 32, 33, "shifted"), (257, 32, 97, "odd row stride"),
+     (300, 7, 3, "shifted"), (300, 31, 31, "contiguous"), (40, 64, 65, "contiguous"),
+     (3, 80, 80, "odd row stride")],
+)
+def test_cuda_gj_shapes_and_layouts(cuda, dtype, N, d, r, rhs):
+    """The scan's and the full width's shapes, ragged batches, d = 7, 31, 32
+    on the warp kernel and 64, 80 on the block kernel, with unaligned,
+    odd-strided and stride-0 operands and all-zero, identity and
+    rank-deficient members; the solve and the solve + logdet."""
+    rng = np.random.default_rng(N + d + r)
+    tol = _CARD_TOL[dtype][1]
+    Ms = _layouts_of(_solve_members(rng, N, d, dtype, cuda))
+    if rhs == "stride-0 identity":
+        R = torch.eye(d, dtype=dtype, device=cuda).expand(N, d, d)
+    else:
+        R = _operand_layouts(rng, N, d, r, dtype, cuda)[rhs]
+    build.reset_launch_counts()
+    for layout in ("contiguous", "shifted", "odd row stride"):
+        M = Ms[layout]
+        X = bl.batch_solve(M, R)
+        assert X.shape == (N, d, r) and X.is_contiguous()
+        _close_solve(X, bl.gj_solve_plain(M, R), tol)
+        X, ld = bl.batch_solve_logdet(M, R)
+        Xp, ldp = bl.gj_solve_logdet_plain(M, R)
+        _close_solve(X, Xp, tol)
+        fin = torch.isfinite(ldp)
+        assert torch.equal(torch.isfinite(ld), fin)
+        assert torch.allclose(ld[fin], ldp[fin], rtol=tol, atol=tol)  # the identity's is 0
+    torch.cuda.synchronize()
+    route = "warp" if d <= 32 else "block"
+    assert build.route_counts("gj_solve")["gj_solve"][route] == 3

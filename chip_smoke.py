@@ -9,8 +9,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      one nvcc per source, side by side;
   3. kernels: each of the eight kernels against its plain PyTorch version on
      the card, in float64 and float32, at the main path's shapes (for the
-     fused combines the blocked scan's strided and stride-0 views; for the
-     solve the scan's [256, 32, 32] inverse with a stride-0 identity and the
+     fused combines both routes, tiled at d = 3, 7, 31, 32 and block at
+     d = 33, 56, at N = 1, 127, 128, 255, 256, 257, 25 000, each launch's
+     route asserted, then unaligned, odd-strided and stride-0 operands and
+     the blocked scan's strided and stride-0 views; for
+     the solve the scan's [256, 32, 32] inverse with a stride-0 identity and the
      square-root scan's [512, 32, 32] with r = 64; for the LQ [512, 32, 64]
      and [256, 32, 64]), wide and odd shapes (d = 7, 31; d = 64 and 80 on
      the block kernels), with all-zero, rank-deficient, identity and
@@ -21,7 +24,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      events beside the bound from bytes and operations, the product, the
      Gram + Cholesky, the solve and the LQ also at the scans' batches
      ([256, 32, 32]; the solve also [512, 32, 32] with r = 64, the LQ
-     [512, 32, 64] and [256, 32, 64]) as device time back to back;
+     [512, 32, 64] and [256, 32, 64]; the fused combines at [256] and
+     [128] in float32 and float64, beside the unfused route's time) as
+     device time back to back;
   4. anchors against the JAX reference, float64, T = 256, 3 steps: the
      covariance slice, unfused and with PHYSS_FUSED_COMBINE=1, against
      tests/data/config5_T256_golden.npz and the square-root slice against
@@ -32,9 +37,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   6. full width, T = 100 000, chunk 25 000, 3 steps each: covariance float32
      then float64, the same with PHYSS_FUSED_COMBINE=1, square-root float32
      then float64; launch counters reset just before each float32 run and
-     read just after, with the route each solve, LQ and Cholesky launch
-     took (a warp per matrix for d <= 32, a block above): on the main path
-     every one takes the warp kernels.
+     read just after, with the route each solve, LQ, Cholesky and fused
+     launch took (a warp per matrix, or four warps per fused pair, for
+     d <= 32; a block above): on the main path every one takes the warp or
+     tiled kernels.
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -65,6 +71,7 @@ N_MAIN, N_LML, D = 25_000, 100_000, 32
 N_SCAN = 256  # blocks of the blocked scan: the batch of its sequential pass
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
+FP64_FLOPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores, published
 SOURCES = {
     "bmm": "batched_linalg", "gj_solve": "batched_linalg", "gj_solve_logdet": "batched_linalg",
     "lq": "batched_factor", "chol": "batched_factor", "chol_gram": "batched_factor",
@@ -139,26 +146,28 @@ def _factors(gen, N, d, m, dtype, rank=2):
 
 def _filter_elems(gen, N, d, dtype, first=1):
     """Random filtering elements (A, b, C, J, eta); member 0 is the identity
-    element, member `first` a chunk's first element (A = 0, J = 0, eta = 0)."""
+    element, member `first` (0 when N = 1) a chunk's first element (A = 0,
+    J = 0, eta = 0)."""
     from physs_gp_tpu_torch.ops.parallel_kalman import _FilterElems
 
     A, b, eta = 0.1 * _randn(gen, N, d, d), _randn(gen, N, d), _randn(gen, N, d)
     C = 0.3 * _spd(gen, N, d, torch.float64, dom=1.0)
     J = 0.3 * _spd(gen, N, d, torch.float64, dom=1.0)
     A[0], b[0], C[0], J[0], eta[0] = torch.eye(d, dtype=torch.float64, device="cuda"), 0.0, 0.0, 0.0, 0.0
+    first = min(first, N - 1)
     A[first], J[first], eta[first] = 0.0, 0.0, 0.0
     return _FilterElems(*(x.to(dtype) for x in (A, b, C, J, eta)))
 
 
 def _smoother_elems(gen, N, d, dtype, last=1):
     """Random smoothing elements (E, g, L); member 0 is the identity element,
-    member `last` a series' last element (E = 0)."""
+    member `last` (0 when N = 1) a series' last element (E = 0)."""
     from physs_gp_tpu_torch.ops.parallel_kalman import _SmootherElems
 
     E, g = 0.2 * _randn(gen, N, d, d), _randn(gen, N, d)
     L = _spd(gen, N, d, torch.float64, dom=0.5)
     E[0], g[0], L[0] = torch.eye(d, dtype=torch.float64, device="cuda"), 0.0, 0.0
-    E[last] = 0.0
+    E[min(last, N - 1)] = 0.0
     return _SmootherElems(*(x.to(dtype) for x in (E, g, L)))
 
 
@@ -267,10 +276,22 @@ def phase_kernels():
             ab = float((a - b).abs().max())
             report(name, "fused", ab / max(float(b.abs().max()), 1e-30), ab, dtype, f"{label} {field}")
 
-    # the largest state dimension the filtering kernel holds in float64
-    d_wide = max(d for d in range(D, 129) if fc.fits(d, torch.float64))
+    def check_fused_pair(ei, ej, sj, si, dtype, label):
+        """Both combines against their plain versions, each launch on the
+        route its d selects (tiled for d <= 32, block above)."""
+        d = ei.A.shape[-1]
+        build.reset_launch_counts(*FUSED)
+        check_fused("fused_filter", fc.fused_filtering_combine(ei, ej),
+                    fc.fused_filter_plain(ei, ej), dtype, label)
+        check_fused("fused_smooth", fc.fused_smoothing_combine(sj, si),
+                    fc.fused_smooth_plain(sj, si), dtype, label)
+        want = "tiled" if d <= D else "block"
+        routes = build.route_counts(*FUSED)
+        if any(routes[k][want] != 1 for k in FUSED):
+            raise AssertionError(f"fused combines {label}: routes {routes}, expected {want}")
+
     for dtype in (torch.float64, torch.float32):
-        wide = dtype == torch.float64  # d = 64 and 80 run in float64
+        wide = dtype == torch.float64  # d = 64 and 80 run in float64 (the fused combines' d > 32 in both)
         # bmm: all four transposes at [25000, 32, 32], rectangular, edges
         cases = [((N_MAIN, D, D), (N_MAIN, D, D), ta, tb) for ta in (False, True) for tb in (False, True)]
         cases += [((N_MAIN, D, D), (N_MAIN, D, 2 * D + 1), False, False),
@@ -382,17 +403,26 @@ def phase_kernels():
                 check_factor("chol_gram", bc.batch_chol_gram(Xs[lx], Ys[ly]),
                              bc.chol_gram_plain(Xs[lx], Ys[ly]), dtype,
                              f"[{N},{D},{D}] {lx} + [{N},{D},{D}] {ly}", False)
-        # fused combines: the sequential pass's and the Sklansky levels'
-        # batches, full width, odd and the widest shapes, then the scan's views
-        for N, d in [(N_SCAN, D), (N_SCAN // 2, D), (N_MAIN, D), (300, 7), (16, d_wide)]:
-            if d > D and not wide:
-                continue
+        # fused combines: the tiled route (d <= 32) and the block route (33,
+        # 56: the widest float64 filtering kernel) at the sequential pass's and
+        # the Sklansky levels' batches, around them and at full width; then
+        # unaligned, odd-strided and stride-0 operands and the scan's views
+        for d in (3, 7, 31, D, D + 1, 56):
+            for N in (1, N_SCAN // 2 - 1, N_SCAN // 2, N_SCAN - 1, N_SCAN, N_SCAN + 1, N_MAIN):
+                ei, ej = _filter_elems(gen, N, d, dtype), _filter_elems(gen, N, d, dtype, first=2)
+                sj, si = _smoother_elems(gen, N, d, dtype), _smoother_elems(gen, N, d, dtype, last=2)
+                check_fused_pair(ei, ej, sj, si, dtype, f"[{N},{d},{d}]")
+        for d in (7, D, D + 1):
+            N = N_SCAN + 1
             ei, ej = _filter_elems(gen, N, d, dtype), _filter_elems(gen, N, d, dtype, first=2)
-            check_fused("fused_filter", fc.fused_filtering_combine(ei, ej),
-                        fc.fused_filter_plain(ei, ej), dtype, f"[{N},{d},{d}]")
             sj, si = _smoother_elems(gen, N, d, dtype), _smoother_elems(gen, N, d, dtype, last=2)
-            check_fused("fused_smooth", fc.fused_smoothing_combine(sj, si),
-                        fc.fused_smooth_plain(sj, si), dtype, f"[{N},{d},{d}]")
+            lay = {k: _layouts(v) for k, v in (("A", ei.A), ("C", ei.C), ("J", ei.J), ("E", si.E), ("L", si.L))}
+            odd = ei._replace(A=lay["A"]["shifted"], C=lay["C"]["odd row stride"], J=lay["J"]["stride-0 batch"],
+                              b=_layouts(ei.b[..., None])["shifted"][..., 0])
+            sodd = si._replace(E=lay["E"]["odd row stride"], L=lay["L"]["shifted"],
+                               g=_layouts(si.g[..., None])["shifted"][..., 0])
+            check_fused_pair(odd, ej, sj, sodd, dtype, f"[{N},{d},{d}] shifted / odd row stride / stride-0 left")
+            check_fused_pair(ej, odd, sodd, sj, dtype, f"[{N},{d},{d}] shifted / odd row stride / stride-0 right")
         carry, x = _scan_views(_filter_elems(gen, 3 * N_SCAN, D, dtype),
                                pk._ident_filter_elem(D, torch.empty(0, dtype=dtype, device="cuda")),
                                N_SCAN, 3, 1)
@@ -578,63 +608,65 @@ def _time_scan_batch(gen):
 
 
 def _time_fused(gen):
-    """The two fused combines, float32, at the scan's batch [256, 32, 32] (the
-    shape of all their launches on the main path; device time back to back,
-    operands warm in L2 as the scan leaves them) and at [25000, 32, 32]
-    (CUDA events around a run of calls, like the other kernels). No single
-    PyTorch call computes either combine: the unfused route's time for the
-    same operands (its own launches) is printed beside them, labelled."""
+    """The two fused combines at the scans' batches, [256, 32, 32] (the
+    sequential pass) and [128, 32, 32] (the Sklansky levels), where all
+    their launches of a step run: device time back to back, operands warm
+    in L2 as the scan leaves them, float32 and float64; and at
+    [25000, 32, 32], float32, CUDA events around a run of calls like the
+    other kernels. No single PyTorch call computes either combine: the
+    unfused route's time for the same operands (its own launches of bmm and
+    gj_solve and PyTorch's ops, as the host sends them) is printed beside
+    them, labelled. Returns each kernel's float32 [256] row, with every scan
+    batch row under `at_scan_batch`."""
     from physs_gp_tpu_torch.ops import parallel_kalman as pk
     from physs_gp_tpu_torch.ops.cuda import fused_combine as fc
 
-    f32, d = torch.float32, D
-    out = {}
-    for N in (N_SCAN, N_MAIN):
-        ei, ej = _filter_elems(gen, N, d, f32), _filter_elems(gen, N, d, f32, first=2)
-        sj, si = _smoother_elems(gen, N, d, f32), _smoother_elems(gen, N, d, f32, last=2)
+    f32, f64, d = torch.float32, torch.float64, D
+    out, rows = {}, {name: [] for name in FUSED}
+    for dtype, N in ((f32, N_SCAN), (f32, N_SCAN // 2), (f32, N_MAIN), (f64, N_SCAN), (f64, N_SCAN // 2)):
+        es, scan = torch.empty((), dtype=dtype).element_size(), N != N_MAIN
+        ei, ej = _filter_elems(gen, N, d, dtype), _filter_elems(gen, N, d, dtype, first=2)
+        sj, si = _smoother_elems(gen, N, d, dtype), _smoother_elems(gen, N, d, dtype, last=2)
         timed = {  # kernel, plain, unfused route, bytes, flops
             "fused_filter": (lambda: fc.fused_filtering_combine(ei, ej),
                              lambda: fc.fused_filter_plain(ei, ej),
                              lambda: pk._filtering_operator_unfused(ei, ej),
-                             _nbytes(*ei, *ej) + 4 * N * (3 * d * d + 2 * d),
+                             _nbytes(*ei, *ej) + es * N * (3 * d * d + 2 * d),
                              # eight products, the inverse's d steps on d live columns, five mat-vecs
                              N * (18 * d ** 3 + 10 * d * d)),
             "fused_smooth": (lambda: fc.fused_smoothing_combine(sj, si),
                              lambda: fc.fused_smooth_plain(sj, si),
                              lambda: pk._smoothing_operator_unfused(sj, si),
-                             _nbytes(*sj, *si) + 4 * N * (2 * d * d + d),
+                             _nbytes(*sj, *si) + es * N * (2 * d * d + d),
                              N * (6 * d ** 3 + 2 * d * d)),
         }
+        peak = FP32_FLOPS_PER_S if dtype == f32 else FP64_FLOPS_PER_S
         for name, (kern, plain, unfused, nbytes, flops) in timed.items():
             kern(), plain(), unfused()
             torch.cuda.synchronize()
             p1, u1, k1 = _time(plain), _time(unfused), _time(kern)
-            dev = _time_device(kern) if N == N_SCAN else None
+            dev = _time_device(kern) if scan else None
             k2, u2, p2 = _time(kern), _time(unfused), _time(plain)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-            row = {"ms": (k1 + k2) / 2 if dev is None else dev, "plain_ms": (p1 + p2) / 2,
-                   "library_ms": None, "bound_ms": max(t_bytes, t_ops),
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+            row = {"shape": f"[{N},{d},{d}]", "dtype": str(dtype)[6:],
+                   "ms": dev if scan else (k1 + k2) / 2, "per_call_ms": (k1 + k2) / 2,
+                   "plain_ms": (p1 + p2) / 2, "unfused_ms": (u1 + u2) / 2, "library_ms": None,
+                   "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "timing": "events" if dev is None else "device_back_to_back"}
-            how = "" if dev is None else f" device time back to back ({(k1 + k2) / 2:.4f} ms per call as the host sends them)"
-            print(f"[kernels] time {name} [{N},{d},{d}] f32: kernel {row['ms']:.4f} ms{how}, plain "
-                  f"{row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} ms "
+                   "timing": "device_back_to_back" if scan else "events"}
+            how = f" device time back to back ({row['per_call_ms']:.4f} ms per call as the host sends them)" \
+                if scan else ""
+            print(f"[kernels] time {name} {row['shape']} {row['dtype']}: kernel {row['ms']:.4f} ms{how}, "
+                  f"plain {row['plain_ms']:.4f} ms, library none, bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-            print(f"[kernels] time {name} [{N},{d},{d}] f32: the unfused route "
-                  f"(its own launches of bmm and gj_solve) {(u1 + u2) / 2:.4f} ms")
-            if N == N_SCAN:
-                out[name] = row
-    # float64 at d = 32 needs the opt-in above 48 KB of shared memory: what
-    # one call costs as the host sends them, the attribute set once
-    f64 = torch.float64
-    ei, ej = _filter_elems(gen, N_SCAN, d, f64), _filter_elems(gen, N_SCAN, d, f64, first=2)
-    sj, si = _smoother_elems(gen, N_SCAN, d, f64), _smoother_elems(gen, N_SCAN, d, f64, last=2)
-    for name, kern in {"fused_filter": lambda: fc.fused_filtering_combine(ei, ej),
-                       "fused_smooth": lambda: fc.fused_smoothing_combine(sj, si)}.items():
-        kern()
-        torch.cuda.synchronize()
-        print(f"[kernels] time {name} [{N_SCAN},{d},{d}] f64: {_time(kern):.4f} ms per call "
-              f"as the host sends them, {_time_device(kern):.4f} ms device time back to back")
+            print(f"[kernels] time {name} {row['shape']} {row['dtype']}: the unfused route "
+                  f"(its own launches of bmm and gj_solve, as the host sends them) {row['unfused_ms']:.4f} ms")
+            if scan:
+                rows[name].append(row)
+            if dtype == f32 and N == N_SCAN:
+                out[name] = dict(row)
+    for name in FUSED:
+        out[name]["at_scan_batch"] = rows[name]
     return out
 
 
@@ -734,7 +766,7 @@ def _full(sqrt, path_kernels, fused=False):
     """f32 then f64 at T = 100 000; returns (ELBOs by dtype, f32 launch
     counts, f32 launches by route). Every launch of the solve, the LQ and
     the Cholesky kernels on the main path (d = 32, m <= 64) must take the
-    warp-per-matrix kernels."""
+    warp-per-matrix kernels, every fused launch the tiled kernels."""
     from physs_gp_tpu_torch.ops import cuda as kernels
 
     tag = "full sqrt" if sqrt else "full fused" if fused else "full"
@@ -764,6 +796,11 @@ def _full(sqrt, path_kernels, fused=False):
         raise AssertionError(f"{tag}: a kernel of the path was never launched")
     if any(r["block"] for r in routes.values()):
         raise AssertionError(f"{tag}: a block-per-matrix kernel ran on the main path")
+    if fused:
+        print(f"[{tag}] fused launches by route in the float32 run: "
+              f"{ {k: routes.get(k) for k in FUSED} }")
+        if any(routes[k]["tiled"] != counts[k] for k in FUSED):
+            raise AssertionError(f"{tag}: a fused launch at d = 32 took the block route")
     if not fused and any(counts[k] for k in FUSED):
         raise AssertionError(f"{tag}: a fused combine ran with its knobs unset")
     # Step 0 starts from the broad initial sites, where the fp32 projection

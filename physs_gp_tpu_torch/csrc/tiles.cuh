@@ -101,21 +101,22 @@ __device__ __forceinline__ void stage(T* S, int slice, int pitch, const T* __res
 }
 
 // Stage one matrix [rows, cols] at src (row stride ld, unit stride along a
-// row) into S [32][pitch] with the 32 lanes of one warp: WIDTH columns per
-// row (a multiple of 4, at least cols), rows from `rows` on and columns from
-// `cols` on zero-filled. A row is WIDTH / W 16-byte groups and 32 is a
-// multiple of that count, so a lane's group and first row come from shifts
-// of its lane index, and a step of the loop covers 32 / groups rows. `vec`:
-// src and ld allow 16-byte copies. The caller waits and calls __syncwarp.
-template <typename T, int WIDTH>
+// row) into S [32][pitch] with NT threads (one warp by default; tid is the
+// thread's index among them): WIDTH columns per row (a multiple of 4, at
+// least cols), rows from `rows` on and columns from `cols` on zero-filled. A
+// row is WIDTH / W 16-byte groups and NT is a multiple of that count, so a
+// thread's group and first row come from shifts of its index, and a step of
+// the loop covers NT / groups rows. `vec`: src and ld allow 16-byte copies.
+// The caller waits and synchronises (__syncwarp for one warp).
+template <typename T, int WIDTH, int NT = 32>
 __device__ __forceinline__ void stage_warp(T* S, int pitch, const T* __restrict__ src,
                                            long long ld, int rows, int cols, bool vec,
-                                           int lane) {
+                                           int tid) {
   constexpr int W = Pack<T>::W;
   constexpr int groups = WIDTH / W;
-  static_assert(WIDTH % 4 == 0 && 32 % groups == 0, "a warp covers whole rows");
-  const int c0 = (lane % groups) * W;
-  for (int r = lane / groups; r < 32; r += 32 / groups)
+  static_assert(WIDTH % 4 == 0 && NT % groups == 0, "a step covers whole rows");
+  const int c0 = (tid % groups) * W;
+  for (int r = tid / groups; r < 32; r += NT / groups)
     stage_group(S + r * pitch + c0, src + (long long)r * ld + c0,
                 r < rows ? min(W, cols - c0) : 0, vec);
 }

@@ -56,8 +56,8 @@ _ENTRY_POINTS = {
     },
     # host arrays of input pointers, (batch, row) strides and output pointers
     "fused_combine": {
-        "physs_fused_filter": [_i, _p, _p, _p, _i, _i, _i, _p],
-        "physs_fused_smooth": [_i, _p, _p, _p, _i, _i, _i, _p],
+        "physs_fused_filter": [_i, _p, _p, _p, _i, _i, _i, _i, _p],
+        "physs_fused_smooth": [_i, _p, _p, _p, _i, _i, _i, _i, _p],
     },
 }
 
@@ -184,8 +184,11 @@ LAUNCHES = dict.fromkeys(
 
 
 # launches per kernel and design, where a wrapper picks one of two kernels by
-# shape ("warp": a warp per matrix, "block": a block per matrix)
+# shape: "block" (a block per matrix or pair, in shared memory) or the
+# register-resident design, "warp" (a warp per matrix) or, for the fused
+# combines, "tiled" (four warps per pair)
 ROUTES: dict = {}
+_FAST_ROUTE = {"fused_filter": "tiled", "fused_smooth": "tiled"}
 
 
 def launch(kernel: str, source: str, entry: str, *args, route: str | None = None) -> None:
@@ -196,7 +199,7 @@ def launch(kernel: str, source: str, entry: str, *args, route: str | None = None
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
     LAUNCHES[kernel] += 1
     if route is not None:
-        ROUTES.setdefault(kernel, {"warp": 0, "block": 0})[route] += 1
+        ROUTES.setdefault(kernel, {_FAST_ROUTE.get(kernel, "warp"): 0, "block": 0})[route] += 1
 
 
 def launch_counts(*kernels: str) -> dict:
@@ -205,7 +208,7 @@ def launch_counts(*kernels: str) -> dict:
 
 
 def route_counts(*kernels: str) -> dict:
-    """{kernel: {"warp": n, "block": n}} for the named kernels that chose a
+    """{kernel: {"warp" or "tiled": n, "block": n}} for the named kernels that chose a
     route since the last reset (all of them when none is named)."""
     return {k: dict(v) for k, v in ROUTES.items() if not kernels or k in kernels}
 

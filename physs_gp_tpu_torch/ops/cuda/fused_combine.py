@@ -17,13 +17,21 @@ Filtering combine (Särkkä & García-Fernández eq. 10; ei earlier, ej later):
 Smoothing combine (ej later suffix, ei earlier):
     E = E_i E_j,  g = g_i + E_i g_j,  L = sym(L_i + E_i L_j E_i^T)
 
-- `fused_filtering_combine(ei, ej)` replaces `_combine_kernel`
-  (`fused_filter_kernel<T>`), `fused_smoothing_combine(ej, ei)` replaces
-  `_smoothing_kernel` (`fused_smooth_kernel<T>`). Elements are NamedTuples
-  with fields (A, b, C, J, eta) / (E, g, L), matrices [N, d, d] and vectors
-  [N, d] with unit stride along the last dimension; batch and row strides go
-  to the kernel, so strided views and broadcast (stride-0) batches need no
-  copy. Results are new contiguous tensors in the type of the first operand.
+- `fused_filtering_combine(ei, ej)` replaces `_combine_kernel`,
+  `fused_smoothing_combine(ej, ei)` replaces `_smoothing_kernel`. Elements
+  are NamedTuples with fields (A, b, C, J, eta) / (E, g, L), matrices
+  [N, d, d] and vectors [N, d] with unit stride along the last dimension;
+  batch and row strides go to the kernel, so strided views and broadcast
+  (stride-0) batches need no copy. Results are new contiguous tensors in the
+  type of the first operand.
+- Two routes each, chosen by shape (`fused_plan`, counted by
+  `build.route_counts`): for 3 <= d <= 32 the tiled kernels
+  (`fused_{filter,smooth}_tiled_kernel<T>`: four warps per pair, register-
+  tiled products, the inverse in one warp), above that the block kernels
+  (`fused_{filter,smooth}_block_kernel<T>`: one block per pair, everything
+  in shared memory). An operand whose base address, batch stride and row
+  stride are multiples of 16 bytes is staged 16 bytes at a time on the tiled
+  route, any other one element at a time (`build.layout_aligned16`).
 - `fused_filter_plain` / `fused_smooth_plain` are the kernels' arithmetic in
   batched tensor ops; the wrappers take them for CPU tensors only. For CUDA
   tensors they launch the kernel or raise.
@@ -40,12 +48,16 @@ The wrappers carry no gradient: `ops/parallel_kalman.py` wraps them in a
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
 
 from .batched_linalg import gj_solve_plain
-from .build import SMEM_LIMIT, check_smem, dtype_code, launch, on_cpu, row_stride, stream_of, threads_for
+from .build import (
+    SMEM_LIMIT, WARP_D, check_smem, dtype_code, launch, layout_aligned16, on_cpu, row_pitch,
+    row_stride, stream_of, threads_for,
+)
 
 __all__ = [
     "fused_filtering_combine",
@@ -54,27 +66,55 @@ __all__ = [
     "fused_smooth_plain",
     "use_fused_combine",
     "fits",
+    "fused_plan",
 ]
 
 D_MIN = 3  # below it the closed-form d <= 2 algebra applies
+TILED_THREADS = 128  # four warps per pair on the tiled route
 
 
 def _filter_words(d: int) -> int:
-    """Shared-memory words of `fused_filter_kernel`: nine [d][d + 1]
-    matrices and four vectors."""
+    """Shared-memory words of the block route's filtering kernel: nine
+    [d][d + 1] matrices and four vectors."""
     return 9 * d * (d + 1) + 4 * d
 
 
 def _smooth_words(d: int) -> int:
-    """Shared-memory words of `fused_smooth_kernel`: five matrices, one vector."""
+    """Shared-memory words of the block route's smoothing kernel: five
+    matrices, one vector."""
     return 5 * d * (d + 1) + d
+
+
+def _tiled_words(itemsize: int, smoothing: bool) -> int:
+    """Shared-memory words of a tiled kernel, the same for every d <= 32:
+    [32][pitch] tiles (filtering: the six inputs and four temporaries;
+    smoothing: four inputs and one) and vectors of 32 (six; two)."""
+    tile = 32 * row_pitch(32, itemsize)
+    return 5 * tile + 2 * 32 if smoothing else 10 * tile + 6 * 32
+
+
+@functools.lru_cache(maxsize=None)
+def fused_plan(N: int, d: int, itemsize: int, smoothing: bool = False):
+    """(route, threads, shared-memory bytes) of one fused launch, one pair
+    per block at every N (the scans launch at 128 and 256 pairs, so 256
+    blocks of four warps spread over the 132 SMs).
+
+    3 <= d <= 32: "tiled", 128 threads, d padded to 32 (f32: 46 848 B for
+    the filtering combine, 23 296 B for the smoothing one; f64: 88 576 B,
+    44 032 B). Larger d: "block", one thread per element of a d x d matrix
+    (at most 256), every matrix in shared memory at a row pitch of d + 1."""
+    if d <= WARP_D:
+        return "tiled", TILED_THREADS, _tiled_words(itemsize, smoothing) * itemsize
+    words = _smooth_words(d) if smoothing else _filter_words(d)
+    return "block", threads_for(d * d), words * itemsize
 
 
 def fits(d: int, dtype, smoothing: bool = False) -> bool:
     """Whether the kernel for state dimension d fits one block's shared
-    memory (filtering: d <= 56 in float64, 79 in float32; smoothing: 75, 107)."""
-    words = _smooth_words(d) if smoothing else _filter_words(d)
-    return d >= D_MIN and words * dtype.itemsize <= SMEM_LIMIT
+    memory: every d <= 32 on the tiled route; on the block route, filtering
+    d <= 56 in float64 and 79 in float32, smoothing 75 and 107."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return d >= D_MIN and fused_plan(1, d, itemsize, smoothing)[2] <= SMEM_LIMIT
 
 
 def use_fused_combine(first, second, dtype, smoothing: bool = False) -> bool:
@@ -137,7 +177,7 @@ def fused_smooth_plain(ej, ei):
 # ---------------------------------------------------------------------------
 
 
-def _check(name, words, mats, vecs) -> bool:
+def _check(name, smoothing, mats, vecs) -> bool:
     """Shape and size checks, the same on every device, then the shared
     operand checks; True for CPU operands."""
     shape = tuple(mats[0].shape)
@@ -149,7 +189,8 @@ def _check(name, words, mats, vecs) -> bool:
         raise ValueError(f"{name}: operands must be [N, d, d] and [N, d] with one N and d")
     if shape[-1] < D_MIN:
         raise ValueError(f"{name}: d = {shape[-1]} is below {D_MIN}")
-    check_smem(name, words(shape[-1]), mats[0])
+    es = mats[0].element_size()
+    check_smem(name, fused_plan(shape[0], shape[-1], es, smoothing)[2] // es, mats[0])
     if on_cpu(name, *mats, *(v[..., None] for v in vecs)):
         return True
     if any(v.stride(-1) != 1 for v in vecs):
@@ -157,40 +198,43 @@ def _check(name, words, mats, vecs) -> bool:
     return False
 
 
-def _launch(kernel, entry, ins, outs, N, d):
-    strides = []
-    for x in ins:
-        strides += [x.stride(0), row_stride(x) if x.dim() == 3 else 0]
+def _launch(kernel, entry, ins, outs, N, d, smoothing):
+    route, threads, _ = fused_plan(N, d, ins[0].element_size(), smoothing)
+    strides, vec = [], 0
+    for q, x in enumerate(ins):
+        ld = row_stride(x) if x.dim() == 3 else 0
+        strides += [x.stride(0), ld]
+        vec |= layout_aligned16(x.data_ptr(), x.stride(0), ld, x.element_size()) << q
     launch(
         kernel, "fused_combine", entry, dtype_code(ins[0]),
         (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins]),
         (ctypes.c_longlong * len(strides))(*strides),
         (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs]),
-        N, d, threads_for(d * d), stream_of(ins[0]),
+        N, d, threads, vec, stream_of(ins[0]), route=route,
     )
 
 
 def fused_filtering_combine(ei, ej):
     """The filtering combine of two batches of elements (A, b, C, J, eta)."""
     mats, vecs = (ei.A, ei.C, ei.J, ej.A, ej.C, ej.J), (ei.b, ei.eta, ej.b, ej.eta)
-    if _check("fused_filtering_combine", _filter_words, mats, vecs):
+    if _check("fused_filtering_combine", False, mats, vecs):
         return fused_filter_plain(ei, ej)
     N, d, _ = ei.A.shape
     new = ei.A.new_empty
     out = type(ei)(A=new(N, d, d), b=new(N, d), C=new(N, d, d), J=new(N, d, d), eta=new(N, d))
     if N:
-        _launch("fused_filter", "physs_fused_filter", (*ei, *ej), tuple(out), N, d)
+        _launch("fused_filter", "physs_fused_filter", (*ei, *ej), tuple(out), N, d, False)
     return out
 
 
 def fused_smoothing_combine(ej, ei):
     """The smoothing combine of two batches of elements (E, g, L); ej is the
     later suffix, ei the earlier element."""
-    if _check("fused_smoothing_combine", _smooth_words, (ej.E, ej.L, ei.E, ei.L), (ej.g, ei.g)):
+    if _check("fused_smoothing_combine", True, (ej.E, ej.L, ei.E, ei.L), (ej.g, ei.g)):
         return fused_smooth_plain(ej, ei)
     N, d, _ = ej.E.shape
     new = ej.E.new_empty
     out = type(ej)(E=new(N, d, d), g=new(N, d), L=new(N, d, d))
     if N:
-        _launch("fused_smooth", "physs_fused_smooth", (*ej, *ei), tuple(out), N, d)
+        _launch("fused_smooth", "physs_fused_smooth", (*ej, *ei), tuple(out), N, d, True)
     return out

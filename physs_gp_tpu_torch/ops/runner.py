@@ -30,7 +30,8 @@ def _pad_amount(T: int, chunk_size) -> int:
 
 def _pad_inputs(ssm, R, Y, pad: int):
     """Append `pad` dummy steps: identity dynamics (A = I, Q = 0) and fully
-    missing observations (NaN Y, identity R); results there are discarded."""
+    missing observations (NaN Y, identity R; a time-varying [T, p, d] H
+    repeats its last step); results there are discarded."""
     d = ssm.m0.shape[-1]
     p = R.shape[-1]
     kw = dict(dtype=R.dtype, device=R.device)
@@ -38,7 +39,10 @@ def _pad_inputs(ssm, R, Y, pad: int):
     Q = torch.cat([ssm.Q, torch.zeros((pad, d, d), **kw)])
     Rp = torch.cat([R, torch.eye(p, **kw).expand(pad, p, p)])
     Yp = torch.cat([Y, torch.full((pad, p), float("nan"), dtype=Y.dtype, device=Y.device)])
-    return ssm._replace(A=A, Q=Q), Rp, Yp
+    H = ssm.H
+    if H.dim() == 3:
+        H = torch.cat([H, H[-1:].expand((pad,) + tuple(H.shape[1:]))])
+    return ssm._replace(A=A, Q=Q, H=H), Rp, Yp
 
 
 def _unpad(res, T: int):

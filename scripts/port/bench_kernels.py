@@ -11,9 +11,13 @@ times `batch_bmm` in three transpose cases, `batch_chol_gram` and
 [512, 32, 32] with r = 64 (the square-root scan's) and at [25000, 32, 32]
 with r = 65, `batch_solve_logdet` at [25000, 32, 32] with a stride-0
 identity; `batch_tria` at [512, 32, 64], [256, 32, 64] and [25000, 32, 64];
-each beside the PyTorch call that computes the same function (`--only`
-keeps the named kernels: bmm, chol_gram, chol, gj_solve, gj_solve_logdet,
-lq). Every figure is device time per call:
+each beside the PyTorch call that computes the same function; and the fused
+filtering and smoothing combines at [256, 32, 32], [128, 32, 32] (the scans'
+batches) and [25000, 32, 32], beside the unfused route (the scans' combine
+without the fused kernels: its own launches of bmm, gj_solve and PyTorch's
+ops). `--only` keeps the named kernels: bmm, chol_gram, chol, gj_solve,
+gj_solve_logdet, lq, fused_filter, fused_smooth. Every figure is device time
+per call:
 200 calls (40 at full width) are enqueued while the device is busy with
 large products, so that they run back to back between two CUDA events and
 the host's launch path is not in the figure; a call that synchronises
@@ -69,10 +73,12 @@ def main():
         print("bench_kernels: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
+    from physs_gp_tpu_torch.ops import parallel_kalman as pk
     from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
     from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
     from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
     from physs_gp_tpu_torch.ops.cuda import build
+    from physs_gp_tpu_torch.ops.cuda import fused_combine as fc
 
     build.build()
     smi = subprocess.run(
@@ -83,7 +89,7 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
 
-    def row(name, shape, dtype, kern, lib):
+    def row(name, shape, dtype, kern, lib, lib_name="library"):
         if only and name.split()[0] not in only:
             return
         kern(), lib()
@@ -92,10 +98,10 @@ def main():
         (k1, kq), (l1, lq) = time_device(kern, n), time_device(lib, n)
         (l2, _), (k2, _) = time_device(lib, n), time_device(kern, n)
         rows.append({"label": args.label, "kernel": name, "shape": list(shape),
-                     "dtype": str(dtype)[6:], "ms": (k1 + k2) / 2, "library_ms": (l1 + l2) / 2,
+                     "dtype": str(dtype)[6:], "ms": (k1 + k2) / 2, "library": lib_name, "library_ms": (l1 + l2) / 2,
                      "kernel_back_to_back": kq, "library_back_to_back": lq})
         print(f"[bench {args.label}] {name} {list(shape)} {str(dtype)[6:]}: kernel "
-              f"{k1:.4f} {k2:.4f} ms{'' if kq else ' (host-paced)'}, library "
+              f"{k1:.4f} {k2:.4f} ms{'' if kq else ' (host-paced)'}, {lib_name} "
               f"{l1:.4f} {l2:.4f} ms{'' if lq else ' (host-paced)'}")
 
     def spd(N, dtype):
@@ -132,6 +138,35 @@ def main():
             pre = torch.randn(N, D, 2 * D, generator=gen, device="cuda", dtype=dtype)
             row("lq", (N, D, 2 * D), dtype, lambda: bq.batch_tria(pre),
                 lambda: torch.linalg.qr(pre.mT, mode="r"))
+        # the fused combines: member 0 the identity element, member 1 a
+        # chunk's first (A = J = eta = 0) or a series' last (E = 0) element
+        for N in (256, 128, 25_000):
+            def mats(scale, spd_dom=None):
+                X = scale * torch.randn(N, D, D, generator=gen, device="cuda", dtype=dtype)
+                return X if spd_dom is None else X @ X.mT / D + spd_dom * torch.eye(D, device="cuda", dtype=dtype)
+
+            def vecs():
+                return torch.randn(N, D, generator=gen, device="cuda", dtype=dtype)
+
+            pair = []
+            for _ in range(2):
+                A, C, J = mats(0.1), 0.3 * mats(1.0, 1.0), 0.3 * mats(1.0, 1.0)
+                b, eta = vecs(), vecs()
+                A[0], C[0], J[0], b[0], eta[0] = torch.eye(D, device="cuda", dtype=dtype), 0, 0, 0, 0
+                A[1], J[1], eta[1] = 0, 0, 0
+                pair.append(pk._FilterElems(A=A, b=b, C=C, J=J, eta=eta))
+            ei, ej = pair
+            spair = []
+            for _ in range(2):
+                E, g, L = mats(0.2), vecs(), mats(1.0, 0.5)
+                E[0], g[0], L[0] = torch.eye(D, device="cuda", dtype=dtype), 0, 0
+                E[1] = 0
+                spair.append(pk._SmootherElems(E=E, g=g, L=L))
+            sj, si = spair
+            row("fused_filter", (N, D, D), dtype, lambda: fc.fused_filtering_combine(ei, ej),
+                lambda: pk._filtering_operator_unfused(ei, ej), "unfused route")
+            row("fused_smooth", (N, D, D), dtype, lambda: fc.fused_smoothing_combine(sj, si),
+                lambda: pk._smoothing_operator_unfused(sj, si), "unfused route")
     P = torch.randn(100_000, D, 2 * D, generator=gen, device="cuda")
     P = P @ P.mT
     row("chol", (100_000, D, D), torch.float32, lambda: bc.batch_cholesky(P),

@@ -312,6 +312,47 @@ def test_direct_call_raises_on_what_the_kernel_does_not_take():
         tfc.fused_filtering_combine(x, x._replace(b=x.b[:, :4]))
 
 
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("smoothing", [False, True])
+def test_fused_plan(itemsize, smoothing):
+    """d <= 32 takes the tiled route (128 threads, the same tiles at every d
+    and N); larger d the block route (a thread per element, at most 256),
+    within a block's shared memory wherever `fits` says the kernel does."""
+    from physs_gp_tpu_torch.ops.cuda.build import SMEM_LIMIT
+
+    dtype = {4: torch.float32, 8: torch.float64}[itemsize]
+    pitch = 36 if itemsize == 4 else 34  # 32 columns at 16 (mod 32) bytes
+    tiled = (5 * 32 * pitch + 2 * 32 if smoothing else 10 * 32 * pitch + 6 * 32) * itemsize
+    for d in range(3, 81):
+        for N in (1, 128, 256, 25_000):
+            route, threads, smem = tfc.fused_plan(N, d, itemsize, smoothing)
+            if d <= 32:
+                assert (route, threads, smem) == ("tiled", 128, tiled)
+            else:
+                words = 5 * d * (d + 1) + d if smoothing else 9 * d * (d + 1) + 4 * d
+                assert (route, threads, smem) == ("block", min(256, -(-d * d // 32) * 32), words * itemsize)
+            assert threads % 32 == 0 and threads <= 256
+            assert (smem <= SMEM_LIMIT) == tfc.fits(d, dtype, smoothing)
+    assert tfc.fused_plan(256, 32, itemsize, smoothing)[2] <= (48 * 1024 if itemsize == 4 else 90 * 1024)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fits_per_route(dtype):
+    """The tiled route holds every 3 <= d <= 32 in both types; the block
+    route's limits are filtering d <= 56 / 79, smoothing 75 / 107 (float64 /
+    float32)."""
+    for smoothing in (False, True):
+        assert not tfc.fits(2, dtype, smoothing)
+        assert all(tfc.fits(d, dtype, smoothing) for d in range(3, 33))
+        assert all(tfc.fused_plan(1, d, dtype.itemsize, smoothing)[0] == "tiled" for d in range(3, 33))
+    top = {(torch.float64, False): 56, (torch.float32, False): 79,
+           (torch.float64, True): 75, (torch.float32, True): 107}
+    for smoothing in (False, True):
+        d = top[dtype, smoothing]
+        assert tfc.fits(d, dtype, smoothing) and not tfc.fits(d + 1, dtype, smoothing)
+        assert tfc.fused_plan(1, d, dtype.itemsize, smoothing)[0] == "block"
+
+
 def test_cpu_path_counts_no_launch():
     rng = np.random.default_rng(9)
     kernels.reset_launch_counts(*FUSED)
@@ -344,6 +385,22 @@ def _card_close(out, ref, tol):
         assert a.is_contiguous() and err <= tol, (name, err)
 
 
+def _route(d):
+    return "tiled" if d <= 32 else "block"
+
+
+def _check_pair(ei, ej, sj, si, dtype, d, n_filter=1):
+    """Both kernels against their plain versions on the card, each launch on
+    the route its shape selects."""
+    kernels.reset_launch_counts(*FUSED)
+    _card_close(tfc.fused_filtering_combine(ei, ej), tfc.fused_filter_plain(ei, ej), _CARD_TOL[dtype])
+    _card_close(tfc.fused_smoothing_combine(sj, si), tfc.fused_smooth_plain(sj, si), _CARD_TOL[dtype])
+    torch.cuda.synchronize()
+    assert kernels.launch_counts(*FUSED) == {"fused_filter": n_filter, "fused_smooth": 1}
+    routes = kernels.route_counts(*FUSED)
+    assert routes["fused_filter"][_route(d)] == n_filter and routes["fused_smooth"][_route(d)] == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("B,d", [(256, 32), (300, 7), (5, 56), (2500, 32)])
@@ -351,12 +408,26 @@ def test_cuda_kernels_match_plain(cuda, dtype, B, d):
     rng = np.random.default_rng(B + d)
     to = lambda e: tpk._map(lambda v: v.to(cuda, dtype), e)  # noqa: E731
     ei, ej = (to(_t(_filter_fields(rng, B, d), tpk._FilterElems)) for _ in range(2))
-    kernels.reset_launch_counts(*FUSED)
-    _card_close(tfc.fused_filtering_combine(ei, ej), tfc.fused_filter_plain(ei, ej), _CARD_TOL[dtype])
     sj, si = (to(_t(_smoother_fields(rng, B, d), tpk._SmootherElems)) for _ in range(2))
-    _card_close(tfc.fused_smoothing_combine(sj, si), tfc.fused_smooth_plain(sj, si), _CARD_TOL[dtype])
-    torch.cuda.synchronize()
-    assert kernels.launch_counts(*FUSED) == {"fused_filter": 1, "fused_smooth": 1}
+    _check_pair(ei, ej, sj, si, dtype, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [3, 7, 31, 32, 33, 56])
+@pytest.mark.parametrize("B", [1, 127, 128, 255, 256, 257, 25_000])
+def test_cuda_kernels_match_plain_per_route(cuda, dtype, d, B):
+    """The tiled route (d <= 32) and the block route (d = 33, 56) at the
+    scans' batches, around them, and at full width; member 0 is the identity
+    element and member 1 (or 0 at B = 1) a chunk's first / a last element."""
+    rng = np.random.default_rng(1000 * d + B)
+    to = lambda e: tpk._map(lambda v: v.to(cuda, dtype), e)  # noqa: E731
+    sp = (0, min(1, B - 1))
+    ei = to(_t(_filter_fields(rng, B, d, special=sp), tpk._FilterElems))
+    ej = to(_t(_filter_fields(rng, B, d, special=sp[::-1] if B > 1 else sp), tpk._FilterElems))
+    sj = to(_t(_smoother_fields(rng, B, d, special=sp), tpk._SmootherElems))
+    si = to(_t(_smoother_fields(rng, B, d, special=sp), tpk._SmootherElems))
+    _check_pair(ei, ej, sj, si, dtype, d)
 
 
 @pytest.mark.cuda
@@ -364,6 +435,7 @@ def test_cuda_kernels_match_plain(cuda, dtype, B, d):
 def test_cuda_kernels_take_the_scan_views(cuda, dtype):
     rng = np.random.default_rng(10)
     B, L, d = 256, 3, 32
+    kernels.reset_launch_counts(*FUSED)
     elems = tpk._map(lambda v: v.to(cuda, dtype), _t(_filter_fields(rng, B * L, d), tpk._FilterElems))
     carry, x = _scan_views(elems, tpk._ident_filter_elem(d, elems.A), B, L, 1)
     _card_close(tfc.fused_filtering_combine(carry, x), tfc.fused_filter_plain(carry, x), _CARD_TOL[dtype])
@@ -372,6 +444,70 @@ def test_cuda_kernels_take_the_scan_views(cuda, dtype):
     carry, x = _scan_views(selems, tpk._ident_smoother_elem(d, selems.E), B, L, 2)
     _card_close(tfc.fused_smoothing_combine(carry, x), tfc.fused_smooth_plain(carry, x), _CARD_TOL[dtype])
     torch.cuda.synchronize()
+    assert kernels.route_counts(*FUSED) == {"fused_filter": {"tiled": 2, "block": 0},
+                                            "fused_smooth": {"tiled": 1, "block": 0}}
+
+
+def _shifted(x):
+    """x's values in a view that starts one element into its storage (off
+    the 16-byte staging)."""
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
+
+
+def _odd_rows(x):
+    """x [N, d, d]'s values with an odd row stride."""
+    N, r, c = x.shape
+    wide = torch.zeros(N, r, c + 3 - c % 2, dtype=x.dtype, device=x.device)
+    wide[..., :c] = x
+    return wide[..., :c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [7, 32, 33])
+def test_cuda_kernels_take_unaligned_and_odd_strided_operands(cuda, dtype, d):
+    """Operands that start mid-storage, have an odd row stride, or a
+    stride-0 batch, beside aligned ones in the same launch: each operand is
+    staged 16 bytes at a time or one element at a time on its own."""
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    rng = np.random.default_rng(20 + d)
+    B = 257
+    to = lambda e: tpk._map(lambda v: v.to(cuda, dtype), e)  # noqa: E731
+    ei, ej = (to(_t(_filter_fields(rng, B, d), tpk._FilterElems)) for _ in range(2))
+    odd = tpk._FilterElems(A=_shifted(ei.A), b=_shifted(ei.b), C=_odd_rows(ei.C), J=ei.J[:1].expand(B, d, d),
+                           eta=_shifted(ei.eta))
+    assert not build.aligned16(odd.A) and not build.aligned16(odd.C)
+    sj, si = (to(_t(_smoother_fields(rng, B, d), tpk._SmootherElems)) for _ in range(2))
+    sodd = tpk._SmootherElems(E=_odd_rows(si.E), g=_shifted(si.g), L=_shifted(si.L))
+    _check_pair(odd, ej, sj, sodd, dtype, d)
+    _check_pair(ej, odd, sodd, sj, dtype, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d", [5, 32, 40])
+def test_cuda_identity_and_first_element_members(cuda, dtype, d):
+    """ident ∘ x = x up to the symmetrisation, and a first element (A = 0,
+    J = 0, eta = 0) on the left gives A = 0 and J = 0 exactly: I + C_i J_j
+    is then exactly I."""
+    rng = np.random.default_rng(30 + d)
+    B = 128
+    x = tpk._map(lambda v: v.to(cuda, dtype), _t(_filter_fields(rng, B, d), tpk._FilterElems))
+    ident = tpk._map(lambda v: v.expand((B,) + tuple(v.shape)), tpk._ident_filter_elem(d, x.A))
+    kernels.reset_launch_counts(*FUSED)
+    out = tfc.fused_filtering_combine(ident, x)
+    _card_close(out, tfc.fused_filter_plain(ident, x), _CARD_TOL[dtype])
+    sym = x._replace(C=0.5 * (x.C + x.C.mT), J=0.5 * (x.J + x.J.mT))
+    _card_close(out, sym, _CARD_TOL[dtype])
+    first = tpk._map(lambda v: v[1:2].expand((B,) + tuple(v.shape[1:])), x)
+    out = tfc.fused_filtering_combine(first, x)
+    torch.cuda.synchronize()
+    assert float(out.A.abs().max()) == 0.0 and float(out.J.abs().max()) == 0.0
+    assert torch.isfinite(torch.cat([v.reshape(-1) for v in out])).all()
+    assert kernels.route_counts("fused_filter")["fused_filter"][_route(d)] == 2
 
 
 @pytest.mark.cuda

@@ -252,3 +252,43 @@ def test_runner_takes_the_sequential_covariance_path():
     assert torch.equal(f1.lml, rf.lml)
     with pytest.raises(NotImplementedError):
         runner.run_filter_smoother(ssm, R, y, parallel=False, sqrt=True)
+
+
+# ---------------------------------------------------------------------------
+# the runner's padding of a time-varying H
+# ---------------------------------------------------------------------------
+
+
+def _time_varying_h_lgssm(T=10, d=3, p=2, seed=0):
+    rng = np.random.default_rng(seed)
+    A = np.stack([np.eye(d) * 0.9 + 0.05 * rng.normal(size=(d, d)) for _ in range(T)])
+    G = rng.normal(size=(T, d, d)) * 0.3
+    Q = G @ np.swapaxes(G, -1, -2) + 0.1 * np.eye(d)
+    H = rng.normal(size=(T, p, d))
+    R = np.broadcast_to(0.5 * np.eye(p), (T, p, p)).copy()
+    y = rng.normal(size=(T, p))
+    return A, Q, H, R, y, np.zeros(d), np.eye(d)
+
+
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_runner_pads_a_time_varying_h(sqrt):
+    """T = 10 with chunk 4 pads two steps, and a [T, p, d] H repeats its last
+    step there, as in the reference runner; chunk 5 needs no padding."""
+    from physs_gp_tpu.ops import runner as jrunner
+    from physs_gp_tpu.ops.lgssm import LGSSM as JLGSSM
+    from physs_gp_tpu_torch.ops.lgssm import LGSSM
+
+    A, Q, H, R, y, m0, P0 = _time_varying_h_lgssm()
+    jf, js = jrunner.run_filter_smoother(
+        JLGSSM(*_j(A, Q, H, m0, P0)), *_j(R, y), parallel=True, sqrt=sqrt, chunk_size=4)
+    tA, tQ, tH, tR, ty, tm0, tP0 = _tt(A, Q, H, R, y, m0, P0)
+    ssm = LGSSM(A=tA, Q=tQ, H=tH, m0=tm0, P0=tP0)
+    tf, ts = runner.run_filter_smoother(ssm, tR, ty, parallel=True, sqrt=sqrt, chunk_size=4)
+    assert tf.ms.shape == (10, 3) and ts.Ps.shape == (10, 3, 3)
+    for got, ref in ((tf.lml, jf.lml), (tf.ms, jf.ms), (tf.Ps, jf.Ps), (ts.ms, js.ms), (ts.Ps, js.Ps)):
+        _close(got, ref, rtol=1e-10, atol=1e-12)
+    uf, us = runner.run_filter_smoother(ssm, tR, ty, parallel=True, sqrt=sqrt, chunk_size=5)
+    for got, ref in ((uf.lml, tf.lml), (uf.ms, tf.ms), (uf.Ps, tf.Ps), (us.ms, ts.ms), (us.Ps, ts.Ps)):
+        _close(got, ref.numpy(), rtol=1e-10, atol=1e-12)
+    f1, _ = runner.run_filter(ssm, tR, ty, parallel=True, sqrt=sqrt, chunk_size=4)
+    _close(f1.lml, jf.lml, rtol=1e-10, atol=1e-12)

@@ -1,5 +1,7 @@
-"""Drive the PyTorch port's config-5 CVI step on one CUDA card, in covariance
-form (unfused and with the fused combines) and in square-root form.
+"""Drive the PyTorch port on one CUDA card: the config-5 CVI step in
+covariance form (unfused and with the fused combines) and in square-root
+form, the temporal Poisson CVI fit in both forms, and prediction at new
+times on both models.
 
     python3 chip_smoke.py
 
@@ -20,30 +22,49 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      chunk-first batch members; the product, the Gram + Cholesky, the solve
      and the LQ also on operands that are not 16-byte aligned (a view one
      element into its storage, an odd row stride), on a stride-0 batch and
-     at N = 1, 255, 257; then kernel, plain and library call timed with CUDA
-     events beside the bound from bytes and operations, the product, the
-     Gram + Cholesky, the solve and the LQ also at the scans' batches
-     ([256, 32, 32]; the solve also [512, 32, 32] with r = 64, the LQ
-     [512, 32, 64] and [256, 32, 64]; the fused combines at [256] and
+     at N = 1, 255, 257; the temporal model's shapes (d = 1 and 2: every
+     product with sizes in {1, 2}, the solves with r = 1 .. 6, the LQ at
+     m = d .. 6, the Cholesky, the Gram + Cholesky) at N = 1, 255, 257 and
+     100 000, all on the warp kernels; then kernel, plain and library call
+     timed with CUDA events beside the bound from bytes and operations, the
+     product, the Gram + Cholesky, the solve and the LQ also at the scans'
+     batches ([256, 32, 32]; the solve also [512, 32, 32] with r = 64, the
+     LQ [512, 32, 64] and [256, 32, 64]; the fused combines at [256] and
      [128] in float32 and float64, beside the unfused route's time) as
-     device time back to back;
+     device time back to back, and every kernel the temporal model launches
+     at its shapes there (the square-root scan's [1024] and [2048], the
+     chunk's 50 000 and the series' 100 000);
   4. anchors against the JAX reference, float64, T = 256, 3 steps: the
      covariance slice, unfused and with PHYSS_FUSED_COMBINE=1, against
      tests/data/config5_T256_golden.npz and the square-root slice against
      tests/data/config5_sqrt_T256_golden.npz, without and with the knob
-     (which must leave the square-root slice unfused);
-  5. oracle, float64, T = 2048: one filter + smoother pass through the fused
-     scans against the port's sequential Kalman filter and RTS smoother;
-  6. full width, T = 100 000, chunk 25 000, 3 steps each: covariance float32
-     then float64, the same with PHYSS_FUSED_COMBINE=1, square-root float32
-     then float64; launch counters reset just before each float32 run and
-     read just after, with the route each solve, LQ, Cholesky and fused
-     launch took (a warp per matrix, or four warps per fused pair, for
-     d <= 32; a block above): on the main path every one takes the warp or
-     tiled kernels.
+     (which must leave the square-root slice unfused); the fitted models'
+     predict_f at 40 new times, and the temporal slice in both forms with
+     its predict_f, predict_y and nlpd at 50 new times, against
+     tests/data/temporal_T256_golden.npz and predict_T256_golden.npz; the
+     temporal covariance slice again with the knob, which must launch no
+     fused combine and give the same ELBOs bit for bit;
+  5. oracles, float64: the config-5 fused scans at T = 2048 against the
+     port's sequential Kalman filter and RTS smoother; the temporal model
+     at T = 2048, its flat d = 2 scans against the sequential covariance
+     pass and its parallel square-root scans against the sequential
+     square-root filter and smoother;
+  6. full width: config-5 at T = 100 000, chunk 25 000, 3 steps each:
+     covariance float32 then float64, the same with PHYSS_FUSED_COMBINE=1,
+     square-root float32 then float64, the float32 covariance and
+     square-root models then predicting at 1000 new times; the temporal
+     Poisson fit at T = 100 000, chunk 50 000, 1024 blocks, 3 steps, in
+     both forms and both types, each fitted model then predicting at 1000
+     new times (predict_f, predict_y, nlpd), the two forms held together in
+     float64 at rtol 1e-6. Launch counters are reset just before each
+     float32 path and read just after, with the route each solve, LQ,
+     Cholesky and fused launch took (a warp per matrix, or four warps per
+     fused pair, for d <= 32; a block above): on every path each launch
+     takes the warp or tiled kernels.
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -56,6 +77,8 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "data", "config5_T256_golden.npz")
 GOLDEN_SQRT = os.path.join(REPO, "tests", "data", "config5_sqrt_T256_golden.npz")
+GOLDEN_TEMPORAL = os.path.join(REPO, "tests", "data", "temporal_T256_golden.npz")
+GOLDEN_PREDICT = os.path.join(REPO, "tests", "data", "predict_T256_golden.npz")
 # Normwise relative tolerance: max|kernel - plain| / max|plain|. "rankdef" is
 # for the rank-deficient member of a Cholesky batch: its floored pivots
 # amplify the rounding noise of the Gram, which the kernel and the plain
@@ -69,6 +92,8 @@ TOL = {
 }
 N_MAIN, N_LML, D = 25_000, 100_000, 32
 N_SCAN = 256  # blocks of the blocked scan: the batch of its sequential pass
+# the temporal model at the bench's settings: T, chunk, blocks of the scan
+N_TEMPORAL, TEMPORAL_CHUNK, TEMPORAL_BLOCKS = 100_000, 50_000, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
 FP64_FLOPS_PER_S = 34e12  # H100 SXM, float64 outside the tensor cores, published
@@ -436,12 +461,94 @@ def phase_kernels():
         for label, (a, b) in {"stride-0 carry, strided x": (carry, x), "strided x, x": (x, x)}.items():
             check_fused("fused_smooth", fc.fused_smoothing_combine(a, b),
                         fc.fused_smooth_plain(a, b), dtype, f"[{N_SCAN},{D},{D}] {label}")
+        # its own generator: the checks above keep the draws they had
+        _check_small_d(torch.Generator(device="cuda").manual_seed(7), dtype, report)
     torch.cuda.synchronize()
     times = _time_kernels(gen)
     for name, rows in _time_scan_batch(gen).items():
         times[name]["at_scan_batch"] = rows
     times.update(_time_fused(gen))
+    for name, rows in _time_temporal(gen).items():
+        times[name]["at_temporal"] = rows
     return worst, times
+
+
+def _check_small_d(gen, dtype, report):
+    """The temporal model's shapes (state d = 1 or 2, one head) at N = 1,
+    255, 257 and the series' full width: every product with sizes in {1, 2}
+    in all four transpose cases, the solves with r = 1, 2, 4, 5, 6 (all-zero,
+    identity and singular members from N = 3 on), the LQ at m = d .. 6 (and
+    the sequential square-root filter's [3, 3] update pre-array), the
+    Cholesky with an all-zero and a rank-deficient member (from N = 3 on), and the Gram +
+    Cholesky with mx, my <= 2, with and without + I. One line per kernel,
+    check and N gives the worst relative error over its shapes; every launch
+    must take the warp kernel."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    eye = {d: torch.eye(d, dtype=dtype, device="cuda") for d in (1, 2, 3)}
+
+    def members(N, d, m):
+        """[N, d, m]: from N = 3 on, member 0 all zero and member 1 of rank 1."""
+        return _factors(gen, N, d, m, dtype, rank=1) if N > 2 else _randn(gen, N, d, m).to(dtype)
+
+    build.reset_launch_counts()
+    for N in (1, 255, 257, N_TEMPORAL):
+        worst = {}
+
+        def acc(name, kind, out, ref):
+            rel, ab = _rel(out, ref)
+            w = worst.setdefault((name, kind), [0.0, 0.0])
+            w[0], w[1] = max(w[0], rel), max(w[1], ab)
+
+        for m, n, k in itertools.product((1, 2), repeat=3):
+            for ta, tb in itertools.product((False, True), repeat=2):
+                A = _randn(gen, N, *((k, m) if ta else (m, k))).to(dtype)
+                B = _randn(gen, N, *((n, k) if tb else (k, n))).to(dtype)
+                acc("bmm", "bmm", bl.batch_bmm(A, B, ta, tb), bl.bmm_plain(A, B, ta, tb))
+        for d in (1, 2):
+            for r in (1, 2, 4, 5, 6):
+                M = _spd(gen, N, d, dtype)
+                if N >= 3:
+                    M[0], M[1], M[2, 0] = 0.0, eye[d], 0.0
+                R = _randn(gen, N, d, r).to(dtype)
+                for name, (X, ld), (Xp, ldp) in [
+                        ("gj_solve", (bl.batch_solve(M, R), None), (bl.gj_solve_plain(M, R), None)),
+                        ("gj_solve_logdet", bl.batch_solve_logdet(M, R), bl.gj_solve_logdet_plain(M, R))]:
+                    fin, finp = (torch.isfinite(x).flatten(1).all(1) for x in (X, Xp))
+                    if not torch.equal(fin, finp):
+                        raise AssertionError(f"{name} [{N},{d},{d}] r={r}: the non-finite members differ")
+                    acc(name, "solve", X[fin], Xp[fin])
+                    if ld is not None:
+                        acc(name, "logdet", ld[fin], ldp[fin])
+            for m in range(d, 7):
+                B = members(N, d, m)
+                L, Lp = bq.batch_tria(B), bq.tria_plain(B)
+                acc("lq", "factor", L, Lp)
+                acc("lq", "factor", L @ L.mT, Lp @ Lp.mT)
+            X = members(N, d, d + 1)
+            A = X @ X.mT
+            A[2:] += 0.1 * eye[d]
+            L, Lp = bc.batch_cholesky(A), bc.cholesky_plain(A)
+            acc("chol", "factor", L[2:] if N > 2 else L, Lp[2:] if N > 2 else Lp)
+            acc("chol", "rankdef", L @ L.mT, Lp @ Lp.mT)
+            for mx, my, plus_eye in itertools.product((1, 2), (0, 1, 2), (False, True)):
+                X = members(N, d, mx)
+                Y = _randn(gen, N, d, my).to(dtype) if my else None
+                L, Lp = bc.batch_chol_gram(X, Y, plus_eye), bc.chol_gram_plain(X, Y, plus_eye)
+                if plus_eye:
+                    acc("chol_gram", "factor", L, Lp)
+                acc("chol_gram", "factor" if plus_eye else "rankdef", L @ L.mT, Lp @ Lp.mT)
+        B = _randn(gen, 1, 3, 3).to(dtype)
+        acc("lq", "factor", bq.batch_tria(B), bq.tria_plain(B))
+        for (name, kind), (rel, ab) in worst.items():
+            report(name, kind, rel, ab, dtype, f"[{N}] d <= 2 shapes, worst {kind} error of all")
+    routes = build.route_counts()
+    if any(r["block"] for r in routes.values()):
+        raise AssertionError(f"kernels at d <= 2: a block kernel ran: {routes}")
+    print(f"[kernels] d <= 2 {str(dtype)[6:]}: launches {build.launch_counts()}, all on the warp kernels")
 
 
 def _time_kernels(gen):
@@ -670,11 +777,95 @@ def _time_fused(gen):
     return out
 
 
-def _run_slice(T, chunk, dtype, steps, nan_guard, sqrt):
-    from physs_gp_tpu_torch.trainers.scan import natgrad_scan
-    from physs_gp_tpu_torch.zoo.bench_configs import build_config5
+def _time_temporal(gen):
+    """The kernels the temporal model launches, float32, at the shapes where
+    its launches run (`scripts/port/launch_census.py`): the square-root
+    scan's batches ([1024] blocks, [2048] stacked pre-arrays), device time
+    back to back, and the full widths (a chunk of 50 000, the series of
+    100 000), CUDA events around a run of calls. Each row has the kernel's,
+    the plain version's and the library call's time beside the bound from
+    bytes and operations. The library solve and Cholesky read their status
+    back on the host: their times are per call as the host sends them.
+    Returns {kernel: [row per shape]}."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
 
-    model = build_config5(T, chunk, dtype=dtype, sqrt=sqrt)
+    f32, nb, nc, nt = torch.float32, TEMPORAL_BLOCKS, TEMPORAL_CHUNK, N_TEMPORAL
+
+    def r(*shape):
+        return _randn(gen, *shape).to(f32)
+
+    def bmm_case(N, m, k, n, clock):
+        A, B = r(N, m, k), r(N, k, n)
+        return ("bmm", f"[{N},{m},{k}] @ [{N},{k},{n}]", lambda: bl.batch_bmm(A, B),
+                lambda: bl.bmm_plain(A, B), lambda: torch.matmul(A, B), "torch.matmul", clock,
+                4 * N * (m * k + k * n + m * n), 2 * N * m * n * k)
+
+    def solve_case(N, d, r_, clock):
+        M, R = _spd(gen, N, d, f32), r(N, d, r_)
+        return ("gj_solve", f"[{N},{d},{d}] r={r_}", lambda: bl.batch_solve(M, R),
+                lambda: bl.gj_solve_plain(M, R), lambda: torch.linalg.solve(M, R),
+                "torch.linalg.solve", clock, 4 * N * (d * d + 2 * d * r_),
+                N * (2 * d ** 3 // 3 + 2 * d * d * r_))
+
+    def lq_case(N, d, m, clock):
+        B = r(N, d, m)
+        return ("lq", f"[{N},{d},{m}]", lambda: bq.batch_tria(B), lambda: bq.tria_plain(B),
+                lambda: torch.linalg.qr(B.mT, mode="r"), "torch.linalg.qr(B^T, mode='r')", clock,
+                4 * N * (d * m + d * d), N * (2 * d * d * m - 2 * d ** 3 // 3))
+
+    def gram_case(N, d, clock):
+        X, Y = r(N, d, d), r(N, d, d)
+        XY = torch.cat([X, Y], -1)
+        return ("chol_gram", f"[{N},{d},{d}] + [{N},{d},{d}]", lambda: bc.batch_chol_gram(X, Y),
+                lambda: bc.chol_gram_plain(X, Y), lambda: torch.linalg.cholesky(torch.bmm(XY, XY.mT)),
+                "two calls: torch.bmm + torch.linalg.cholesky", _time, 4 * N * 3 * d * d,
+                N * (2 * d ** 3 + d ** 3 // 3))
+
+    M1, R1 = _spd(gen, nt, 1, f32), r(nt, 1, 1)
+    cases = [
+        bmm_case(nb, 2, 2, 2, _time_device), bmm_case(nt, 2, 2, 2, _time), bmm_case(nc, 1, 2, 2, _time),
+        solve_case(2 * nb, 2, 4, _time), solve_case(nc, 1, 5, _time), solve_case(nt, 2, 2, _time),
+        ("gj_solve_logdet", f"[{nt},1,1] r=1", lambda: bl.batch_solve_logdet(M1, R1),
+         lambda: bl.gj_solve_logdet_plain(M1, R1), None, None, None, 4 * nt * 4, nt * 3),
+        lq_case(2 * nb, 2, 4, _time_device), lq_case(nb, 2, 4, _time_device), lq_case(nc, 1, 3, _time),
+        gram_case(nb, 2, _time), gram_case(nt, 2, _time),
+    ]
+    out = {}
+    for name, shape, kern, plain, lib, lib_label, lib_clock, nbytes, flops in cases:
+        scan = shape.startswith(f"[{nb},") or shape.startswith(f"[{2 * nb},")
+        clock = _time_device if scan else _time
+        kern(), plain()
+        if lib is not None:
+            lib()
+        torch.cuda.synchronize()
+        p1, k1 = _time(plain), clock(kern)
+        l1 = lib_clock(lib) if lib is not None else None
+        l2 = lib_clock(lib) if lib is not None else None
+        k2, p2 = clock(kern), _time(plain)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        row = {"shape": shape, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "library_ms": None if lib is None else (l1 + l2) / 2, "library": lib_label,
+               "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "timing": "device_back_to_back" if scan else "events"}
+        out.setdefault(name, []).append(row)
+        lib_txt = "none" if lib is None else f"{row['library_ms']:.4f} ms ({lib_label}" + (
+            ", as the host sends them)" if lib_clock is _time and scan else ")")
+        how = "device time back to back" if scan else "events"
+        print(f"[kernels] time temporal {name} {shape} f32: kernel {row['ms']:.4f} ms ({how}), plain "
+              f"{row['plain_ms']:.4f} ms, library {lib_txt}, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+    return out
+
+
+def _run_slice(T, chunk, dtype, steps, nan_guard, sqrt, temporal=False):
+    """`steps` CVI steps of `build_config5` (or `build_temporal`) at lr 0.5;
+    returns (model, ELBOs, step wall times)."""
+    from physs_gp_tpu_torch.trainers.scan import natgrad_scan
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
+
+    model = (build_temporal if temporal else build_config5)(T, chunk, dtype=dtype, sqrt=sqrt)
     torch.cuda.synchronize()
     walls, elbos = [], []
     for _ in range(steps):
@@ -686,11 +877,23 @@ def _run_slice(T, chunk, dtype, steps, nan_guard, sqrt):
     return model, np.array(elbos), walls
 
 
+def _check_moments(tag, got, tol):
+    """max |val - ref| / max |ref| of each tensor against its numpy reference."""
+    for key, (val, ref) in got.items():
+        r = float(np.max(np.abs(val.cpu().numpy() - ref)) / np.max(np.abs(ref)))
+        print(f"[{tag}] {key} max rel {r:.3e} (tol {tol:g})")
+        if not r <= tol:
+            raise AssertionError(f"{tag}: {key} disagrees with the JAX reference")
+
+
 def phase_slice_anchor(sqrt, fused=False):
+    """`fused` sets the knob; it acts on the covariance-form scans only, so
+    the square-root slice must launch neither fused combine with it set.
+    Without the knob the fitted model also predicts at new times
+    (`predict_f` on a grid that the runner pads), held to the prediction
+    golden file."""
     from physs_gp_tpu_torch.ops import cuda as kernels
 
-    """`fused` sets the knob; it acts on the covariance-form scans only, so
-    the square-root slice must launch neither fused combine with it set."""
     tag, golden = ("anchor sqrt", GOLDEN_SQRT) if sqrt else ("anchor", GOLDEN)
     env = {"PHYSS_SCAN_BLOCKS": "8"}
     if fused:
@@ -700,6 +903,12 @@ def phase_slice_anchor(sqrt, fused=False):
     try:
         model, elbos, _ = _run_slice(256, 64, torch.float64, 3, nan_guard=True, sqrt=sqrt)
         post = model.posterior()
+        if not fused:
+            form = "sqrt" if sqrt else "cov"
+            gp = np.load(GOLDEN_PREDICT)
+            f = model.predict_f(torch.as_tensor(gp["t5_new"], dtype=torch.float64, device="cuda"))
+            _check_moments(f"{tag} predict_f", {
+                "mean": (f.mean, gp[f"c5_{form}_f_mean"]), "var": (f.var, gp[f"c5_{form}_f_var"])}, 1e-7)
     finally:
         for key in env:
             del os.environ[key]
@@ -752,25 +961,213 @@ def phase_oracle():
     print(f"[oracle] fused launches {counts}; sequential pass {time.perf_counter() - t0:.2f} s")
     if not all(counts.values()):
         raise AssertionError("oracle: the scans did not run the fused combines")
-    got = {"lml": (f.lml, fo.lml, 1e-9), "filtered means": (f.ms, fo.ms, 1e-7),
-           "filtered covariances": (f.Ps, fo.Ps, 1e-7), "smoothed means": (s.ms, so.ms, 1e-7),
-           "smoothed covariances": (s.Ps, so.Ps, 1e-7)}
+    _compare_passes("oracle", (f, s), (fo, so), "fused scans vs sequential pass")
+
+
+def phase_temporal_anchor(sqrt, fused=False):
+    """The float64 temporal slice at T = 256 (chunk 64, 8 blocks, 3 steps)
+    against tests/data/temporal_T256_golden.npz, then its predict_f,
+    predict_y and nlpd at 50 new times (a grid of 306 steps, which the
+    runner pads) against tests/data/predict_T256_golden.npz. `fused` sets
+    PHYSS_FUSED_COMBINE=1: no fused combine may launch at d = 2. Returns the
+    ELBOs."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    form = "sqrt" if sqrt else "cov"
+    tag = f"anchor temporal {form}" + (" knob on" if fused else "")
+    env = {"PHYSS_SCAN_BLOCKS": "8"}
+    if fused:
+        env["PHYSS_FUSED_COMBINE"] = "1"
+    os.environ.update(env)
+    kernels.reset_launch_counts(*FUSED)
+    gp = np.load(GOLDEN_PREDICT)
+    t_new, y_new = (torch.as_tensor(gp[k], dtype=torch.float64, device="cuda") for k in ("t_new", "y_new"))
+    try:
+        model, elbos, _ = _run_slice(256, 64, torch.float64, 3, nan_guard=True, sqrt=sqrt, temporal=True)
+        post = model.posterior()
+        f, y, nlpd = model.predict_f(t_new), model.predict_y(t_new), float(model.nlpd(t_new, y_new))
+    finally:
+        for key in env:
+            del os.environ[key]
+    counts = kernels.launch_counts(*FUSED)
+    if any(counts.values()):
+        raise AssertionError(f"{tag}: a fused combine ran at d = 2: {counts}")
+    gold = np.load(GOLDEN_TEMPORAL)
+    ref = gold[f"{form}_elbos"]
+    rel = np.abs(elbos - ref) / np.abs(ref)
+    print(f"[{tag}] ELBOs {elbos.tolist()}")
+    print(f"[{tag}] golden {ref.tolist()} max rel {rel.max():.3e} (tol 1e-9)")
+    if not rel.max() <= 1e-9:
+        raise AssertionError(f"float64 {tag} slice on the card disagrees with the JAX reference")
+    _check_moments(tag, {
+        "site_Y": (model.sites.Y, gold[f"{form}_site_Y"]),
+        "site_V_diag": (torch.diagonal(model.sites.V, dim1=-2, dim2=-1), gold[f"{form}_site_V_diag"]),
+        "post_mean": (post.mean, gold[f"{form}_post_mean"]), "post_var": (post.var, gold[f"{form}_post_var"]),
+        "predict_f mean": (f.mean, gp[f"{form}_f_mean"]), "predict_f var": (f.var, gp[f"{form}_f_var"]),
+        "predict_y mean": (y.mean, gp[f"{form}_y_mean"]), "predict_y var": (y.var, gp[f"{form}_y_var"]),
+    }, 1e-7)
+    r = abs(nlpd - float(gp[f"{form}_nlpd"])) / abs(float(gp[f"{form}_nlpd"]))
+    print(f"[{tag}] nlpd {nlpd!r} rel {r:.3e} (tol 1e-9)")
+    if not r <= 1e-9:
+        raise AssertionError(f"{tag}: nlpd disagrees with the JAX reference")
+    return elbos
+
+
+def _compare_passes(tag, a, b, names):
+    """lml (tol 1e-9) and moments (max err over scale, tol 1e-7) of two
+    (filter, smoother) passes."""
+    (fa, sa), (fb, sb) = a, b
+    got = {"lml": (fa.lml, fb.lml, 1e-9), "filtered means": (fa.ms, fb.ms, 1e-7),
+           "filtered covariances": (fa.Ps, fb.Ps, 1e-7), "smoothed means": (sa.ms, sb.ms, 1e-7),
+           "smoothed covariances": (sa.Ps, sb.Ps, 1e-7)}
+    if sa.Ls is not None and sb.Ls is not None:
+        got["smoothed factors' L Lᵀ"] = (sa.Ls @ sa.Ls.mT, sb.Ls @ sb.Ls.mT, 1e-7)
     for key, (val, ref, tol) in got.items():
         r = float((val - ref).abs().max() / ref.abs().max())
-        print(f"[oracle] {key} max err / scale {r:.3e} (tol {tol:g})")
+        print(f"[{tag}] {names}: {key} max err / scale {r:.3e} (tol {tol:g})")
         if not r <= tol:
-            raise AssertionError(f"oracle: {key} of the fused scans disagree with the sequential pass")
+            raise AssertionError(f"{tag}: {key} of the {names} disagree")
+
+
+def phase_temporal_oracle():
+    """One float64 filter + smoother pass of the temporal model at T = 2048
+    (chunk 512, sites after one CVI step): the flat d = 2 scans against the
+    sequential covariance filter and smoother, and the parallel square-root
+    scans against the sequential square-root filter and smoother (the LQ
+    kernel at batch 1 each step)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+    from physs_gp_tpu_torch.ops.lgssm import build_lgssm
+    from physs_gp_tpu_torch.ops.runner import run_filter_smoother
+
+    model, _, _ = _run_slice(2048, 512, torch.float64, 1, nan_guard=True, sqrt=False, temporal=True)
+    ssm = build_lgssm(model.kernel, model.t)
+    R, Y = model.sites.V, model.sites.Y
+    passes, launches = {}, {}
+    with torch.no_grad():
+        for key, kw in {"flat": dict(parallel=True, chunk_size=512), "sequential": dict(parallel=False),
+                        "parallel sqrt": dict(parallel=True, sqrt=True, chunk_size=512),
+                        "sequential sqrt": dict(parallel=False, sqrt=True)}.items():
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            passes[key] = run_filter_smoother(ssm, R, Y, **kw)
+            torch.cuda.synchronize()
+            launches[key] = {k: v for k, v in kernels.launch_counts().items() if v}
+            print(f"[oracle temporal] {key} pass {time.perf_counter() - t0:.2f} s, launches {launches[key]}")
+    if launches["sequential sqrt"].get("lq", 0) < 3 * 2047:
+        raise AssertionError("oracle temporal: the sequential square-root pass did not run the LQ per step")
+    _compare_passes("oracle temporal", passes["flat"], passes["sequential"],
+                    "flat d = 2 scans vs sequential covariance pass")
+    _compare_passes("oracle temporal", passes["parallel sqrt"], passes["sequential sqrt"],
+                    "parallel vs sequential square-root pass")
+
+
+def _path_check(tag, counts, routes, path_kernels):
+    """Every kernel of the path launched, none on a block-per-matrix route,
+    no fused combine unless the path has them."""
+    print(f"[{tag}] launches: {counts}")
+    print(f"[{tag}] launches by route: {routes}")
+    if not all(counts[k] > 0 for k in path_kernels):
+        raise AssertionError(f"{tag}: a kernel of the path was never launched")
+    if any(r["block"] for r in routes.values()):
+        raise AssertionError(f"{tag}: a block-per-matrix kernel ran on the path")
+    if any(counts[k] for k in FUSED if k not in path_kernels):
+        raise AssertionError(f"{tag}: a fused combine ran with its knob unset")
+
+
+def phase_temporal_full():
+    """The temporal Poisson fit at the bench's settings (T = 100 000, chunk
+    50 000, 1024 blocks; 3 steps at lr 0.5) in covariance and square-root
+    form, float32 and float64, each fitted model then predicting at 1000 new
+    times over [0, 1000] (predict_f, predict_y, nlpd with seeded Poisson
+    targets). Launch counters are reset just before each float32 fit and
+    each float32 prediction and read just after. In float64 the two forms
+    must agree on the ELBOs and predict_f to rtol 1e-6. Returns the paths'
+    launch counts and launches by route."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    rng = np.random.default_rng(20)
+    t_new = np.sort(rng.uniform(0, 1000, 1000))
+    y_new = np.random.default_rng(21).poisson(np.exp(1.2 * np.sin(0.1 * t_new)))[:, None]
+    path_kernels = {
+        "temporal cov f32": ("bmm", "gj_solve", "gj_solve_logdet"),
+        "temporal cov predict f32": ("bmm", "gj_solve", "gj_solve_logdet"),
+        "temporal sqrt f32": ("bmm", "gj_solve", "gj_solve_logdet", "lq", "chol_gram"),
+        "temporal sqrt predict f32": ("bmm", "gj_solve", "lq", "chol_gram"),
+    }
+    counts, routes, res = {}, {}, {}
+    os.environ["PHYSS_SCAN_BLOCKS"] = str(TEMPORAL_BLOCKS)
+    try:
+        for form in ("cov", "sqrt"):
+            for dtype in (torch.float32, torch.float64):
+                dt = str(dtype)[6:]
+                f32 = dtype == torch.float32
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                if f32:
+                    kernels.reset_launch_counts()
+                model, elbos, walls = _run_slice(N_TEMPORAL, TEMPORAL_CHUNK, dtype, 3, nan_guard=False,
+                                                 sqrt=form == "sqrt", temporal=True)
+                if f32:
+                    counts[f"temporal {form} f32"] = kernels.launch_counts()
+                    routes[f"temporal {form} f32"] = kernels.route_counts()
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                tn = torch.as_tensor(t_new, dtype=dtype, device="cuda")
+                yn = torch.as_tensor(y_new, dtype=dtype, device="cuda")
+                torch.cuda.reset_peak_memory_stats()
+                if f32:
+                    kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                f, y, nlpd = model.predict_f(tn), model.predict_y(tn), model.nlpd(tn, yn)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if f32:
+                    counts[f"temporal {form} predict f32"] = kernels.launch_counts()
+                    routes[f"temporal {form} predict f32"] = kernels.route_counts()
+                peak_pred = torch.cuda.max_memory_allocated() / 2**30
+                finite = bool(np.all(np.isfinite(elbos)) and torch.isfinite(model.sites.V).all()
+                              and torch.isfinite(model.sites.Y).all()
+                              and all(torch.isfinite(x).all() for x in (*f, *y, nlpd)))
+                print(f"[full temporal {form}] {dt} ELBOs {elbos.tolist()}")
+                print(f"[full temporal {form}] {dt} step wall s {[round(w, 4) for w in walls]} "
+                      f"peak {peak:.2f} GiB finite {finite}")
+                print(f"[full temporal {form}] {dt} predict_f + predict_y + nlpd at 1000 new times "
+                      f"{wall:.4f} s, peak {peak_pred:.2f} GiB, nlpd {float(nlpd)!r}")
+                if not finite or f.mean.shape != (1000, 1):
+                    raise AssertionError(f"full temporal {form}: non-finite or misshapen result in {dt}")
+                res[form, dtype] = (elbos, f)
+                del model
+    finally:
+        del os.environ["PHYSS_SCAN_BLOCKS"]
+    for path, kern in path_kernels.items():
+        _path_check(f"full {path}", counts[path], routes[path], kern)
+    f64, f32 = torch.float64, torch.float32
+    for form in ("cov", "sqrt"):
+        gap = np.abs(res[form, f32][0] - res[form, f64][0]) / np.abs(res[form, f64][0])
+        print(f"[full temporal {form}] float32 vs float64 ELBO rel gap {gap.tolist()}")
+    gap = np.abs(res["sqrt", f64][0] - res["cov", f64][0]) / np.abs(res["cov", f64][0])
+    fc, fs = res["cov", f64][1], res["sqrt", f64][1]
+    gaps = {"ELBO": gap.max(), "predict_f mean": float((fs.mean - fc.mean).abs().max() / fc.mean.abs().max()),
+            "predict_f var": float((fs.var - fc.var).abs().max() / fc.var.abs().max())}
+    print(f"[full temporal] float64 square-root vs covariance: ELBO rel gap {gap.tolist()}, "
+          f"predict_f mean {gaps['predict_f mean']:.3e}, var {gaps['predict_f var']:.3e} (tol 1e-6)")
+    if not max(gaps.values()) <= 1e-6:
+        raise AssertionError("full temporal: the two forms disagree in float64")
+    return counts, routes
 
 
 def _full(sqrt, path_kernels, fused=False):
     """f32 then f64 at T = 100 000; returns (ELBOs by dtype, f32 launch
-    counts, f32 launches by route). Every launch of the solve, the LQ and
-    the Cholesky kernels on the main path (d = 32, m <= 64) must take the
-    warp-per-matrix kernels, every fused launch the tiled kernels."""
+    counts, f32 launches by route, prediction's (counts, routes) or None).
+    Every launch of the solve, the LQ and the Cholesky kernels on the main
+    path (d = 32, m <= 64) must take the warp-per-matrix kernels, every
+    fused launch the tiled kernels. Without the fused knob the float32 model
+    then predicts at 1000 new times (`predict_f` on a grid of 101 000 steps,
+    which the runner pads), with the counters reset just before it and read
+    just after."""
     from physs_gp_tpu_torch.ops import cuda as kernels
 
     tag = "full sqrt" if sqrt else "full fused" if fused else "full"
-    out = {}
+    out, predict = {}, None
     for dtype in (torch.float32, torch.float64):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -789,20 +1186,23 @@ def _full(sqrt, path_kernels, fused=False):
         if not finite:
             raise AssertionError(f"{tag}: non-finite ELBO or sites in {dtype}")
         out[dtype] = elbos
+        if dtype == torch.float32 and not fused:
+            t_new = torch.as_tensor(np.sort(np.random.default_rng(22).uniform(0, 100, 1000)),
+                                    dtype=dtype, device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            f = model.predict_f(t_new)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            predict = (kernels.launch_counts(), kernels.route_counts())
+            ok = f.mean.shape == (1000, 32) and bool(torch.isfinite(f.mean).all() & torch.isfinite(f.var).all())
+            print(f"[{tag}] float32 predict_f at 1000 new times {wall:.4f} s, peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, finite and [1000, 32] {ok}")
+            if not ok:
+                raise AssertionError(f"{tag}: predict_f gave a non-finite or misshapen result")
         del model
-    print(f"[{tag}] launches in the float32 run: {counts}")
-    print(f"[{tag}] launches by route in the float32 run: {routes}")
-    if not all(counts[k] > 0 for k in path_kernels):
-        raise AssertionError(f"{tag}: a kernel of the path was never launched")
-    if any(r["block"] for r in routes.values()):
-        raise AssertionError(f"{tag}: a block-per-matrix kernel ran on the main path")
-    if fused:
-        print(f"[{tag}] fused launches by route in the float32 run: "
-              f"{ {k: routes.get(k) for k in FUSED} }")
-        if any(routes[k]["tiled"] != counts[k] for k in FUSED):
-            raise AssertionError(f"{tag}: a fused launch at d = 32 took the block route")
-    if not fused and any(counts[k] for k in FUSED):
-        raise AssertionError(f"{tag}: a fused combine ran with its knobs unset")
+    _path_check(f"{tag} float32", counts, routes, path_kernels)
     # Step 0 starts from the broad initial sites, where the fp32 projection
     # H P H^T of the stiff collocation heads loses digits in the reference
     # algorithm itself (the JAX package's own float32 and float64 step-0
@@ -813,7 +1213,7 @@ def _full(sqrt, path_kernels, fused=False):
           f"(bound 1e-2 on steps 1 and 2; step 0 reported)")
     if not gap[1:].max() <= 1e-2:
         raise AssertionError(f"{tag}: float32 and float64 ELBOs disagree")
-    return out, counts, routes
+    return out, counts, routes, predict
 
 
 def phase_slice_full():
@@ -821,10 +1221,10 @@ def phase_slice_full():
     and launches by route."""
     os.environ["PHYSS_KZZ_JITTER"] = "1e-4"
     cov = ("bmm", "gj_solve", "gj_solve_logdet")
-    cov_elbos, cov_counts, cov_routes = _full(False, cov)
+    cov_elbos, cov_counts, cov_routes, cov_predict = _full(False, cov)
     os.environ["PHYSS_FUSED_COMBINE"] = "1"
     try:
-        fused_elbos, fused_counts, fused_routes = _full(False, cov + FUSED, fused=True)
+        fused_elbos, fused_counts, fused_routes, _ = _full(False, cov + FUSED, fused=True)
     finally:
         del os.environ["PHYSS_FUSED_COMBINE"]
     # fused and unfused are one function: float64 to rounding on every step,
@@ -835,11 +1235,18 @@ def phase_slice_full():
               f"(bound {tol:g}{'' if steps.start == 0 else ' on steps 1 and 2'})")
         if not gap[steps].max() <= tol:
             raise AssertionError(f"full fused: {dtype} fused and unfused ELBOs disagree")
-    sqrt_elbos, counts, routes = _full(True, tuple(k for k in SOURCES if k not in FUSED))
+    sqrt_kernels = tuple(k for k in SOURCES if k not in FUSED)
+    sqrt_elbos, counts, routes, sqrt_predict = _full(True, sqrt_kernels)
     gap = np.abs(sqrt_elbos[torch.float32] - cov_elbos[torch.float32]) / np.abs(cov_elbos[torch.float32])
     print(f"[full sqrt] float32 square-root vs covariance ELBO rel gap {gap.tolist()}")
-    return ({"cov f32": cov_counts, "cov fused f32": fused_counts, "sqrt f32": counts},
-            {"cov f32": cov_routes, "cov fused f32": fused_routes, "sqrt f32": routes})
+    _path_check("full config5 cov predict f32", *cov_predict, cov)
+    # prediction runs no site ELL, so no solve + logdet in square-root form
+    _path_check("full config5 sqrt predict f32", *sqrt_predict,
+                tuple(k for k in sqrt_kernels if k != "gj_solve_logdet"))
+    return ({"cov f32": cov_counts, "cov fused f32": fused_counts, "sqrt f32": counts,
+             "config5 cov predict f32": cov_predict[0], "config5 sqrt predict f32": sqrt_predict[0]},
+            {"cov f32": cov_routes, "cov fused f32": fused_routes, "sqrt f32": routes,
+             "config5 cov predict f32": cov_predict[1], "config5 sqrt predict f32": sqrt_predict[1]})
 
 
 def main():
@@ -857,7 +1264,16 @@ def main():
     phase_slice_anchor(sqrt=True)
     phase_slice_anchor(sqrt=True, fused=True)
     phase_oracle()
+    knob_off = phase_temporal_anchor(False)
+    phase_temporal_anchor(True)
+    if not np.array_equal(phase_temporal_anchor(False, fused=True), knob_off):
+        raise AssertionError("anchor temporal: PHYSS_FUSED_COMBINE=1 changed the d = 2 ELBOs")
+    print("[anchor temporal cov knob on] ELBOs equal, bit for bit, to the knob-off run")
+    phase_temporal_oracle()
     paths, routes = phase_slice_full()
+    temporal_paths, temporal_routes = phase_temporal_full()
+    paths.update(temporal_paths)
+    routes.update(temporal_routes)
     # `launches` of the fused combines from the fused covariance run, of the
     # others from the square-root run; `launches_by_path` has every run's,
     # `launches_by_kernel` the split of that run's launches between the

@@ -6,7 +6,9 @@ array, with the key paths the JAX package's pytrees flatten to (for example
 `.kernel.Z`, `.t`, `.Y`, `.sites.Y`, `.sites.V`). The port's modules use the
 same attribute names, so each path is walked attribute by attribute:
 `.raw` leaves are copied into the `nn.Parameter`, other leaves replace the
-buffer they name, in the model's device and dtype.
+buffer they name, in the model's device and dtype. A path that names a
+Python number (a setting the JAX package keeps static, such as
+`.likelihood.binsize`) takes the scalar's value, in the number's type.
 """
 from __future__ import annotations
 
@@ -42,8 +44,13 @@ def load_numpy_params(model, flat: dict) -> None:
         if isinstance(leaf, int) or not hasattr(obj, leaf):
             raise KeyError(f"{key!r} does not name a leaf of the model")
         current = getattr(obj, leaf)
+        if isinstance(current, (int, float)) and not isinstance(current, bool):
+            if np.size(value) != 1:
+                raise ValueError(f"{key!r}: a number takes a scalar, got shape {np.shape(value)}")
+            setattr(obj, leaf, type(current)(np.asarray(value).item()))
+            continue
         if not isinstance(current, torch.Tensor):
-            raise KeyError(f"{key!r} names {type(current).__name__}, not a tensor")
+            raise KeyError(f"{key!r} names {type(current).__name__}, not a tensor or number")
         new = torch.as_tensor(np.array(value), dtype=current.dtype, device=current.device)
         if new.shape != current.shape:
             raise ValueError(f"{key!r}: shape {tuple(new.shape)} != {tuple(current.shape)}")

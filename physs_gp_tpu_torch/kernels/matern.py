@@ -1,8 +1,8 @@
 """Matérn half-integer kernels with exact closed-form state space (PyTorch).
 
-Counterpart of `physs_gp_tpu/kernels/matern.py` (Matern32 is the one this
-package ships). One implementation covers order p (nu = p + 1/2, state dim
-d = p + 1) in the balanced basis x_k = f^(k) / lam^k:
+Counterpart of `physs_gp_tpu/kernels/matern.py` (Matern12, 32, 52 and 72).
+One implementation covers order p (nu = p + 1/2, state dim d = p + 1) in the
+balanced basis x_k = f^(k) / lam^k:
 
 - F = lam (unit superdiagonal - binomial last row); N = F + lam I is
   nilpotent, so A(dt) = exp(-lam dt) sum_{k<d} N^k dt^k / k! exactly;
@@ -20,7 +20,7 @@ from .base import StationaryKernel
 from .markov import MarkovKernel, StateSpace, solve_pinf
 from ..utils.params import Param, positive_param
 
-__all__ = ["Matern", "Matern32"]
+__all__ = ["Matern", "Matern12", "Matern32", "Matern52", "Matern72"]
 
 
 def _matern_corr(p: int, r):
@@ -32,8 +32,16 @@ def _matern_corr(p: int, r):
         poly = 1.0 + sr
     elif p == 2:
         poly = 1.0 + sr + sr**2 / 3.0
+    elif p == 3:
+        poly = 1.0 + sr + 2.0 * sr**2 / 5.0 + sr**3 / 15.0
     else:
-        raise NotImplementedError(f"Matern order p = {p} is not ported")
+        # p! / (2p)! sum_{i <= p} (p + i)! / (i! (p - i)!) (2 sr)^(p - i)
+        poly = sum(
+            (math.factorial(p) / math.factorial(2 * p))
+            * (math.factorial(p + i) / (math.factorial(i) * math.factorial(p - i)))
+            * (2.0 * sr) ** (p - i)
+            for i in range(p + 1)
+        )
     return poly * torch.exp(-sr)
 
 
@@ -125,9 +133,29 @@ class Matern(StationaryKernel, MarkovKernel):
         return qc * torch.einsum("...m,mij->...ij", Im, C)
 
 
-def Matern32(lengthscale=1.0, variance=1.0, dtype=None, device=None) -> Matern:
-    """Matérn-3/2; plain values are wrapped as positive Params."""
+def _matern(p, lengthscale, variance, dtype, device) -> Matern:
+    """Matérn of order p; plain values are wrapped as positive Params."""
     def wrap(v):
         return v if isinstance(v, Param) else positive_param(v, dtype=dtype, device=device)
 
-    return Matern(lengthscales=wrap(lengthscale), variance=wrap(variance), p=1)
+    return Matern(lengthscales=wrap(lengthscale), variance=wrap(variance), p=p)
+
+
+def Matern12(lengthscale=1.0, variance=1.0, dtype=None, device=None) -> Matern:
+    """Matérn-1/2 (the exponential kernel), state dim 1."""
+    return _matern(0, lengthscale, variance, dtype, device)
+
+
+def Matern32(lengthscale=1.0, variance=1.0, dtype=None, device=None) -> Matern:
+    """Matérn-3/2, state dim 2."""
+    return _matern(1, lengthscale, variance, dtype, device)
+
+
+def Matern52(lengthscale=1.0, variance=1.0, dtype=None, device=None) -> Matern:
+    """Matérn-5/2, state dim 3."""
+    return _matern(2, lengthscale, variance, dtype, device)
+
+
+def Matern72(lengthscale=1.0, variance=1.0, dtype=None, device=None) -> Matern:
+    """Matérn-7/2, state dim 4."""
+    return _matern(3, lengthscale, variance, dtype, device)

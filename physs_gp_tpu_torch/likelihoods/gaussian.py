@@ -1,6 +1,7 @@
 """Gaussian likelihoods (PyTorch counterpart of
-`physs_gp_tpu/likelihoods/gaussian.py`: `IndependentGaussian` and the CVI
-pseudo-likelihood `BlockDiagonalGaussian`)."""
+`physs_gp_tpu/likelihoods/gaussian.py`: the scalar iid-noise `Gaussian`,
+`IndependentGaussian` and the CVI pseudo-likelihood `BlockDiagonalGaussian`,
+the noise model of the surrogate `StateSpaceGP`)."""
 from __future__ import annotations
 
 import math
@@ -8,11 +9,36 @@ import math
 import torch
 from torch import nn
 
-__all__ = ["Likelihood", "IndependentGaussian", "BlockDiagonalGaussian"]
+from ..utils.params import Param, positive_param
+
+__all__ = ["Likelihood", "Gaussian", "IndependentGaussian", "BlockDiagonalGaussian"]
 
 
 class Likelihood(nn.Module):
     """Marker base class."""
+
+
+class Gaussian(Likelihood):
+    """y = f + eps, eps ~ N(0, variance) iid."""
+
+    def __init__(self, variance: Param | None = None):
+        super().__init__()
+        self.variance = positive_param(1.0) if variance is None else variance
+
+    def R(self, T: int, p: int = 1):
+        """Per-step observation covariance blocks [T, p, p]."""
+        v = self.variance.value
+        return (v * torch.eye(p, dtype=v.dtype, device=v.device)).expand(T, p, p)
+
+    def log_prob(self, y, f):
+        v = self.variance.value
+        return -0.5 * (torch.log(2 * math.pi * v) + (y - f) ** 2 / v)
+
+    def conditional_mean(self, f):
+        return f
+
+    def conditional_variance(self, f):
+        return self.variance.value.expand(f.shape)
 
 
 class IndependentGaussian(Likelihood):
@@ -41,7 +67,8 @@ class IndependentGaussian(Likelihood):
 
 
 class BlockDiagonalGaussian(Likelihood):
-    """N(Y_t | f_t, V_t) with a full [p, p] block V_t per time step."""
+    """N(Y_t | f_t, V_t) with a full [p, p] block V [T, p, p] per time step:
+    the CVI sites as the observation noise of the surrogate model."""
 
     def __init__(self, V):
         super().__init__()

@@ -7,37 +7,46 @@ gradients, and
     ELBO = ELL_data(q) - ELL_sites(q) + lml_surrogate,
 
 all from one Kalman filter + smoother pass over the surrogate.
-`step_with_elbo` updates the model's sites in place and returns the model.
+`step_with_elbo` and `natural_gradient_update` update the model's sites in
+place and return the model. Prediction runs on the surrogate as a
+`StateSpaceGP` (`surrogate_model`): `predict_f` on its NaN-augmented grid,
+`predict_y` by Gauss-Hermite moment matching, `nlpd` by log-domain
+Gauss-Hermite quadrature. A prior mean and Monte-Carlo keys are not ported
+yet: asking for them raises.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from ..approx.cvi import Sites, init_sites, natgrad_update
+from ..likelihoods.gaussian import BlockDiagonalGaussian
 from ..likelihoods.nongaussian import expected_log_lik
 from ..ops.gaussian import mask_covariance
 from ..ops.lgssm import build_lgssm, project_cov, project_cov_factor, project_mean
 from ..ops.matrix import psd_solve_logdet
+from ..ops.quadrature import expect_gh, expect_gh_log
 from ..ops.runner import run_filter_smoother
+from .ssgp import GaussianMoments, StateSpaceGP
 
 __all__ = ["CVIGP", "GaussianMoments"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 
 
-class GaussianMoments(NamedTuple):
-    mean: torch.Tensor
-    var: torch.Tensor
+def _no_key(key):
+    if key is not None:
+        raise NotImplementedError("Monte-Carlo keys are not ported yet")
 
 
 class CVIGP(nn.Module):
     def __init__(self, t, Y, kernel, likelihood, sites: Sites, observation=None,
-                 parallel: bool = False, sqrt: bool = False, chunk_size=None):
+                 mean=None, parallel: bool = False, sqrt: bool = False, chunk_size=None):
         super().__init__()
+        if mean is not None:
+            raise NotImplementedError("a prior mean is not ported yet")
         self.register_buffer("t", t)
         self.register_buffer("Y", Y)
         self.kernel = kernel
@@ -49,7 +58,7 @@ class CVIGP(nn.Module):
         self.chunk_size = chunk_size
 
     @classmethod
-    def init(cls, t, Y, kernel, likelihood, observation=None, parallel=False,
+    def init(cls, t, Y, kernel, likelihood, observation=None, mean=None, parallel=False,
              sqrt=False, chunk_size=None, site_var: float = 1.0):
         active = (
             likelihood.site_active_mask(Y)
@@ -59,7 +68,7 @@ class CVIGP(nn.Module):
         return cls(
             t=t.reshape(-1), Y=Y, kernel=kernel, likelihood=likelihood,
             sites=init_sites(Y, site_var, active=active), observation=observation,
-            parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
+            mean=mean, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
         )
 
     # ---- surrogate filtering ----
@@ -113,14 +122,28 @@ class CVIGP(nn.Module):
         return self._ell_sites_ex(m, S)[0]
 
     # ---- public API ----
-    def elbo(self):
+    def elbo(self, key=None):
+        _no_key(key)
         lml_sur, m, S = self._surrogate_pass()
         return self._ell_data(m, S) - self._ell_sites(m, S) + lml_sur
 
+    def get_objective(self, key=None):
+        return -self.elbo(key=key)
+
     @torch.no_grad()
-    def step_with_elbo(self, lr: float):
+    def natural_gradient_update(self, lr: float, key=None):
+        """One CVI step on all sites (the exact ELL gradient, taken by
+        autograd); the sites are replaced in place."""
+        _no_key(key)
+        _, m, S = self._surrogate_pass()
+        self.sites = natgrad_update(self.sites, m, S, self._ell_data, lr)
+        return self
+
+    @torch.no_grad()
+    def step_with_elbo(self, lr: float, key=None):
         """One CVI step and the (pre-update) ELBO from a single surrogate
         filter + smoother pass; the sites are replaced in place."""
+        _no_key(key)
         lml_sur, m, S = self._surrogate_pass()
         ell_sites, naturals = self._ell_sites_ex(m, S)
         elbo = self._ell_data(m, S) - ell_sites + lml_sur
@@ -133,3 +156,43 @@ class CVIGP(nn.Module):
     def posterior(self) -> GaussianMoments:
         _, m, S = self._surrogate_pass()
         return GaussianMoments(mean=m, var=torch.diagonal(S, dim1=-2, dim2=-1))
+
+    def surrogate_model(self) -> StateSpaceGP:
+        """The conjugate surrogate as a `StateSpaceGP` whose observations are
+        the CVI sites: its smoothed posterior is q(f)."""
+        return StateSpaceGP(
+            t=self.t, Y=self.sites.Y, kernel=self.kernel,
+            likelihood=BlockDiagonalGaussian(V=self.sites.V), observation=self.observation,
+            parallel=self.parallel, sqrt=self.sqrt, chunk_size=self.chunk_size,
+        )
+
+    @torch.no_grad()
+    def predict_f(self, t_new) -> GaussianMoments:
+        """q(f) at new times through the surrogate's NaN-augmented grid."""
+        return self.surrogate_model().predict_f(t_new)
+
+    @torch.no_grad()
+    def predict_y(self, t_new, gh_points: int = 20) -> GaussianMoments:
+        """Moment-matched predictive p(y*): E[y] = E_q[E[y | f]] and
+        Var[y] = E_q[Var[y | f] + E[y | f]^2] - E[y]^2 by Gauss-Hermite."""
+        f = self.predict_f(t_new)
+        lik = self.likelihood
+        ey = expect_gh(lik.conditional_mean, f.mean, f.var, gh_points)
+        ey2 = expect_gh(
+            lambda ff: lik.conditional_variance(ff) + lik.conditional_mean(ff) ** 2,
+            f.mean, f.var, gh_points,
+        )
+        return GaussianMoments(mean=ey, var=ey2 - ey**2)
+
+    @torch.no_grad()
+    def nlpd(self, t_new, y_new, gh_points: int = 20):
+        """Negative log predictive density by log-domain Gauss-Hermite
+        quadrature, averaged over the finite elements of y_new."""
+        f = self.predict_f(t_new)
+        y_new = y_new.reshape(f.mean.shape)
+        val = -expect_gh_log(
+            lambda ff: self.likelihood.log_prob(torch.nan_to_num(y_new)[..., None], ff),
+            f.mean, f.var, gh_points,
+        )
+        ok = torch.isfinite(y_new)
+        return torch.sum(torch.where(ok, val, 0.0)) / torch.sum(ok)

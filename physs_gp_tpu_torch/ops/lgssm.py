@@ -9,7 +9,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["LGSSM", "build_lgssm", "project_mean", "project_cov", "project_cov_factor"]
+__all__ = ["LGSSM", "build_lgssm", "project_mean", "project_var", "project_cov",
+           "project_cov_factor"]
 
 
 class LGSSM(NamedTuple):
@@ -51,6 +52,14 @@ def _Ps_Ht(H, Ps):
     """Y[t, i, q] = sum_j Ps[t, i, j] H[q, j] as one [T*d, d] @ [d, p] product."""
     T, d, _ = Ps.shape
     return (Ps.reshape(T * d, d) @ H.T).reshape(T, d, H.shape[0])
+
+
+def project_var(H, Ps):
+    """[T, p] head variances (the diagonal of H Ps Hᵀ) from state
+    covariances Ps [T, d, d]."""
+    if H.dim() == 2:
+        return torch.sum(_Ps_Ht(H, Ps) * H.T[None], 1)
+    return torch.einsum("tpi,tij,tpj->tp", H, Ps, H)
 
 
 def project_cov_factor(H, Ls):

@@ -38,6 +38,7 @@ __all__ = [
     "mat_inv",
     "kron",
     "kron_lift",
+    "diag_from_XDXT",
     "log_det_from_chol",
 ]
 
@@ -350,3 +351,8 @@ def kron_lift(B, C):
     Bg = B.repeat_interleave(n, dim=-2).repeat_interleave(n, dim=-1)
     Cg = C.repeat(1, m, m)
     return Bg[None] * Cg
+
+
+def diag_from_XDXT(X, D):
+    """diag(X D Xᵀ) without forming the product."""
+    return torch.einsum("...ij,...jk,...ik->...i", X, D, X)

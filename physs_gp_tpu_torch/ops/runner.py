@@ -1,20 +1,19 @@
 """Filter/smoother dispatch (PyTorch).
 
-Counterpart of `physs_gp_tpu/ops/runner.py`: the parallel filters in
-covariance form or square-root form (`sqrt=True`), and the sequential
-filter in covariance form (`parallel=False`). Square-root variants take and
-return triangular factors inside; the runner converts at the boundary, so
-models always see covariance Ps (and, from the square-root smoother, the
-factors in `Ls`). The sequential square-root filter and the time-sharded
-multi-device pass are not ported yet and raise `NotImplementedError`.
+Counterpart of `physs_gp_tpu/ops/runner.py`: {sequential (`parallel=False`),
+parallel} x {covariance, square-root (`sqrt=True`)}. Square-root variants
+take and return triangular factors inside; the runner converts at the
+boundary, so models always see covariance Ps (and, from the square-root
+smoothers, the factors in `Ls`). The time-sharded multi-device pass is not
+ported yet and raises `NotImplementedError`.
 """
 from __future__ import annotations
 
 import torch
 
-from . import kalman, parallel_kalman, parallel_sqrt_kalman
+from . import kalman, parallel_kalman, parallel_sqrt_kalman, sqrt_kalman
 from .gaussian import mask_covariance
-from .kalman import FilterResult, observation_mask
+from .kalman import FilterResult, SmootherResult, observation_mask
 from .matrix import safe_cholesky_rel
 
 __all__ = ["run_filter_smoother", "run_filter"]
@@ -51,17 +50,21 @@ def _unpad(res, T: int):
     )
 
 
-def _check_supported(parallel, sqrt, mesh):
+def _check_supported(mesh):
     if mesh is not None:
         raise NotImplementedError("time-axis sharding is not ported yet")
-    if sqrt and not parallel:
-        raise NotImplementedError("the sequential square-root filter is not ported yet")
 
 
 def _square(F: FilterResult) -> FilterResult:
     """Covariance-form result of a square-root filter. The predicted factors
     are dropped: in covariance form Pp must be a covariance."""
     return F._replace(Ps=F.Ps @ F.Ps.transpose(-1, -2), Pp=None)
+
+
+def _square_s(S: SmootherResult) -> SmootherResult:
+    """Covariance-form result of the sequential square-root smoother, with
+    its factors kept in `Ls` for the PSD projections."""
+    return S._replace(Ps=S.Ps @ S.Ps.transpose(-1, -2), Ls=S.Ps)
 
 
 def _mask_decoupled_R(R, Y):
@@ -77,9 +80,12 @@ def _run_filter_raw(ssm, R, Y, *, parallel, sqrt, chunk_size):
         Q_sqrt = safe_cholesky_rel(ssm.Q)
         R_sqrt = safe_cholesky_rel(_mask_decoupled_R(R, Y))
         P0_sqrt = safe_cholesky_rel(ssm.P0)
-        f = parallel_sqrt_kalman.parallel_sqrt_kalman_filter(
-            ssm.A, Q_sqrt, ssm.H, R_sqrt, Y, ssm.m0, P0_sqrt, chunk_size=chunk_size
-        )
+        if parallel:
+            f = parallel_sqrt_kalman.parallel_sqrt_kalman_filter(
+                ssm.A, Q_sqrt, ssm.H, R_sqrt, Y, ssm.m0, P0_sqrt, chunk_size=chunk_size
+            )
+        else:
+            f = sqrt_kalman.sqrt_kalman_filter(ssm.A, Q_sqrt, ssm.H, R_sqrt, Y, ssm.m0, P0_sqrt)
         return _square(f), (Q_sqrt, f)
     if parallel:
         f = parallel_kalman.parallel_kalman_filter(
@@ -92,7 +98,6 @@ def _run_filter_raw(ssm, R, Y, *, parallel, sqrt, chunk_size):
 
 def run_filter(ssm, R, Y, *, parallel=False, sqrt=False, chunk_size=None):
     """One filtering pass; returns (FilterResult, aux) with covariance Ps."""
-    _check_supported(parallel, sqrt, None)
     T = Y.shape[0]
     pad = _pad_amount(T, chunk_size if parallel else None)
     if pad:
@@ -104,7 +109,7 @@ def run_filter(ssm, R, Y, *, parallel=False, sqrt=False, chunk_size=None):
 def run_filter_smoother(ssm, R, Y, *, parallel=False, sqrt=False,
                         chunk_size=None, mesh=None):
     """Filter + smoother; both results carry covariance Ps."""
-    _check_supported(parallel, sqrt, mesh)
+    _check_supported(mesh)
     T = Y.shape[0]
     pad = _pad_amount(T, chunk_size if parallel else None)
     if pad:
@@ -112,11 +117,13 @@ def run_filter_smoother(ssm, R, Y, *, parallel=False, sqrt=False,
     f_cov, (Q_sqrt, f_raw) = _run_filter_raw(
         ssm, R, Y, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size
     )
-    if sqrt:
+    if sqrt and parallel:
         # covariance Ps plus the factors Ls (Gram-form scan, one final Cholesky)
         s = parallel_sqrt_kalman.parallel_sqrt_rts_smoother(
             ssm.A, Q_sqrt, f_raw, chunk_size=chunk_size
         )
+    elif sqrt:
+        s = _square_s(sqrt_kalman.sqrt_rts_smoother(ssm.A, Q_sqrt, f_raw))
     elif parallel:
         s = parallel_kalman.parallel_rts_smoother(ssm.A, ssm.Q, f_raw, chunk_size=chunk_size)
     else:

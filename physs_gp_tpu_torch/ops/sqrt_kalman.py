@@ -1,7 +1,7 @@
-"""Square-root primitives (PyTorch): `tria` and `tria_sum`.
+"""Square-root Kalman filtering (PyTorch): `tria`, `tria_sum`, `psd_sqrt` and
+the sequential square-root filter and smoother.
 
-Counterpart of the parts of `physs_gp_tpu/ops/sqrt_kalman.py` that the
-parallel square-root filter and smoother use. Covariances are carried as
+Counterpart of `physs_gp_tpu/ops/sqrt_kalman.py`. Covariances are carried as
 lower-triangular factors; `tria(B)` is the L with L Lᵀ = B Bᵀ (canonical
 diag >= 0), `tria_sum(X, Y)` the L with L Lᵀ = X Xᵀ + Y Yᵀ (+ I).
 
@@ -12,18 +12,28 @@ both devices (the TPU package gates them to its TPU backend). Backward
 passes recompute through `torch.linalg.qr`, as the reference's custom VJPs
 recompute through XLA's QR: the TPU kernels have no backward kernel.
 
-The sequential square-root filter and smoother are not ported yet.
+`sqrt_kalman_filter` and `sqrt_rts_smoother` are Python loops over T: every
+step is one `tria` of a joint pre-array (the LQ kernel at batch 1) and
+PyTorch's own triangular solves. They share no schedule with the parallel
+square-root scans, which makes them those scans' oracle, as `ops/kalman` is
+the covariance scans'.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .cuda.batched_chol import batch_chol_gram
 from .cuda.batched_qr import batch_tria
 from .cuda.build import D_MAX
-from .matrix import unit_last
+from .gaussian import mask_covariance
+from .kalman import FilterResult, SmootherResult, observation_mask
+from .matrix import symmetrize, unit_last
 
-__all__ = ["tria", "tria_sum"]
+__all__ = ["tria", "tria_sum", "psd_sqrt", "sqrt_kalman_filter", "sqrt_rts_smoother"]
+
+_LOG2PI = math.log(2.0 * math.pi)
 
 
 def _floor(dtype) -> float:
@@ -153,3 +163,94 @@ def tria_sum(X, Y=None, plus_eye: bool = False):
     Xs = torch.where(is_zero, torch.eye(*X.shape[-2:], dtype=X.dtype, device=X.device), X)
     Ys = None if Y is None else torch.where(is_zero, 0.0, Y)
     return torch.where(is_zero, 0.0, _CholGramCore.apply(Xs, Ys, False))
+
+
+def psd_sqrt(A):
+    """Eigenvalue-clipped symmetric square root (exactly singular matrices,
+    such as Q(dt = 0) = 0, included)."""
+    w, V = torch.linalg.eigh(symmetrize(A))
+    return V * torch.sqrt(torch.clamp(w, min=0.0))[..., None, :]
+
+
+def _solve_tri(L, B, lower=True):
+    return torch.linalg.solve_triangular(L, B, upper=not lower)
+
+
+def _masked_parts(H, R, y, mask):
+    """Masked H rows, the masked noise (or noise factor) with a unit filler
+    on missing rows, and y with missing entries zeroed."""
+    Hm = mask[..., :, None] * H
+    Rm = mask_covariance(R, mask)
+    y0 = torch.where(mask > 0, torch.nan_to_num(y), 0.0)
+    return Hm, Rm, y0
+
+
+def _sqrt_update(m_pred, Up, Hm, Rm_sqrt, y0, mask):
+    """Square-root measurement update through one `tria`:
+    [[Hm Up, Rm^1/2], [Up, 0]] -> [[S^1/2, 0], [K S^1/2, U]]."""
+    d, p = m_pred.shape[-1], y0.shape[-1]
+    HU = Hm @ Up
+    pre = torch.cat([
+        torch.cat([HU, Rm_sqrt], -1),
+        torch.cat([Up, Up.new_zeros(d, p)], -1),
+    ], -2)
+    T = tria(pre)
+    S_sqrt, KS, U = T[:p, :p], T[p:, :p], T[p:, p:]
+    v = y0 - Hm @ m_pred
+    alpha = _solve_tri(S_sqrt, v[:, None])[:, 0]
+    m = m_pred + KS @ alpha
+    logdet = 2.0 * torch.sum(torch.log(torch.abs(torch.diagonal(S_sqrt))))
+    lml = -0.5 * (torch.sum(alpha * alpha) + logdet + torch.sum(mask) * _LOG2PI)
+    return m, U, lml
+
+
+def sqrt_kalman_filter(A, Q_sqrt, H, R_sqrt, y, m0, P0_sqrt, mask=None) -> FilterResult:
+    """Sequential square-root filter.
+
+    A [T, d, d]; Q_sqrt [T, d, d]; H [p, d] or [T, p, d]; R_sqrt [T, p, p]
+    (a factor of R); y [T, p] (NaN = missing). The Ps of the result are
+    lower-triangular factors of the filtered covariances.
+    """
+    T = y.shape[0]
+    if mask is None:
+        mask = observation_mask(y, P0_sqrt.dtype)
+    m, U = m0, P0_sqrt
+    ms, Us, lmls = [], [], []
+    for k in range(T):
+        m_pred = A[k] @ m
+        Up = tria(torch.cat([A[k] @ U, Q_sqrt[k]], -1))
+        Hm, Rs_m, y0 = _masked_parts(H if H.dim() == 2 else H[k], R_sqrt[k], y[k], mask[k])
+        m, U, lml_k = _sqrt_update(m_pred, Up, Hm, Rs_m, y0, mask[k])
+        ms.append(m)
+        Us.append(U)
+        lmls.append(lml_k)
+    lmls = torch.stack(lmls)
+    return FilterResult(ms=torch.stack(ms), Ps=torch.stack(Us), lml=torch.sum(lmls), lmls=lmls)
+
+
+def sqrt_rts_smoother(A, Q_sqrt, filtered: FilterResult) -> SmootherResult:
+    """Sequential square-root RTS smoother on the factors of `filtered`; the
+    Ps of the result are factors of the smoothed covariances. Each step is
+    one `tria` of [[A U_f, Qs], [U_f, 0]] -> [[Pp^1/2, 0], [G Pp^1/2, Y22]]
+    and one of [Y22, G D_next]."""
+    ms, Us = filtered.ms, filtered.Ps
+    T, d = ms.shape
+    m_s, D = ms[-1], Us[-1]
+    out_m, out_D, out_G = [m_s], [D], [torch.zeros_like(D)]
+    for k in range(T - 2, -1, -1):
+        A_next, Qs_next, U_f = A[k + 1], Q_sqrt[k + 1], Us[k]
+        pre = torch.cat([
+            torch.cat([A_next @ U_f, Qs_next], -1),
+            torch.cat([U_f, U_f.new_zeros(d, d)], -1),
+        ], -2)
+        Tm = tria(pre)
+        Pp_sqrt, GP, Y22 = Tm[:d, :d], Tm[d:, :d], Tm[d:, d:]
+        # G Pp^1/2 = GP: the right solve through the transposed system
+        G = torch.linalg.solve_triangular(Pp_sqrt.T, GP.T, upper=True).T
+        m_s = ms[k] + G @ (m_s - A_next @ ms[k])
+        D = tria(torch.cat([Y22, G @ D], -1))
+        out_m.append(m_s)
+        out_D.append(D)
+        out_G.append(G)
+    return SmootherResult(ms=torch.stack(out_m[::-1]), Ps=torch.stack(out_D[::-1]),
+                          Gs=torch.stack(out_G[::-1]))

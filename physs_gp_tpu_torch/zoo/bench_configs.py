@@ -4,8 +4,14 @@
 `build_config5`: a T-step irregular time series with a 2-D
 advection-diffusion PDE prior over a 4x4 spatial grid (Matérn-3/2 ⊗ RBF,
 state dim 32), 16 grid observation heads and 16 PDE-residual collocation
-heads, CVI inference. The data come from the same `np.random.default_rng(0)`
-calls as the JAX builder, so both packages see identical inputs.
+heads, CVI inference.
+
+`build_temporal`: a T-step irregular count series over [0, 1000] (Matérn-3/2,
+state dim 2, Poisson likelihood under the log link), CVI inference; the
+README's quick start and the bench's second workload.
+
+The data come from the same `np.random.default_rng(0)` calls as the JAX
+builders, so both packages see identical inputs.
 """
 import numpy as np
 import torch
@@ -64,3 +70,23 @@ def build_config5(T, chunk, parallel=True, dtype=None, sqrt=False, device="cuda"
     return CVIGP.init(torch.as_tensor(t, **kw), torch.as_tensor(Y, **kw), kern, lik,
                       observation=obs, parallel=parallel, chunk_size=chunk,
                       sqrt=sqrt)
+
+
+def build_temporal(T, chunk, parallel=True, dtype=None, sqrt=False, device="cuda"):
+    """The temporal Poisson CVI model on `device` (the card unless the caller
+    asks for the CPU); `sqrt=True` runs the square-root filter and smoother."""
+    from ..kernels.matern import Matern32
+    from ..likelihoods.nongaussian import Poisson
+    from ..models.cvi_gp import CVIGP
+
+    dtype = dtype or torch.float32
+    kw = dict(dtype=dtype, device=device)
+    rng = np.random.default_rng(0)
+    t = np.sort(rng.uniform(0, 1000, T)).astype(np.float32)
+    f = 1.2 * np.sin(0.1 * t)
+    y = rng.poisson(np.exp(f)).astype(np.float32)
+    return CVIGP.init(
+        torch.as_tensor(t, **kw), torch.as_tensor(y, **kw)[:, None],
+        Matern32(lengthscale=10.0, variance=1.0, **kw), Poisson(),
+        parallel=parallel, chunk_size=chunk, sqrt=sqrt,
+    )

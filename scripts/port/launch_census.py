@@ -1,0 +1,91 @@
+"""Count the kernel-wrapper calls of one CVI step (and, optionally, one
+prediction) of the port by kernel and operand shape.
+
+    python3 scripts/port/launch_census.py [--model temporal|config5] [--sqrt]
+        [--T 100000] [--chunk 50000] [--blocks 1024] [--predict 1000]
+        [--device cpu|cuda] [--dtype float32|float64]
+
+Each call of a wrapper with a non-empty batch is one launch of its kernel
+on the card (on the CPU the wrapper runs the kernel's plain version), so
+the counts are what `ops.cuda.launch_counts()` reads on the card, split by
+shape. The shapes say where a kernel's launches run: at a scan's batch (the
+number of blocks, or twice it for the stacked square-root pre-arrays) or at
+a chunk's or the series' full width. Defaults: the temporal model at the
+bench's settings (T = 100 000, chunk 50 000, 1024 blocks) on the CPU.
+"""
+import argparse
+import collections
+import os
+import sys
+
+import torch
+
+
+def census(args):
+    from physs_gp_tpu_torch.ops import sqrt_kalman
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.trainers.scan import natgrad_scan
+    from physs_gp_tpu_torch.zoo import bench_configs
+
+    calls = collections.Counter()
+
+    def spy(module, attr, name, shape):
+        wrapped = getattr(module, attr)
+
+        def call(*a, **k):
+            calls[name, shape(*a, **k)] += 1
+            return wrapped(*a, **k)
+
+        setattr(module, attr, call)
+
+    def dims(x):
+        return "x".join(str(n) for n in x.shape)
+
+    spy(bl, "batch_bmm", "bmm", lambda A, B, ta=False, tb=False:
+        f"[{dims(A)}]{'^T' if ta else ''} @ [{dims(B)}]{'^T' if tb else ''}")
+    spy(bl, "batch_solve", "gj_solve", lambda M, R: f"[{dims(M)}] r={R.shape[-1]}")
+    spy(bl, "batch_solve_logdet", "gj_solve_logdet", lambda M, R: f"[{dims(M)}] r={R.shape[-1]}")
+    spy(bc, "batch_cholesky", "chol", lambda A, eps_rel=None: f"[{dims(A)}]")
+    spy(sqrt_kalman, "batch_tria", "lq", lambda B: f"[{dims(B)}]")
+    spy(sqrt_kalman, "batch_chol_gram", "chol_gram", lambda X, Y=None, plus_eye=False:
+        f"[{dims(X)}] + [{'-' if Y is None else dims(Y)}] plus_eye={int(plus_eye)}")
+
+    os.environ["PHYSS_SCAN_BLOCKS"] = str(args.blocks)
+    build = getattr(bench_configs, f"build_{args.model}")
+    dtype = getattr(torch, args.dtype)
+    model = build(args.T, args.chunk, dtype=dtype, sqrt=args.sqrt, device=args.device)
+    natgrad_scan(model, 0.5, n_steps=1)
+    out = {"step": dict(calls)}
+    if args.predict:
+        calls.clear()
+        hi = float(model.t.max())
+        t_new = torch.linspace(0.0, hi, args.predict, dtype=dtype, device=args.device)
+        model.predict_f(t_new)
+        out["predict_f"] = dict(calls)
+    return out
+
+
+def main():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", default="temporal", choices=["temporal", "config5"])
+    p.add_argument("--sqrt", action="store_true")
+    p.add_argument("--T", type=int, default=100_000)
+    p.add_argument("--chunk", type=int, default=50_000)
+    p.add_argument("--blocks", type=int, default=1024)
+    p.add_argument("--predict", type=int, default=0)
+    p.add_argument("--device", default="cpu")
+    p.add_argument("--dtype", default="float32")
+    args = p.parse_args()
+    sys.path.insert(0, os.getcwd())
+    form = "square-root" if args.sqrt else "covariance"
+    print(f"{args.model} {form} T={args.T} chunk={args.chunk} blocks={args.blocks} "
+          f"{args.dtype} on {args.device}")
+    for part, calls in census(args).items():
+        print(f"{part}: {sum(calls.values())} calls")
+        for (name, shape), n in sorted(calls.items(), key=lambda kv: (kv[0][0], -kv[1])):
+            print(f"  {name:16s} {n:6d}  {shape}")
+
+
+if __name__ == "__main__":
+    main()

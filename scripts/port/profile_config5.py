@@ -1,17 +1,22 @@
-"""Profile one config-5 CVI step of the PyTorch port on a CUDA card.
+"""Profile one config-5 or temporal CVI step of the PyTorch port on a CUDA card.
 
-    python3 scripts/port/profile_config5.py [--sqrt | --fused] [T] [chunk]
+    python3 scripts/port/profile_config5.py [--temporal] [--sqrt | --fused] [T] [chunk]
 
 Builds `build_config5(T, chunk, float32)` (default T = 100 000, chunk
-25 000, as the benchmark runs it; `--sqrt` for the square-root form,
-`--fused` for the covariance form with `PHYSS_FUSED_COMBINE=1`), takes
-one warm-up step, then traces one step with `torch.profiler`. Prints the
-card, the step's wall time, the device-busy share (summed kernel time over
-wall time), the launches of each hand-written kernel in the step, the
-kernels that take the most device time, every hand-written kernel of the
-port with its device time and calls, and the profiler's table by device
-time.
+25 000, as the benchmark runs it) or, with `--temporal`,
+`build_temporal(T, chunk, float32)` (default T = 100 000, chunk 50 000 and
+PHYSS_SCAN_BLOCKS=1024, as `bench.py` runs the JAX package's);
+`--sqrt` for the square-root form, `--fused` for the covariance form with
+`PHYSS_FUSED_COMBINE=1`. It takes one warm-up step, then traces one step
+with `torch.profiler`. Prints the card, the step's wall time and peak
+memory, the device-busy share (summed kernel time over wall time), the
+device time of the port's hand-written kernels against PyTorch's own, the
+launches of each hand-written kernel in the step (and, for the temporal
+model, the calls of the d = 2 flat combines), the kernels that take the
+most device time, every hand-written kernel of the port with its device
+time and calls, and the profiler's table by device time.
 """
+import collections
 import os
 import re
 import subprocess
@@ -19,6 +24,8 @@ import sys
 import time
 
 import torch
+
+_PORT_KERNEL = re.compile(r"void \(anonymous namespace\)::(\w+_kernel<[^(]*>)\(")
 
 
 def main():
@@ -28,26 +35,40 @@ def main():
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     sys.path.insert(0, repo)
     from physs_gp_tpu_torch.ops import cuda as kernels
+    from physs_gp_tpu_torch.ops import parallel_kalman as pk
     from physs_gp_tpu_torch.trainers.scan import natgrad_scan
-    from physs_gp_tpu_torch.zoo.bench_configs import build_config5
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
 
     args = sys.argv[1:]
-    sqrt, fused = "--sqrt" in args, "--fused" in args
-    args = [a for a in args if a not in ("--sqrt", "--fused")]
+    temporal, sqrt, fused = "--temporal" in args, "--sqrt" in args, "--fused" in args
+    args = [a for a in args if a not in ("--temporal", "--sqrt", "--fused")]
     if fused:
         os.environ["PHYSS_FUSED_COMBINE"] = "1"
+    if temporal:
+        os.environ.setdefault("PHYSS_SCAN_BLOCKS", "1024")
     T = int(args[0]) if args else 100_000
-    chunk = int(args[1]) if len(args) > 1 else 25_000
+    chunk = int(args[1]) if len(args) > 1 else (50_000 if temporal else 25_000)
+    flat = collections.Counter()
+    for name in ("_flat2_filtering_operator", "_flat2_filtering_final",
+                 "_flat2_smoothing_operator", "_flat2_smoothing_final"):
+        def counted(*a, _name=name, _fn=getattr(pk, name)):
+            flat[_name] += 1
+            return _fn(*a)
+
+        setattr(pk, name, counted)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"[profile] {smi}")
     os.environ.setdefault("PHYSS_KZZ_JITTER", "1e-4")
-    model = build_config5(T, chunk, dtype=torch.float32, sqrt=sqrt)
+    build = build_temporal if temporal else build_config5
+    model = build(T, chunk, dtype=torch.float32, sqrt=sqrt)
     natgrad_scan(model, 0.5, n_steps=1, nan_guard=False)  # warm-up (builds kernels)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    flat.clear()
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -55,24 +76,33 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     events = prof.key_averages()
     # kernels only: autograd-Function ranges repeat their kernels' time
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
+    ours = [e for e in kernels if _PORT_KERNEL.match(e.key)]
+    ours_us = sum(e.self_device_time_total for e in ours)
     form = "square-root" if sqrt else "covariance, fused combines" if fused else "covariance"
-    print(f"[profile] {form} T={T} chunk={chunk} f32 step wall {wall * 1e3:.1f} ms, "
-          f"device busy {dev_us / 1e3:.1f} ms ({100 * dev_us / 1e3 / (wall * 1e3):.1f}% of wall)")
+    name = "temporal" if temporal else "config-5"
+    print(f"[profile] {name} {form} T={T} chunk={chunk} blocks "
+          f"{os.environ.get('PHYSS_SCAN_BLOCKS', '256')} f32 step wall {wall * 1e3:.1f} ms, "
+          f"peak {peak:.2f} GiB, device busy {dev_us / 1e3:.1f} ms "
+          f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}% of wall)")
+    print(f"[profile] device time: hand-written kernels {ours_us / 1e3:.2f} ms in "
+          f"{sum(e.count for e in ours)} launches, PyTorch's own "
+          f"{(dev_us - ours_us) / 1e3:.2f} ms in {sum(e.count for e in kernels if e not in ours)} launches")
     print(f"[profile] launches in the step: {counts}")
+    if temporal:
+        print(f"[profile] flat d = 2 combines called in the step: {dict(flat)}")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     for e in top:
         if e.self_device_time_total <= 0:
             break
         print(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms  {e.count:7d} calls  {e.key[:90]}")
-    for e in sorted(kernels, key=lambda e: e.key):
-        ours = re.match(r"void \(anonymous namespace\)::(\w+_kernel<[^(]*>)\(", e.key)
-        if ours:
-            print(f"[profile] port kernel {e.self_device_time_total / 1e3:9.2f} ms  "
-                  f"{e.count:7d} calls  {ours.group(1)}")
+    for e in sorted(ours, key=lambda e: e.key):
+        print(f"[profile] port kernel {e.self_device_time_total / 1e3:9.2f} ms  "
+              f"{e.count:7d} calls  {_PORT_KERNEL.match(e.key).group(1)}")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
     return 0
 

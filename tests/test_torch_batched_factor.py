@@ -414,3 +414,75 @@ def test_cuda_lq_layouts_and_ragged_batches(cuda, dtype, N, d, m):
     torch.cuda.synchronize()
     route = "warp" if d <= 32 and m <= 64 else "block"
     assert kernels.route_counts("lq")["lq"][route] == len(views)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N", [1, 255, 257, 100_000])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_cuda_small_d_factors_match_plain(cuda, dtype, N, d):
+    """The temporal model's factors: the LQ at d = 1, 2 with m = d .. 6
+    columns ([H U, R^1/2] is [1, 3], the combine's stacked [G, I] [2, 4])
+    and at d = 3 (the sequential square-root filter's update pre-array
+    [[H Up, R^1/2], [Up, 0]] is [3, 3]), the Cholesky and the Gram +
+    Cholesky at d = 1, 2 with all-zero and rank-deficient members (floored
+    pivots), on contiguous, unaligned and stride-0 operands; all on the
+    warp kernels."""
+    rng = np.random.default_rng(N + d)
+    tol = _CARD_TOL[dtype]
+    kernels.reset_launch_counts()
+
+    def views(x):
+        shifted = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda)
+        shifted[1:] = x.reshape(-1)
+        return {"contiguous": x, "shifted": shifted[1:].view(x.shape),
+                "stride-0 batch": x[x.shape[0] - 1:].expand(x.shape)}
+
+    rank = max(1, d - 1)
+    n_lq = 0
+    for m in range(d, 7):
+        x = _t(_factors(rng, N, d, m, rank) if N > 1 else rng.normal(size=(N, d, m))).to(cuda, dtype)
+        for label, B in views(x).items():
+            L, Lp = bq.batch_tria(B), bq.tria_plain(B)
+            assert torch.isfinite(L).all() and (torch.triu(L, 1) == 0).all(), (m, label)
+            assert (torch.diagonal(L, dim1=-2, dim2=-1) >= 0).all()
+            if label == "contiguous" and N > 1:
+                assert (L[0] == 0).all()
+            _close_gram(L, Lp @ Lp.transpose(-1, -2), tol)
+            assert float((L - Lp).abs().max() / Lp.abs().max()) <= 100 * tol, (m, label)
+            n_lq += 1
+    if d > 2:
+        torch.cuda.synchronize()
+        assert kernels.route_counts("lq")["lq"] == {"warp": n_lq, "block": 0}
+        return
+    X = _t(_factors(rng, N, d, d + 1, rank) if N > 1 else rng.normal(size=(N, d, d + 1))).to(cuda, dtype)
+    A = X @ X.transpose(-1, -2)
+    if N > 2:
+        A[2:] += 0.1 * torch.eye(d, dtype=dtype, device=cuda)
+    keep = torch.ones(N, dtype=torch.bool, device=cuda)
+    keep[: min(N, 2)] = N < 2  # the zero and the rank-deficient members: floored pivots
+    for label, P in views(A).items():
+        L, Lp = bc.batch_cholesky(P), bc.cholesky_plain(P)
+        assert torch.isfinite(L).all() and (torch.triu(L, 1) == 0).all(), label
+        k = keep if label != "stride-0 batch" else torch.ones_like(keep)
+        assert float((L[k] - Lp[k]).abs().max() / Lp[k].abs().max()) <= 100 * tol, label
+        _close_gram(L, Lp @ Lp.transpose(-1, -2), 1e-2 if dtype == torch.float32 else tol)
+    n_gram = 0
+    for mx in (1, 2):
+        for my in (0, 1, 2):
+            Xg = _t(_factors(rng, N, d, mx, 1) if N > 1 else rng.normal(size=(N, d, mx))).to(cuda, dtype)
+            Y = _t(rng.normal(size=(N, d, my))).to(cuda, dtype) if my else None
+            if Y is not None and N > 1:
+                Y[:2] = 0.0
+            for plus_eye in (False, True):
+                for label, Xv in views(Xg).items():
+                    L, Lp = bc.batch_chol_gram(Xv, Y, plus_eye), bc.chol_gram_plain(Xv, Y, plus_eye)
+                    assert torch.isfinite(L).all() and (torch.triu(L, 1) == 0).all()
+                    _close_gram(L, Lp @ Lp.transpose(-1, -2),
+                                tol if plus_eye or dtype == torch.float64 else 1e-2)
+                    n_gram += 1
+    torch.cuda.synchronize()
+    routes = kernels.route_counts("lq", "chol", "chol_gram")
+    assert routes["lq"] == {"warp": n_lq, "block": 0}
+    assert routes["chol"] == {"warp": 3, "block": 0}
+    assert routes["chol_gram"] == {"warp": n_gram, "block": 0}

@@ -423,3 +423,62 @@ def test_cuda_gj_shapes_and_layouts(cuda, dtype, N, d, r, rhs):
     torch.cuda.synchronize()
     route = "warp" if d <= 32 else "block"
     assert build.route_counts("gj_solve")["gj_solve"][route] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N", [1, 255, 257, 100_000])
+def test_cuda_small_d_bmm_matches_plain(cuda, dtype, N):
+    """The temporal model's products: every (m, n, k) in {1, 2}^3 (the
+    state d = 1 or 2, one observation head) in all four transpose cases, on
+    contiguous, unaligned, odd-strided and stride-0 operands, at the full
+    width of a series and around a block."""
+    rng = np.random.default_rng(N)
+    tol = _CARD_TOL[dtype][0]
+    build.reset_launch_counts()
+    launches = 0
+    for m in (1, 2):
+        for n in (1, 2):
+            for k in (1, 2):
+                for ta in (False, True):
+                    for tb in (False, True):
+                        As = _operand_layouts(rng, N, *((k, m) if ta else (m, k)), dtype, cuda)
+                        Bs = _operand_layouts(rng, N, *((n, k) if tb else (k, n)), dtype, cuda)
+                        for la, lb in [("contiguous", "contiguous"), ("shifted", "odd row stride"),
+                                       ("stride-0 batch", "contiguous")]:
+                            A, B = As[la], Bs[lb]
+                            out = bl.batch_bmm(A, B, ta, tb)
+                            assert out.shape == (N, m, n) and out.is_contiguous()
+                            _close(out, bl.bmm_plain(A, B, ta, tb), tol)
+                            launches += 1
+    torch.cuda.synchronize()
+    assert bl.launch_counts()["bmm"] == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("N", [1, 255, 257, 100_000])
+@pytest.mark.parametrize("d", [1, 2])
+def test_cuda_small_d_solves_match_plain(cuda, dtype, N, d):
+    """The temporal model's solves: d = 1 (the sites, the innovation
+    covariance) and d = 2 (the square-root combine), with r = 1, 2, 4, 5, 6
+    right-hand sides, on SPD and identity-dominated systems and, from N = 3
+    on, all-zero, identity and singular members; both on the warp kernel."""
+    rng = np.random.default_rng(N + d)
+    tol = _CARD_TOL[dtype][1]
+    build.reset_launch_counts()
+    for r in (1, 2, 4, 5, 6):
+        for M in (_solve_members(rng, N, d, dtype, cuda), _t(_icj(rng, N, d)).to(cuda, dtype)):
+            R = _operand_layouts(rng, N, d, r, dtype, cuda)
+            for layout in ("contiguous", "shifted"):
+                _close_solve(bl.batch_solve(M, R[layout]), bl.gj_solve_plain(M, R[layout]), tol)
+            X, ld = bl.batch_solve_logdet(M, R["odd row stride"])
+            Xp, ldp = bl.gj_solve_logdet_plain(M, R["odd row stride"])
+            _close_solve(X, Xp, tol)
+            fin = torch.isfinite(ldp)
+            assert torch.equal(torch.isfinite(ld), fin)
+            assert torch.allclose(ld[fin], ldp[fin], rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    routes = build.route_counts("gj_solve", "gj_solve_logdet")
+    assert routes["gj_solve"] == {"warp": 20, "block": 0}
+    assert routes["gj_solve_logdet"] == {"warp": 10, "block": 0}

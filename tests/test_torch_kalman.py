@@ -250,8 +250,14 @@ def test_runner_takes_the_sequential_covariance_path():
     assert torch.equal(f.ms, rf.ms) and torch.equal(s.Ps, rs.Ps) and f.Pp is None
     f1, _ = runner.run_filter(ssm, R, y, parallel=False)
     assert torch.equal(f1.lml, rf.lml)
-    with pytest.raises(NotImplementedError):
-        runner.run_filter_smoother(ssm, R, y, parallel=False, sqrt=True)
+    # the sequential square-root pass (first 32 steps) agrees with it
+    n = 32
+    short = LGSSM(A=A[:n], Q=Q[:n], H=H, m0=m0, P0=P0)
+    fq, sq = runner.run_filter_smoother(short, R[:n], y[:n], parallel=False, sqrt=True)
+    rf, rs = tk.filter_smoother(A[:n], Q[:n], H, R[:n], y[:n], m0, P0)
+    assert sq.Ls is not None
+    for a, b in [(fq.ms, rf.ms), (fq.Ps, rf.Ps), (fq.lml, rf.lml), (sq.ms, rs.ms), (sq.Ps, rs.Ps)]:
+        _close(a, b, 1e-9, 1e-10)
 
 
 # ---------------------------------------------------------------------------

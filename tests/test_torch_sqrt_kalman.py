@@ -164,8 +164,8 @@ def test_chunked_sqrt_filter_and_smoother(blocked_env):
 
 
 def test_runner_takes_the_sqrt_path():
-    """run_filter_smoother(sqrt=True, parallel=True) runs; the sequential
-    filters still raise."""
+    """run_filter_smoother(sqrt=True) runs in parallel and in sequence, and
+    the two agree (the sequential pass also ships the factors Ls)."""
     from physs_gp_tpu_torch.ops.lgssm import LGSSM
 
     A, Qs, H, Rs, y, m0, P0s = (_t(x) for x in _sqrt_lgssm(1))
@@ -175,5 +175,8 @@ def test_runner_takes_the_sqrt_path():
     assert f.Pp is None and s.Ls is not None
     assert torch.isfinite(s.Ps).all() and torch.isfinite(f.lml)
     _close(s.Ls @ s.Ls.mT, s.Ps, 1e-9, 1e-12)
-    with pytest.raises(NotImplementedError):
-        runner.run_filter_smoother(ssm, R, y[:64], parallel=False, sqrt=True)
+    fq, sq = runner.run_filter_smoother(ssm, R, y[:64], parallel=False, sqrt=True)
+    assert fq.Pp is None and sq.Ls is not None
+    for a, b in [(fq.ms, f.ms), (fq.Ps, f.Ps), (fq.lml, f.lml), (sq.ms, s.ms), (sq.Ps, s.Ps),
+                 (sq.Ls @ sq.Ls.mT, s.Ps)]:
+        _close(a, b.detach().numpy(), 1e-9, 1e-10)

@@ -1,7 +1,7 @@
 """Drive the PyTorch port on one CUDA card: the config-5 CVI step in
 covariance form (unfused and with the fused combines) and in square-root
-form, the temporal Poisson CVI fit in both forms, and prediction at new
-times on both models.
+form, the temporal Poisson CVI fit in both forms, prediction at new times
+on both models, and hyperparameter training on both.
 
     python3 chip_smoke.py
 
@@ -34,6 +34,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      device time back to back, and every kernel the temporal model launches
      at its shapes there (the square-root scan's [1024] and [2048], the
      chunk's 50 000 and the series' 100 000);
+  3b. backward: the backward of every kernel wrapper on the training path
+     (`bmm` with every (ta, tb), `psd_solve`, `psd_solve_logdet`,
+     `gen_solve`, `_cholesky_any(assume_psd=True)`, `tria`, `tria_sum`,
+     both fused combines) at the scans' batches and at full width, with
+     contiguous, expanded and transposed cotangents, against the same call
+     on CPU copies; then the kernel calls only the backward makes, timed;
   4. anchors against the JAX reference, float64, T = 256, 3 steps: the
      covariance slice, unfused and with PHYSS_FUSED_COMBINE=1, against
      tests/data/config5_T256_golden.npz and the square-root slice against
@@ -43,7 +49,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      its predict_f, predict_y and nlpd at 50 new times, against
      tests/data/temporal_T256_golden.npz and predict_T256_golden.npz; the
      temporal covariance slice again with the knob, which must launch no
-     fused combine and give the same ELBOs bit for bit;
+     fused combine and give the same ELBOs bit for bit; the training
+     anchors against tests/data/train_T256_golden.npz (config-5 covariance,
+     also with the knob, and square-root; the temporal model in both
+     forms): after 2 natgrad_scan steps the objective and its gradient,
+     then 3 vb_ng_adam_scan iterations;
   5. oracles, float64: the config-5 fused scans at T = 2048 against the
      port's sequential Kalman filter and RTS smoother; the temporal model
      at T = 2048, its flat d = 2 scans against the sequential covariance
@@ -60,7 +70,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      float32 path and read just after, with the route each solve, LQ,
      Cholesky and fused launch took (a warp per matrix, or four warps per
      fused pair, for d <= 32; a block above): on every path each launch
-     takes the warp or tiled kernels.
+     takes the warp or tiled kernels;
+  7. full-width training: 3 vb_ng_adam_scan iterations of config-5 (float32
+     in covariance, fused and square-root form, float64 in covariance form)
+     and 3 VB_NG_Adam iterations of the temporal model (both forms and
+     types), each iteration split into its natural-gradient half and its
+     Adam half's forward, backward and update, with peak memory and the
+     forward's and the backward's launches per kernel and route; the
+     float32 gradient at each float64 run's state against the float64 one.
 The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -1249,6 +1266,466 @@ def phase_slice_full():
              "config5 cov predict f32": cov_predict[1], "config5 sqrt predict f32": sqrt_predict[1]})
 
 
+def _ct(gen, out, layout):
+    """A cotangent for `out` as autograd may hand it over: contiguous,
+    expanded (every stride 0, as `out.sum()` gives) or a transposed view."""
+    if layout == "expanded":
+        return _randn(gen, 1).to(out.dtype).reshape([1] * out.dim()).expand(out.shape)
+    if layout == "transposed" and out.dim() >= 2:
+        return _randn(gen, *out.shape[:-2], out.shape[-1], out.shape[-2]).to(out.dtype).mT
+    return _randn(gen, *out.shape).to(out.dtype)
+
+
+def phase_backward():
+    """The backward of every kernel wrapper on the training path, on the
+    card against the same call on CPU copies (which take the plain
+    versions), float64 then float32 at the TOL table's values: `bmm` with
+    every (ta, tb), `psd_solve`, `psd_solve_logdet` (the solve on [ct | I],
+    r + d columns), `gen_solve` (the solve on Aᵀ), `_cholesky_any(...,
+    assume_psd=True)`, `tria`, `tria_sum` and both fused combines, at the
+    scans' batches ([256], [512]; [1024], [2048] at d = 2) and at full
+    width, with cotangents contiguous, expanded (stride 0) and transposed.
+    Every kernel must launch in these checks, none on a block route.
+    Returns `_time_backward`'s rows."""
+    from physs_gp_tpu_torch.ops import matrix as mx
+    from physs_gp_tpu_torch.ops import parallel_kalman as pk
+    from physs_gp_tpu_torch.ops import sqrt_kalman as sk
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    layouts = ("contiguous", "expanded", "transposed")
+    launched = {}
+
+    def grads(fn, xs, cts_of):
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        outs = fn(*xs)
+        outs = tuple(outs) if isinstance(outs, (tuple, list)) else (outs,)
+        cts = cts_of(outs)
+        return torch.autograd.grad(outs, xs, cts), cts
+
+    def check_grad(name, kind, fn, xs, dtype, label, layout):
+        build.reset_launch_counts()
+        g, cts = grads(fn, xs, lambda outs: [_ct(gen, o, layout) for o in outs])
+        torch.cuda.synchronize()
+        for k, v in build.launch_counts().items():
+            launched[k] = launched.get(k, 0) + v
+        routes = build.route_counts()
+        if any(r["block"] for r in routes.values()):
+            raise AssertionError(f"backward {name} {label}: a block kernel ran: {routes}")
+        gp, _ = grads(fn, [x.cpu() for x in xs], lambda outs: [c.cpu() for c in cts])
+        for i, (a, b) in enumerate(zip(g, gp)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"backward {name} {label}: non-finite gradient")
+            rel, ab = _rel(a.cpu(), b)
+            ok = rel <= TOL[dtype][kind]
+            print(f"[backward] {name} {label} ct {layout} d(input {i}) {str(dtype)[6:]}: max_abs_err "
+                  f"{ab:.3e} rel {rel:.3e} (tol {TOL[dtype][kind]:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"backward {name} {label}: the gradient disagrees with the plain version")
+
+    for dtype in (torch.float64, torch.float32):
+        def r(*shape):
+            return _randn(gen, *shape).to(dtype)
+
+        # products: every (ta, tb) at the scans' batches and full width
+        for N, d in ((N_SCAN, D), (2 * N_SCAN, D), (N_MAIN, D), (1024, 2), (2048, 2), (N_TEMPORAL, 2)):
+            for ta, tb in itertools.product((False, True), repeat=2):
+                A, B = r(N, d, d), r(N, d, d)
+                for layout in (layouts if N == N_SCAN else ("contiguous",)):
+                    check_grad("bmm", "bmm", lambda a, b: mx.bmm(a, b, ta, tb), [A, B], dtype,
+                               f"[{N},{d},{d}] ta={ta:d} tb={tb:d}", layout)
+        # solves: psd_solve, psd_solve_logdet (its backward solves [ct | I]),
+        # gen_solve (its backward solves on A^T)
+        for N, d, rr in ((N_SCAN, D, D), (N_SCAN, D, 1), (2 * N_SCAN, D, 2 * D), (N_MAIN, D, 1),
+                         (2048, 2, 2), (N_TEMPORAL, 1, 1)):
+            S, R = _spd(gen, N, d, dtype), r(N, d, rr)
+            M = _icj(gen, N, d, dtype)
+            for layout in (layouts if N == N_SCAN else ("contiguous",)):
+                label = f"[{N},{d},{d}] r={rr}"
+                check_grad("psd_solve", "solve", mx.psd_solve, [S, R], dtype, label, layout)
+                check_grad("psd_solve_logdet", "solve", mx.psd_solve_logdet, [S, R], dtype,
+                           f"{label} (backward r + d = {rr + d})", layout)
+                check_grad("gen_solve", "solve", mx.gen_solve, [M, R], dtype, f"{label} (backward on A^T)",
+                           layout)
+        # factorisations: the Cholesky (backward: the library Cholesky), the
+        # LQ and the Gram + Cholesky (backward: the library QR; tria_sum's
+        # recomputes through tria, whose forward is the LQ kernel)
+        for N, d in ((N_SCAN, D), (N_MAIN, D)):
+            A = _spd(gen, N, d, dtype)
+            for layout in (("contiguous", "expanded") if N == N_SCAN else ("contiguous",)):
+                check_grad("cholesky", "factor", lambda a: mx._cholesky_any(a, assume_psd=True), [A], dtype,
+                           f"[{N},{d},{d}]", layout)
+        for N, d, m in ((2 * N_SCAN, D, 2 * D), (N_SCAN, D, 2 * D), (N_MAIN, D, 2 * D), (2048, 2, 4),
+                        (1024, 2, 4)):
+            B = r(N, d, m)
+            for layout in (layouts if N == N_SCAN else ("contiguous",)):
+                check_grad("tria", "factor", sk.tria, [B], dtype, f"[{N},{d},{m}]", layout)
+        for N, d, plus_eye in ((N_SCAN, D, False), (N_SCAN, D, True), (N_MAIN, D, False), (1024, 2, False)):
+            # the path's sums X Xᵀ + Y Yᵀ, and X Xᵀ + I (whose backward's
+            # pre-array [X, I] stays on the warp LQ)
+            xs = [r(N, d, d)] + ([] if plus_eye else [r(N, d, d)])
+            for layout in (layouts if N == N_SCAN else ("contiguous",)):
+                check_grad("tria_sum", "factor", lambda x, y=None: sk.tria_sum(x, y, plus_eye), xs, dtype,
+                           f"[{N},{d},{d}]" + (" + I" if plus_eye else f" + [{N},{d},{d}]"), layout)
+        # the fused combines (backward: the unfused combine, bmm and gj_solve)
+        os.environ["PHYSS_FUSED_COMBINE"] = "1"
+        try:
+            for N in (N_SCAN // 2, N_SCAN, N_MAIN):
+                ei, ej = _filter_elems(gen, N, D, dtype), _filter_elems(gen, N, D, dtype, first=2)
+                sj, si = _smoother_elems(gen, N, D, dtype), _smoother_elems(gen, N, D, dtype, last=2)
+                for layout in (("contiguous", "expanded") if N == N_SCAN else ("contiguous",)):
+                    build.reset_launch_counts(*FUSED)
+                    check_grad("fused_filter", "fused",
+                               lambda *x: pk._filtering_operator(pk._FilterElems(*x[:5]), pk._FilterElems(*x[5:])),
+                               [*ei, *ej], dtype, f"[{N},{D},{D}]", layout)
+                    check_grad("fused_smooth", "fused",
+                               lambda *x: pk._smoothing_operator(pk._SmootherElems(*x[:3]), pk._SmootherElems(*x[3:])),
+                               [*sj, *si], dtype, f"[{N},{D},{D}]", layout)
+        finally:
+            del os.environ["PHYSS_FUSED_COMBINE"]
+    launched = {k: v for k, v in launched.items() if v}
+    print(f"[backward] launches of the checks above (forward and backward): {launched}")
+    for k in ("bmm", "gj_solve", "gj_solve_logdet", "lq", "chol", "chol_gram", *FUSED):
+        if not launched.get(k):
+            raise AssertionError(f"backward: the checks never launched {k}")
+    return _time_backward(gen)
+
+
+def _time_backward(gen):
+    """The kernel calls that only the backward makes, float32, device time
+    back to back beside the plain version, the library call and the bound:
+    `bmm` with (ta, tb) = (T, T) and (T, F) at [256, 32, 32]; the solve at
+    r + d (psd_solve_logdet's [ct | I] for the lml's innovations,
+    [100 000, 32, 32], r = 1 + 32; CUDA events around a run of calls) and
+    on Aᵀ (gen_solve's in the scans' combines, made contiguous,
+    [256, 32, 32], r = 32). Returns {kernel: [rows]}."""
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+
+    f32, n, d = torch.float32, N_SCAN, D
+    A, B = _randn(gen, n, d, d).to(f32), _randn(gen, n, d, d).to(f32)
+    nl = N_LML
+    S = _spd(gen, nl, d, f32)
+    ctI = torch.cat([_randn(gen, nl, d, 1).to(f32), torch.eye(d, device="cuda").expand(nl, d, d)], -1)
+    At = _icj(gen, n, d, f32).mT.contiguous()
+    Rt = _randn(gen, n, d, d).to(f32)
+    host = "as the host sends them"
+    timed = [
+        ("bmm", f"[{n},{d},{d}]^T @ [{n},{d},{d}]^T", lambda: bl.batch_bmm(A, B, True, True),
+         lambda: bl.bmm_plain(A, B, True, True), lambda: torch.matmul(A.mT, B.mT),
+         "torch.matmul, device time back to back", _time_device, _nbytes(A, B) + 4 * n * d * d, 2 * n * d ** 3),
+        ("bmm", f"[{n},{d},{d}]^T @ [{n},{d},{d}]", lambda: bl.batch_bmm(A, B, True, False),
+         lambda: bl.bmm_plain(A, B, True, False), lambda: torch.matmul(A.mT, B),
+         "torch.matmul, device time back to back", _time_device, _nbytes(A, B) + 4 * n * d * d, 2 * n * d ** 3),
+        ("gj_solve", f"[{nl},{d},{d}] r={d + 1} ([ct | I])", lambda: bl.batch_solve(S, ctI),
+         lambda: bl.gj_solve_plain(S, ctI), lambda: torch.linalg.solve(S, ctI), "torch.linalg.solve",
+         _time, _nbytes(S, ctI) + 4 * nl * d * (d + 1), nl * (2 * d ** 3 // 3 + 2 * d * d * (d + 1))),
+        ("gj_solve", f"[{n},{d},{d}] r={d} (A^T)", lambda: bl.batch_solve(At, Rt),
+         lambda: bl.gj_solve_plain(At, Rt), lambda: torch.linalg.solve(At, Rt), f"torch.linalg.solve, {host}",
+         _time, _nbytes(At, Rt) + 4 * n * d * d, n * (2 * d ** 3 // 3 + 2 * d ** 3)),
+    ]
+    out = {}
+    for name, shape, kern, plain, lib, lib_label, lib_clock, nbytes, flops in timed:
+        kern(), plain(), lib()
+        torch.cuda.synchronize()
+        clock = _time if lib_clock is _time and not shape.startswith(f"[{n},") else _time_device
+        p1, k1, l1 = _time(plain), clock(kern), lib_clock(lib)
+        l2, k2, p2 = lib_clock(lib), clock(kern), _time(plain)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        row = {"shape": shape, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": (l1 + l2) / 2,
+               "library": lib_label, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "timing": "events" if clock is _time else "device_back_to_back"}
+        out.setdefault(name, []).append(row)
+        print(f"[backward] time {name} {shape} f32: kernel {row['ms']:.4f} ms ({row['timing']}), "
+              f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms ({lib_label}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return out
+
+
+TRAIN_GOLDEN = os.path.join(REPO, "tests", "data", "train_T256_golden.npz")
+ADAM_LR, NG_LR = 0.05, 0.5
+
+
+def _jax_key(name):
+    """A parameter name as the JAX key path of the golden file."""
+    return "".join(f"[{p}]" if p.isdigit() else f".{p}" for p in name.split("."))
+
+
+def _rel_np(val, ref):
+    val = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+    ok = np.isfinite(ref)
+    if not np.array_equal(np.isfinite(val), ok):
+        return float("inf")
+    return float(np.max(np.abs(val[ok] - ref[ok])) / np.max(np.abs(ref[ok])))
+
+
+def phase_train_anchor(form, fused=False):
+    """The training anchor against tests/data/train_T256_golden.npz (made by
+    scripts/port/make_train_golden.py from the JAX package), float64,
+    T = 256, chunk 64, 8 blocks: 2 natgrad_scan steps at lr 0.5, then
+    get_objective() and its gradient with respect to every trainable raw
+    (rtol 1e-9), then 3 iterations of vb_ng_adam_scan(adam_lr=0.05,
+    ng_lr=0.5): ELBOs and raws at 1e-9, sites and posterior at 1e-7. `fused`
+    sets PHYSS_FUSED_COMBINE=1 (the covariance form, same numbers)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+    from physs_gp_tpu_torch.trainers import natgrad_scan, vb_ng_adam_scan
+    from physs_gp_tpu_torch.utils.training import trainable_parameters
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
+
+    tag = f"train anchor {form}" + (" fused" if fused else "")
+    env = {"PHYSS_SCAN_BLOCKS": "8", **({"PHYSS_FUSED_COMBINE": "1"} if fused else {})}
+    os.environ.update(env)
+    kernels.reset_launch_counts(*FUSED)
+    try:
+        build = build_temporal if form.startswith("t_") else build_config5
+        model = build(256, 64, dtype=torch.float64, sqrt=form.endswith("sqrt"))
+        model, _ = natgrad_scan(model, NG_LR, n_steps=2)
+        obj = model.get_objective()
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        grads = torch.autograd.grad(obj, trainable_parameters(model))
+        model, elbos = vb_ng_adam_scan(model, 3, adam_lr=ADAM_LR, ng_lr=NG_LR)
+        post = model.posterior()
+    finally:
+        for key in env:
+            del os.environ[key]
+    fused_launches = kernels.launch_counts(*FUSED)
+    if any((n > 0) != fused for n in fused_launches.values()):
+        raise AssertionError(f"{tag}: fused launches {fused_launches} with fused={fused}")
+    gold = np.load(TRAIN_GOLDEN)
+    worst = {"objective": _rel_np(obj, gold[f"{form}:objective"]),
+             "gradient": max(_rel_np(g, gold[f"{form}:grad:{_jax_key(n)}"]) for n, g in zip(names, grads)),
+             "elbos": _rel_np(elbos, gold[f"{form}:elbos"]),
+             "raws": max(_rel_np(p, gold[f"{form}:raw:{_jax_key(n)}"]) for n, p in model.named_parameters())}
+    if len(names) != sum(k.startswith(f"{form}:grad:") for k in gold.files):
+        raise AssertionError(f"{tag}: {len(names)} trainable raws, the golden file has others")
+    tight = dict(worst)
+    worst.update({"site_Y": _rel_np(model.sites.Y, gold[f"{form}:site_Y"]),
+                  "site_V_diag": _rel_np(torch.diagonal(model.sites.V, dim1=-2, dim2=-1),
+                                         gold[f"{form}:site_V_diag"]),
+                  "post_mean": _rel_np(post.mean, gold[f"{form}:post_mean"]),
+                  "post_var": _rel_np(post.var, gold[f"{form}:post_var"])})
+    print(f"[{tag}] objective {obj.item()!r}, {len(names)} trainable raws, ELBOs {elbos.tolist()}")
+    print(f"[{tag}] max rel: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + " (tol 1e-9 objective, gradient, ELBOs, raws; 1e-7 sites, posterior)")
+    if not (max(tight.values()) <= 1e-9 and max(worst.values()) <= 1e-7):
+        raise AssertionError(f"{tag}: the float64 training run disagrees with the JAX reference")
+
+
+class _TrainProbe:
+    """Instrument one training run through the entry point a user calls:
+    synchronise around the model's `natural_gradient_update` and
+    `get_objective` and around every optimiser step (PyTorch's global step
+    hooks), so each iteration splits into the natural-gradient half and the
+    Adam half's forward, backward and update, each with its wall time, its
+    launches per kernel and route, and the iteration's peak memory and
+    whether every gradient is finite."""
+
+    def __init__(self, model):
+        self.model, self.iters, self._hooks = model, [], []
+
+    def _close(self, nxt):
+        from physs_gp_tpu_torch.ops import cuda as kernels
+
+        torch.cuda.synchronize()
+        now, rec = time.perf_counter(), self.iters[-1]
+        rec["wall"][self._part] = now - self._t
+        rec["launches"][self._part] = kernels.launch_counts()
+        rec["routes"][self._part] = kernels.route_counts()
+        kernels.reset_launch_counts()
+        self._part, self._t = nxt, time.perf_counter()
+
+    def __enter__(self):
+        from torch.optim import optimizer
+
+        from physs_gp_tpu_torch.ops import cuda as kernels
+
+        model = self.model
+        ng, objective = model.natural_gradient_update, model.get_objective
+
+        def natural_gradient_update(*a, **k):
+            if not self.iters or "update" in self.iters[-1]["wall"]:  # a retry stays in its iteration
+                torch.cuda.synchronize()
+                self.iters.append({"wall": {}, "launches": {}, "routes": {}})
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                self._part, self._t = "ng", time.perf_counter()
+            return ng(*a, **k)
+
+        def get_objective(*a, **k):
+            self._close("forward")
+            loss = objective(*a, **k)
+            self._close("backward")
+            return loss
+
+        def pre_step(opt, args, kwargs):
+            self._close("update")
+            params = [p for group in opt.param_groups for p in group["params"]]
+            self.iters[-1]["grad_finite"] = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                                                for p in params)
+            self._t = time.perf_counter()
+
+        def post_step(opt, args, kwargs):
+            self._close(None)
+            self.iters[-1]["peak"] = torch.cuda.max_memory_allocated()
+            self.iters[-1]["kept"] = torch.cuda.memory_allocated()
+
+        model.natural_gradient_update, model.get_objective = natural_gradient_update, get_objective
+        self._hooks = [optimizer.register_optimizer_step_pre_hook(pre_step),
+                       optimizer.register_optimizer_step_post_hook(post_step)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._hooks:
+            h.remove()
+        del self.model.natural_gradient_update, self.model.get_objective
+
+    def total(self, part):
+        """Launches per kernel in `part` over all iterations."""
+        out = {}
+        for rec in self.iters:
+            for k, v in rec["launches"][part].items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def routes(self, part):
+        out = {}
+        for rec in self.iters:
+            for k, r in rec["routes"][part].items():
+                for route, v in r.items():
+                    out.setdefault(k, {}).setdefault(route, 0)
+                    out[k][route] += v
+        return out
+
+
+def _train_full(tag, temporal, sqrt, dtype, path_kernels, fused=False):
+    """3 iterations at full width through the entry point a user calls:
+    `vb_ng_adam_scan` on config-5 (T = 100 000, chunk 25 000), `VB_NG_Adam`
+    on the temporal model (T = 100 000, chunk 50 000; the caller sets 1024
+    blocks), adam_lr 0.05, ng_lr 0.5. Prints each iteration's parts, peak
+    memory, the forward's and the backward's launches per kernel and route;
+    fails unless the ELBOs and every gradient are finite, the peak does not
+    grow from iteration 2 to 3, every launch takes a warp or tiled kernel,
+    every kernel of the path launches in the forward and `bmm` and
+    `gj_solve` in the backward. Returns (model, {part: launches})."""
+    from physs_gp_tpu_torch.trainers import VB_NG_Adam, vb_ng_adam_scan
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
+
+    dt = str(dtype)[6:]
+    torch.cuda.empty_cache()
+    if temporal:
+        model = build_temporal(N_TEMPORAL, TEMPORAL_CHUNK, dtype=dtype, sqrt=sqrt)
+    else:
+        model = build_config5(100_000, 25_000, dtype=dtype, sqrt=sqrt)
+    torch.cuda.synchronize()
+    with _TrainProbe(model) as probe:
+        if temporal:
+            model, losses = VB_NG_Adam(model, adam_lr=ADAM_LR, ng_lr=NG_LR).train(model, 3)
+            elbos = -np.array(losses)
+        else:
+            model, elbos = vb_ng_adam_scan(model, 3, adam_lr=ADAM_LR, ng_lr=NG_LR)
+            elbos = elbos.cpu().numpy()
+    print(f"[{tag}] {dt} ELBOs {elbos.tolist()}")
+    for i, rec in enumerate(probe.iters):
+        w = rec["wall"]
+        print(f"[{tag}] {dt} iteration {i}: natural-gradient half {w['ng']:.4f} s, Adam half "
+              f"{w['forward'] + w['backward'] + w['update']:.4f} s (forward {w['forward']:.4f}, backward "
+              f"{w['backward']:.4f}, update {w['update']:.4f}), peak {rec['peak']} B "
+              f"({rec['peak'] / 2**30:.2f} GiB), kept after it {rec['kept']} B, "
+              f"gradient finite {rec['grad_finite']}")
+    parts = {part: probe.total(part) for part in ("ng", "forward", "backward", "update")}
+    routes = {part: probe.routes(part) for part in parts}
+    for part in ("forward", "backward"):
+        print(f"[{tag}] {dt} {part} launches (3 iterations): {parts[part]}; by route: {routes[part]}")
+    if len(probe.iters) != 3 or not all(rec["grad_finite"] for rec in probe.iters) \
+            or not np.all(np.isfinite(elbos)):
+        raise AssertionError(f"{tag} {dt}: non-finite ELBO or gradient")
+    # A graph or a site kept across iterations would add a step's saved
+    # tensors (GiB) to the peak and to what an iteration leaves allocated.
+    # The caching allocator does not split a cached large block whose
+    # remainder would be 1 MiB or less and counts it whole, so the same work
+    # reads a few MiB apart from one iteration to the next: 0.1 % is the
+    # bound for "does not grow".
+    for key in ("peak", "kept"):
+        a, b = probe.iters[1][key], probe.iters[2][key]
+        if b > a * 1.001:
+            raise AssertionError(f"{tag} {dt}: {key} memory grew from iteration 2 to 3: {a} -> {b} B")
+    if any(r.get("block") for part in routes.values() for r in part.values()):
+        raise AssertionError(f"{tag} {dt}: a block-per-matrix kernel ran: {routes}")
+    if not all(parts["forward"].get(k) for k in path_kernels):
+        raise AssertionError(f"{tag} {dt}: a kernel of the path never launched in the forward")
+    if not (parts["backward"].get("bmm") and parts["backward"].get("gj_solve")):
+        raise AssertionError(f"{tag} {dt}: the backward launched no bmm or no gj_solve")
+    if any(v for part in parts.values() for k, v in part.items() if k in FUSED and not fused):
+        raise AssertionError(f"{tag} {dt}: a fused combine ran with its knob unset")
+    return model, parts
+
+
+def _grad_gap(tag, model64, build):
+    """The float32 gradient at the float64 model's parameters and sites,
+    cast to float32, against the float64 gradient: normwise relative gap
+    over every trainable raw, bound 1e-2."""
+    from physs_gp_tpu_torch.utils.training import trainable_parameters
+
+    def flat_grad(model):
+        g = torch.autograd.grad(model.get_objective(), trainable_parameters(model))
+        return torch.cat([x.reshape(-1) for x in g]).double()
+
+    g64 = flat_grad(model64)
+    model32 = build(torch.float32)
+    model32.load_state_dict(model64.state_dict())
+    g32 = flat_grad(model32)
+    gap = float((g32 - g64).abs().max() / g64.abs().max())
+    print(f"[{tag}] float32 vs float64 gradient at the float64 state: normwise rel gap {gap:.3e} (bound 1e-2); "
+          f"per raw {((g32 - g64).abs() / g64.abs()).cpu().numpy().round(5).tolist()}")
+    if not gap <= 1e-2:
+        raise AssertionError(f"{tag}: the float32 gradient misses the float64 one")
+
+
+def phase_train_full():
+    """Full-width training: config-5 float32 in covariance, covariance with
+    PHYSS_FUSED_COMBINE=1 and square-root form, and float64 in covariance
+    form (square-root float64 is not run: its saved tensors would not fit),
+    3 iterations of vb_ng_adam_scan each; the temporal model in both forms
+    and types, 3 iterations of VB_NG_Adam each. After each float64 run
+    (config-5 covariance, temporal both forms) the float32 gradient at its
+    state is held to the float64 one. Returns {path: launches per kernel}."""
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
+
+    cov = ("bmm", "gj_solve", "gj_solve_logdet")
+    sqrt_kernels = tuple(k for k in SOURCES if k not in FUSED)
+    paths = {}
+    os.environ["PHYSS_KZZ_JITTER"] = "1e-4"
+    for form, sqrt, fused, kern in (("cov", False, False, cov), ("cov fused", False, True, cov + FUSED),
+                                    ("sqrt", True, False, sqrt_kernels)):
+        if fused:
+            os.environ["PHYSS_FUSED_COMBINE"] = "1"
+        try:
+            model, parts = _train_full(f"train {form}", False, sqrt, torch.float32, kern, fused)
+        finally:
+            os.environ.pop("PHYSS_FUSED_COMBINE", None)
+        del model
+        for part in ("forward", "backward"):
+            paths[f"train {form} f32 {part}"] = parts[part]
+    model, _ = _train_full("train cov", False, False, torch.float64, cov)
+    _grad_gap("train cov", model, lambda dt: build_config5(100_000, 25_000, dtype=dt))
+    del model
+    os.environ["PHYSS_SCAN_BLOCKS"] = str(TEMPORAL_BLOCKS)
+    try:
+        for form, sqrt in (("cov", False), ("sqrt", True)):
+            kern = ("bmm", "gj_solve", "gj_solve_logdet") + (("lq", "chol_gram") if sqrt else ())
+            model, parts = _train_full(f"train temporal {form}", True, sqrt, torch.float32, kern)
+            del model
+            for part in ("forward", "backward"):
+                paths[f"train temporal {form} f32 {part}"] = parts[part]
+            model, _ = _train_full(f"train temporal {form}", True, sqrt, torch.float64, kern)
+            _grad_gap(f"train temporal {form}", model,
+                      lambda dt, sqrt=sqrt: build_temporal(N_TEMPORAL, TEMPORAL_CHUNK, dtype=dt, sqrt=sqrt))
+            del model
+    finally:
+        del os.environ["PHYSS_SCAN_BLOCKS"]
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1259,10 +1736,15 @@ def main():
     phase_device()
     phase_build()
     worst, times = phase_kernels()
+    for name, rows in phase_backward().items():
+        times[name]["at_backward"] = rows
     phase_slice_anchor(sqrt=False)
     phase_slice_anchor(sqrt=False, fused=True)
     phase_slice_anchor(sqrt=True)
     phase_slice_anchor(sqrt=True, fused=True)
+    for form in ("c5_cov", "c5_sqrt", "t_cov", "t_sqrt"):
+        phase_train_anchor(form)
+    phase_train_anchor("c5_cov", fused=True)
     phase_oracle()
     knob_off = phase_temporal_anchor(False)
     phase_temporal_anchor(True)
@@ -1274,6 +1756,7 @@ def main():
     temporal_paths, temporal_routes = phase_temporal_full()
     paths.update(temporal_paths)
     routes.update(temporal_routes)
+    paths.update(phase_train_full())
     # `launches` of the fused combines from the fused covariance run, of the
     # others from the square-root run; `launches_by_path` has every run's,
     # `launches_by_kernel` the split of that run's launches between the

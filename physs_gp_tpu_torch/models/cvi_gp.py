@@ -130,17 +130,27 @@ class CVIGP(nn.Module):
     def get_objective(self, key=None):
         return -self.elbo(key=key)
 
+    def _site_grads(self, m, S, hessian: str):
+        """(g1, g2) of the data ELL from a likelihood that supplies them
+        (`natgrad_moments`, e.g. a Gauss-Newton form when hessian is not
+        "exact"); None lets `natgrad_update` take the exact gradient by
+        autograd, as it does for every likelihood ported so far."""
+        if hessian != "exact" and hasattr(self.likelihood, "natgrad_moments"):
+            return self.likelihood.natgrad_moments(self.Y, m, S, residual_hessian=hessian)
+        return None
+
     @torch.no_grad()
-    def natural_gradient_update(self, lr: float, key=None):
-        """One CVI step on all sites (the exact ELL gradient, taken by
-        autograd); the sites are replaced in place."""
+    def natural_gradient_update(self, lr: float, hessian: str = "exact", key=None):
+        """One CVI step on all sites; the sites are replaced in place."""
         _no_key(key)
         _, m, S = self._surrogate_pass()
-        self.sites = natgrad_update(self.sites, m, S, self._ell_data, lr)
+        self.sites = natgrad_update(
+            self.sites, m, S, self._ell_data, lr, grads=self._site_grads(m, S, hessian)
+        )
         return self
 
     @torch.no_grad()
-    def step_with_elbo(self, lr: float, key=None):
+    def step_with_elbo(self, lr: float, hessian: str = "exact", key=None):
         """One CVI step and the (pre-update) ELBO from a single surrogate
         filter + smoother pass; the sites are replaced in place."""
         _no_key(key)
@@ -148,7 +158,8 @@ class CVIGP(nn.Module):
         ell_sites, naturals = self._ell_sites_ex(m, S)
         elbo = self._ell_data(m, S) - ell_sites + lml_sur
         self.sites = natgrad_update(
-            self.sites, m, S, self._ell_data, lr, naturals=naturals
+            self.sites, m, S, self._ell_data, lr, grads=self._site_grads(m, S, hessian),
+            naturals=naturals,
         )
         return self, elbo
 

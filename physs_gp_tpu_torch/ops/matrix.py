@@ -98,9 +98,11 @@ def _cholesky_any(A, assume_psd: bool = False):
 
 class _KernelCholesky(torch.autograd.Function):
     """Forward: the pivot-floored batched Cholesky (a 2-D input runs as a
-    batch of one); backward: recomputed through `torch.linalg.cholesky`
-    (the same factor for PD inputs; callers jitter where pivots would be
-    floored)."""
+    batch of one); backward: recomputed through the library Cholesky (the
+    same factor for PD inputs; callers jitter where pivots would be
+    floored). A member that is not positive definite gets a NaN gradient,
+    as through the reference's `jnp.linalg.cholesky`, with no error and no
+    read-back to the host."""
 
     @staticmethod
     def forward(ctx, A):
@@ -114,8 +116,9 @@ class _KernelCholesky(torch.autograd.Function):
         (A,) = ctx.saved_tensors
         with torch.enable_grad():
             a = A.detach().requires_grad_(True)
-            (grad,) = torch.autograd.grad(torch.linalg.cholesky(a), a, ct)
-        return grad
+            L, info = torch.linalg.cholesky_ex(a)
+            (grad,) = torch.autograd.grad(L, a, ct)
+        return torch.where((info == 0)[..., None, None], grad, float("nan"))
 
 
 def safe_cholesky(A, jitter: float | None = DEFAULT_JITTER):

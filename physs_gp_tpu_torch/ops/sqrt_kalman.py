@@ -9,8 +9,9 @@ Forward passes run the batched kernels: `tria` the Householder LQ
 (`ops/cuda/batched_qr.batch_tria`), `tria_sum` the fused Gram + Cholesky
 (`ops/cuda/batched_chol.batch_chol_gram`), on every shape they hold, on
 both devices (the TPU package gates them to its TPU backend). Backward
-passes recompute through `torch.linalg.qr`, as the reference's custom VJPs
-recompute through XLA's QR: the TPU kernels have no backward kernel.
+passes recompute through the library QR (`torch.geqrf`, with QR's backward
+in batched products), as the reference's custom VJPs recompute through
+XLA's QR: the TPU kernels have no backward kernel.
 
 `sqrt_kalman_filter` and `sqrt_rts_smoother` are Python loops over T: every
 step is one `tria` of a joint pre-array (the LQ kernel at batch 1) and
@@ -74,9 +75,39 @@ def tria(B, assume_full_rank: bool = False):
     return torch.where(is_zero, 0.0, _TriaCore.apply(B_safe, _tria_reg))
 
 
+class _QrR(torch.autograd.Function):
+    """R of the reduced QR of A [.., m, n], m >= n, by `torch.geqrf`. The
+    backward is QR's: A_bar = Q copyltu(R R_barᵀ) R⁻ᵀ, with copyltu(M) the
+    symmetric matrix of M's lower triangle, and Q accumulated from the
+    Householder reflectors in batched products. (`torch.linalg.qr`'s own
+    backward forms Q through `orgqr`, which the CUDA build runs one matrix
+    at a time.)"""
+
+    @staticmethod
+    def forward(ctx, A):
+        a, tau = torch.geqrf(A)
+        R = a[..., : A.shape[-1], :].triu()
+        ctx.save_for_backward(a, tau, R)
+        return R
+
+    @staticmethod
+    def backward(ctx, gR):
+        a, tau, R = ctx.saved_tensors
+        m, n = a.shape[-2:]
+        eye = torch.eye(m, n, dtype=a.dtype, device=a.device)
+        V = a.tril(-1) + eye  # column i: the reflector v_i, v_i[i] = 1
+        Q = eye.expand(a.shape)
+        for i in reversed(range(n)):  # Q = H_0 ... H_{n-1} [I; 0]
+            v = V[..., i : i + 1]
+            Q = Q - (tau[..., i, None, None] * v) @ (v.transpose(-1, -2) @ Q)
+        M = R @ gR.triu().transpose(-1, -2)
+        Y = M.tril() + M.tril(-1).transpose(-1, -2)
+        return torch.linalg.solve_triangular(R.transpose(-1, -2), Q @ Y, upper=False, left=False)
+
+
 def _tria_canonical_ref(B):
-    """Canonical (diag >= 0) factor through `torch.linalg.qr` (backward)."""
-    _, r = torch.linalg.qr(B.transpose(-1, -2), mode="reduced")
+    """Canonical (diag >= 0) factor through the library QR (backward)."""
+    r = _QrR.apply(B.transpose(-1, -2))
     L = r.transpose(-1, -2)
     sign = torch.sign(torch.diagonal(L, dim1=-2, dim2=-1))
     sign = torch.where(sign == 0, 1.0, sign)

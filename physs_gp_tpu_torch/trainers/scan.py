@@ -1,9 +1,18 @@
-"""CVI natural-gradient training loop (PyTorch counterpart of
-`physs_gp_tpu/trainers/scan.natgrad_scan`).
+"""Training loops that keep their results on the device (PyTorch counterpart
+of `physs_gp_tpu/trainers/scan.py`).
 
-The JAX package runs the steps inside one compiled `lax.scan`; here they run
-as a Python loop. The NaN guard keeps the reference semantics: a step whose
-sites go non-finite is reverted (that iteration becomes a no-op).
+The JAX package runs each schedule inside one compiled `lax.scan`; here the
+steps run as a Python loop, and what the reference keeps in the graph stays
+on the device: the ELBOs and losses are stacked and read once by the
+caller, and the NaN guard picks the new or the old sites with
+`torch.where`, with no read-back to the host. A step whose sites go
+non-finite is reverted (that iteration becomes a no-op), as in the
+reference.
+
+Adam is `optax.adam`'s update (b1 0.9, b2 0.999, eps 1e-8 outside the
+square root, bias-corrected), which `torch.optim.Adam` computes. The
+natural-gradient half runs under `torch.no_grad()`, so no site carries
+autograd history into the next iteration.
 """
 from __future__ import annotations
 
@@ -11,7 +20,10 @@ from typing import Any
 
 import torch
 
-__all__ = ["natgrad_scan"]
+from ..approx.cvi import Sites
+from ..utils.training import trainable_parameters
+
+__all__ = ["adam_scan", "natgrad_scan", "vb_ng_adam_scan"]
 
 
 def _as_lrs(lrs, n_steps):
@@ -24,17 +36,42 @@ def _as_lrs(lrs, n_steps):
     return [float(lr) for lr in lrs]
 
 
-def _sites_ok(new_sites, old_sites) -> bool:
+def _sites_ok(new_sites, old_sites):
     """Finite site variances and an unchanged finite pattern of site means
-    (inactive sites are NaN by convention)."""
+    (inactive sites are NaN by convention), as a 0-d bool tensor."""
     v_ok = torch.all(torch.isfinite(new_sites.V))
     y_ok = torch.all(torch.isfinite(new_sites.Y) == torch.isfinite(old_sites.Y))
-    return bool(v_ok & y_ok)
+    return v_ok & y_ok
 
 
 @torch.no_grad()
-def natgrad_scan(model: Any, lrs, n_steps: int | None = None, nan_guard: bool = True):
-    """N CVI natural-gradient steps on a model exposing `step_with_elbo(lr)`.
+def _guard_sites(model, old_sites) -> None:
+    """Keep the model's new sites if they pass `_sites_ok`, else the old."""
+    ok = _sites_ok(model.sites, old_sites)
+    model.sites = Sites(torch.where(ok, model.sites.Y, old_sites.Y),
+                        torch.where(ok, model.sites.V, old_sites.V))
+
+
+def _adam(model, lr: float) -> torch.optim.Adam:
+    """`optax.adam(lr)` over the model's trainable raws."""
+    return torch.optim.Adam(trainable_parameters(model), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _adam_step(model, opt):
+    """One Adam step on `model.get_objective()`; returns the objective
+    before the update, detached, on the device."""
+    opt.zero_grad(set_to_none=True)
+    loss = model.get_objective()
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+@torch.no_grad()
+def natgrad_scan(model: Any, lrs, n_steps: int | None = None, hessian: str = "exact",
+                 nan_guard: bool = True):
+    """N CVI natural-gradient steps on a model exposing
+    `step_with_elbo(lr, hessian)`.
 
     Returns `(model, elbos)` with `elbos[i]` the pre-update ELBO of step i.
     The model's sites are updated in place.
@@ -42,8 +79,37 @@ def natgrad_scan(model: Any, lrs, n_steps: int | None = None, nan_guard: bool = 
     elbos = []
     for lr in _as_lrs(lrs, n_steps):
         old_sites = model.sites
-        model, elbo = model.step_with_elbo(lr)
-        if nan_guard and not _sites_ok(model.sites, old_sites):
-            model.sites = old_sites
+        model, elbo = model.step_with_elbo(lr, hessian=hessian)
+        if nan_guard:
+            _guard_sites(model, old_sites)
         elbos.append(elbo)
+    return model, torch.stack(elbos)
+
+
+def adam_scan(model: Any, n_steps: int, lr: float = 1e-2):
+    """N Adam steps on the trainable hyperparameters of any model exposing
+    `get_objective()`. Returns `(model, losses)`, `losses[i]` the objective
+    before step i; the model's raws are updated in place."""
+    opt = _adam(model, lr)
+    losses = [_adam_step(model, opt) for _ in range(n_steps)]
+    return model, torch.stack(losses)
+
+
+def vb_ng_adam_scan(model: Any, n_steps: int, adam_lr: float = 1e-2, ng_lr: float = 1.0,
+                    hessian: str = "exact", nan_guard: bool = True):
+    """VB_NG_ADAM: each iteration is one natural-gradient site step, then
+    one Adam step on the trainable hyperparameters (ref
+    `trainers/standard.py:58`).
+
+    Returns `(model, elbos)`: `elbos[i]` is the ELBO Adam saw at iteration
+    i (after the natural-gradient step, before the Adam step).
+    """
+    opt = _adam(model, adam_lr)
+    elbos = []
+    for lr in _as_lrs(ng_lr, n_steps):
+        old_sites = model.sites
+        model.natural_gradient_update(lr, hessian)
+        if nan_guard:
+            _guard_sites(model, old_sites)
+        elbos.append(-_adam_step(model, opt))
     return model, torch.stack(elbos)

@@ -1,9 +1,14 @@
 """Count the kernel-wrapper calls of one CVI step (and, optionally, one
-prediction) of the port by kernel and operand shape.
+prediction, or one Adam step's objective forward and backward) of the port
+by kernel and operand shape.
 
     python3 scripts/port/launch_census.py [--model temporal|config5] [--sqrt]
         [--T 100000] [--chunk 50000] [--blocks 1024] [--predict 1000]
-        [--device cpu|cuda] [--dtype float32|float64]
+        [--train] [--device cpu|cuda] [--dtype float32|float64]
+
+`--train` adds, after the step, the calls of `get_objective()` (the
+forward of an Adam step) and of its backward (`backward()` to every
+trainable raw), each counted on its own.
 
 Each call of a wrapper with a non-empty batch is one launch of its kernel
 on the card (on the CPU the wrapper runs the kernel's plain version), so
@@ -63,6 +68,13 @@ def census(args):
         t_new = torch.linspace(0.0, hi, args.predict, dtype=dtype, device=args.device)
         model.predict_f(t_new)
         out["predict_f"] = dict(calls)
+    if args.train:
+        calls.clear()
+        loss = model.get_objective()
+        out["objective forward"] = dict(calls)
+        calls.clear()
+        loss.backward()
+        out["objective backward"] = dict(calls)
     return out
 
 
@@ -74,6 +86,7 @@ def main():
     p.add_argument("--chunk", type=int, default=50_000)
     p.add_argument("--blocks", type=int, default=1024)
     p.add_argument("--predict", type=int, default=0)
+    p.add_argument("--train", action="store_true")
     p.add_argument("--device", default="cpu")
     p.add_argument("--dtype", default="float32")
     args = p.parse_args()

@@ -1,6 +1,8 @@
-"""Profile one config-5 or temporal CVI step of the PyTorch port on a CUDA card.
+"""Profile one config-5 or temporal CVI step (or training iteration) of the
+PyTorch port on a CUDA card.
 
-    python3 scripts/port/profile_config5.py [--temporal] [--sqrt | --fused] [T] [chunk]
+    python3 scripts/port/profile_config5.py [--temporal] [--sqrt | --fused]
+        [--train [--float64]] [T] [chunk]
 
 Builds `build_config5(T, chunk, float32)` (default T = 100 000, chunk
 25 000, as the benchmark runs it) or, with `--temporal`,
@@ -15,6 +17,16 @@ launches of each hand-written kernel in the step (and, for the temporal
 model, the calls of the d = 2 flat combines), the kernels that take the
 most device time, every hand-written kernel of the port with its device
 time and calls, and the profiler's table by device time.
+
+`--train` profiles one iteration of `trainers.vb_ng_adam_scan` (adam_lr
+0.05, ng_lr 0.5) after a warm-up iteration, as its body runs: the
+natural-gradient half, then the Adam step's objective forward, its backward
+and the optimiser's update, each traced on its own and ended by a
+synchronisation. For each part it prints the wall time, the device-busy
+share, the hand-written kernels' device time against PyTorch's own, and
+the launches and device time of each hand-written kernel; then the
+iteration's wall time, device-busy share and peak memory. `--float64`
+builds the model in float64.
 """
 import collections
 import os
@@ -41,7 +53,8 @@ def main():
 
     args = sys.argv[1:]
     temporal, sqrt, fused = "--temporal" in args, "--sqrt" in args, "--fused" in args
-    args = [a for a in args if a not in ("--temporal", "--sqrt", "--fused")]
+    train, f64 = "--train" in args, "--float64" in args
+    args = [a for a in args if a not in ("--temporal", "--sqrt", "--fused", "--train", "--float64")]
     if fused:
         os.environ["PHYSS_FUSED_COMBINE"] = "1"
     if temporal:
@@ -63,6 +76,12 @@ def main():
     print(f"[profile] {smi}")
     os.environ.setdefault("PHYSS_KZZ_JITTER", "1e-4")
     build = build_temporal if temporal else build_config5
+    if train:
+        dtype = torch.float64 if f64 else torch.float32
+        return profile_train(build(T, chunk, dtype=dtype, sqrt=sqrt), kernels,
+                             f"{'temporal' if temporal else 'config-5'} "
+                             f"{'square-root' if sqrt else 'covariance, fused' if fused else 'covariance'} "
+                             f"T={T} chunk={chunk} {str(dtype)[6:]}")
     model = build(T, chunk, dtype=torch.float32, sqrt=sqrt)
     natgrad_scan(model, 0.5, n_steps=1, nan_guard=False)  # warm-up (builds kernels)
     torch.cuda.synchronize()
@@ -104,6 +123,64 @@ def main():
         print(f"[profile] port kernel {e.self_device_time_total / 1e3:9.2f} ms  "
               f"{e.count:7d} calls  {_PORT_KERNEL.match(e.key).group(1)}")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+    return 0
+
+
+def _device_split(prof):
+    """(all kernels' device us, hand-written device us, {kernel: (us, calls)})."""
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = {}
+    for e in events:
+        m = _PORT_KERNEL.match(e.key)
+        if m:
+            us, n = ours.get(m.group(1), (0.0, 0))
+            ours[m.group(1)] = (us + e.self_device_time_total, n + e.count)
+    return sum(e.self_device_time_total for e in events), sum(us for us, _ in ours.values()), ours
+
+
+def profile_train(model, kernels, label):
+    """One traced iteration of `vb_ng_adam_scan`, part by part (see the
+    module docstring)."""
+    from physs_gp_tpu_torch.trainers import scan
+
+    opt = scan._adam(model, 0.05)
+    parts = {
+        "natural-gradient half": lambda st: (st.update(old=model.sites),
+                                             model.natural_gradient_update(0.5),
+                                             scan._guard_sites(model, st["old"]),
+                                             opt.zero_grad(set_to_none=True)),
+        "forward": lambda st: st.update(loss=model.get_objective()),
+        "backward": lambda st: st["loss"].backward(),
+        "update": lambda st: opt.step(),
+    }
+    # device activity only: the backward's host-side events are too many to
+    # trace in square-root form
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    state = {}
+    for part in parts.values():  # warm-up iteration (builds the kernels)
+        part(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total_wall = total_dev = 0.0
+    for name, part in parts.items():
+        kernels.reset_launch_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            part(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_us, ours_us, ours = _device_split(prof)
+        total_wall, total_dev = total_wall + wall, total_dev + dev_us / 1e6
+        print(f"[profile train] {label} {name}: wall {wall * 1e3:.1f} ms, device busy {dev_us / 1e3:.2f} ms "
+              f"({100 * dev_us / 1e3 / (wall * 1e3):.1f}%), hand-written {ours_us / 1e3:.2f} ms, "
+              f"PyTorch's own {(dev_us - ours_us) / 1e3:.2f} ms")
+        print(f"[profile train] {label} {name}: launches {({k: v for k, v in kernels.launch_counts().items() if v})}")
+        for k, (us, n) in sorted(ours.items()):
+            print(f"[profile train] {label} {name}: {k} {us / 1e3:.3f} ms in {n} launches")
+    state.clear()
+    print(f"[profile train] {label} iteration: wall {total_wall * 1e3:.1f} ms, device busy "
+          f"{total_dev * 1e3:.1f} ms ({100 * total_dev / total_wall:.1f}%), peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return 0
 
 

@@ -1,7 +1,9 @@
 """Drive the PyTorch port on one CUDA card: the config-5 CVI step in
 covariance form (unfused and with the fused combines) and in square-root
 form, the temporal Poisson CVI fit in both forms, prediction at new times
-on both models, and hyperparameter training on both.
+on both models, hyperparameter training on both, and the serving path:
+posterior sampling, streaming assimilation and forecasts, and the
+spatio-temporal model's predictions at new sites.
 
     python3 chip_smoke.py
 
@@ -77,8 +79,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      types), each iteration split into its natural-gradient half and its
      Adam half's forward, backward and update, with peak memory and the
      forward's and the backward's launches per kernel and route; the
-     float32 gradient at each float64 run's state against the float64 one.
-The second-to-last line is the kernels' JSON summary; the last line is
+     float32 gradient at each float64 run's state against the float64 one;
+  8. serving anchors, float64, T = 256, against
+     tests/data/serving_T256_golden.npz (run before phase 6, which pins
+     PHYSS_KZZ_JITTER): config-5's `sample_f` fed the JAX draws in
+     covariance, square-root and fused form, `StreamingGP` and
+     `StreamingCVI` states, segment moments and forecasts, and
+     `predict_grid` of `advection_diffusion_gp` at config-5's geometry;
+  9. serving at config-5 width (T = 100 000, chunk 25 000): F1 `sample_f`
+     (16 paths in covariance form, 4 in square-root form, at 1000 new
+     times) held to `predict_f` by its standardised draws; F2
+     `StreamingGP` assimilation (float64, against the batch filter) and 50
+     float32 requests (update 256 rows, forecast 64 times; p50 and p99);
+     F3 `StreamingCVI` on config-5 (float64, segment ELBOs summing to the
+     batch lml); F4 `StreamingCVI` on the temporal Poisson data (float32,
+     10 segments, against the batch fit); F5 `advection_diffusion_gp`
+     (float64: its lml equal to F2's, `predict_grid` at 64 sites at the
+     training times and at 1000 new times); each path timed with its
+     peak memory, its launch counters reset just before it and read just
+     after, on the warp and tiled kernels only.
+The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
 import itertools
@@ -1266,6 +1286,371 @@ def phase_slice_full():
              "config5 cov predict f32": cov_predict[1], "config5 sqrt predict f32": sqrt_predict[1]})
 
 
+SERVING_GOLDEN = os.path.join(REPO, "tests", "data", "serving_T256_golden.npz")
+SERVING_SEGMENTS = ((0, 100), (100, 200), (200, 256))  # the golden file's
+# full-width streaming: B + 1 <= chunk rows a segment (the dummy carry row
+# comes first), so no segment is padded to two chunks
+N_SEG = 24_999
+N_REQUESTS, REQUEST_ROWS, REQUEST_FORECAST = 50, 256, 64
+
+
+def _hold(tag, got, tol=1e-9):
+    """max |val - ref| / max |ref| of each (tensor, numpy) pair, NaN patterns
+    equal; fails above tol."""
+    for key, (val, ref) in got.items():
+        ref = ref.detach().cpu().numpy() if isinstance(ref, torch.Tensor) else np.asarray(ref)
+        r = _rel_np(val, ref)
+        print(f"[{tag}] {key} max rel {r:.3e} (tol {tol:g})")
+        if not r <= tol:
+            raise AssertionError(f"{tag}: {key} disagrees with the JAX reference")
+
+
+def _advection_config5(c5, chunk):
+    """`advection_diffusion_gp` at config-5's geometry on c5's data: the 4x4
+    grid, collocation at Z + dx/2, diffusivity 0.1, velocity (0.2, 0.1),
+    `build_config5`'s kernels and noise, parallel."""
+    from physs_gp_tpu_torch.kernels.matern import Matern32
+    from physs_gp_tpu_torch.kernels.rbf import RBF
+    from physs_gp_tpu_torch.utils.params import positive_param
+    from physs_gp_tpu_torch.zoo.spatio_temporal import advection_diffusion_gp
+
+    kw = dict(dtype=c5.t.dtype, device=c5.t.device)
+    gx = np.linspace(0, 1, 4)
+    Z = np.stack(np.meshgrid(gx, gx), -1).reshape(-1, 2).astype(np.float32)
+    coll = Z + 0.5 * (gx[1] - gx[0])
+    return advection_diffusion_gp(
+        c5.t, c5.Y[:, :16], Z, coll, diffusivity=0.1, velocity=(0.2, 0.1),
+        k_time=Matern32(lengthscale=5.0, variance=1.0, **kw),
+        k_space=RBF(lengthscales=positive_param(0.5, **kw), variance=positive_param(1.0, **kw)),
+        noise=0.1, coll_noise=1e-3, parallel=True, chunk_size=chunk, **kw,
+    )
+
+
+def _c5_gp(c5, chunk):
+    """config-5's kernel, heads and `IndependentGaussian` as an exact
+    `StateSpaceGP` and a `StreamingGP` (parallel, chunked)."""
+    from physs_gp_tpu_torch.models import StateSpaceGP, StreamingGP
+
+    kw = dict(kernel=c5.kernel, likelihood=c5.likelihood, observation=c5.observation,
+              parallel=True, chunk_size=chunk)
+    return StateSpaceGP(t=c5.t, Y=c5.Y, **kw), StreamingGP(**kw)
+
+
+def phase_serving_anchor():
+    """The serving path in float64 at T = 256 (chunk 64, 8 blocks) against
+    tests/data/serving_T256_golden.npz, rtol 1e-9 of each output's largest
+    magnitude: `CVIGP.sample_f` of config-5 after 2 natural-gradient steps,
+    fed the JAX draws, in covariance, square-root and fused form (the fused
+    kernels must launch with the knob, and only then); `StreamingGP` over
+    config-5's data in three segments (carried states, the last segment's
+    moments, forecast, predict_y, the batch lml); `StreamingCVI` on config-5
+    (lr 1, 2 iterations) and on the temporal Poisson data (lr 0.5, 3
+    iterations, with a forecast); `advection_diffusion_gp` at config-5's
+    geometry (lml, which must also equal config-5's `StateSpaceGP` lml, and
+    `predict_grid` at the training times and at new times)."""
+    from physs_gp_tpu_torch.models import StreamingCVI, StreamState
+    from physs_gp_tpu_torch.ops import cuda as kernels
+    from physs_gp_tpu_torch.trainers.scan import natgrad_scan
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
+
+    gold = np.load(SERVING_GOLDEN)
+
+    def dev(x):
+        return torch.as_tensor(x, dtype=torch.float64, device="cuda")
+
+    os.environ["PHYSS_SCAN_BLOCKS"] = "8"
+    try:
+        for form in ("cov", "sqrt", "fused"):
+            if form == "fused":
+                os.environ["PHYSS_FUSED_COMBINE"] = "1"
+            kernels.reset_launch_counts(*FUSED)
+            try:
+                model = build_config5(256, 64, dtype=torch.float64, sqrt=form == "sqrt")
+                model, elbos = natgrad_scan(model, 0.5, n_steps=2)
+                f = model.sample_f_given(dev(gold["eps_x"]), dev(gold["eps_y"]), t_new=dev(gold["t_new"]))
+            finally:
+                os.environ.pop("PHYSS_FUSED_COMBINE", None)
+            counts = kernels.launch_counts(*FUSED)
+            print(f"[anchor sample {form}] launches of the fused combines: {counts}")
+            if any((n > 0) != (form == "fused") for n in counts.values()):
+                raise AssertionError(f"anchor sample {form}: the fused combines ran {counts}")
+            _hold(f"anchor sample {form}", {"ELBOs": (elbos, gold[f"{form}_elbos"]),
+                                            "sample_f": (f, gold[f"{form}_f"])})
+        c5 = build_config5(256, 64, dtype=torch.float64)
+        gp, s = _c5_gp(c5, 64)
+        with torch.no_grad():
+            got = {"batch lml": (gp.log_marginal_likelihood(), gold["gp_batch_lml"])}
+            st = s.init_state(t0=c5.t[0])
+            for k, (lo, hi) in enumerate(SERVING_SEGMENTS):
+                st, seg = s.update(st, c5.t[lo:hi], c5.Y[lo:hi])
+                got.update({f"segment {k} {n}": (getattr(st, n), gold[f"gp_{n}"][k])
+                            for n in StreamState._fields})
+            fc, py = s.forecast(st, dev(gold["t_fc"])), s.predict_y(st, dev(gold["t_fc"]))
+        got.update({"last segment f_mean": (seg.f_mean, gold["gp_seg_mean"]),
+                    "last segment f_var": (seg.f_var, gold["gp_seg_var"]),
+                    "last segment lml": (seg.lml, gold["gp_seg_lml"]),
+                    "forecast mean": (fc.mean, gold["gp_fc_mean"]),
+                    "forecast var": (fc.var, gold["gp_fc_var"]), "predict_y var": (py.var, gold["gp_py_var"])})
+        _hold("anchor streaming gp", got)
+        tm = build_temporal(256, 64, dtype=torch.float64)
+        for tag, model, kw, bounds in (
+                ("c5cvi", c5, dict(observation=c5.observation, lr=1.0, n_iters=2), SERVING_SEGMENTS),
+                ("tcvi", tm, dict(lr=0.5, n_iters=3), ((0, 128), (128, 256)))):
+            sc = StreamingCVI(kernel=model.kernel, likelihood=model.likelihood, parallel=True,
+                              chunk_size=64, **kw)
+            st, got = sc.init_state(t0=model.t[0]), {}
+            for k, (lo, hi) in enumerate(bounds):
+                st, seg = sc.update(st, model.t[lo:hi], model.Y[lo:hi])
+                got.update({f"segment {k} {n}": (getattr(st, n), gold[f"{tag}_{n}"][k])
+                            for n in StreamState._fields})
+            if tag == "tcvi":
+                fc = sc.forecast(st, dev(gold["t_fc_temporal"]))
+                got.update({"last segment posterior mean": (seg.posterior().mean, gold["tcvi_seg_post_mean"]),
+                            "forecast mean": (fc.mean, gold["tcvi_fc_mean"]),
+                            "forecast var": (fc.var, gold["tcvi_fc_var"])})
+            _hold(f"anchor streaming cvi {'config5' if tag == 'c5cvi' else 'temporal'}", got)
+        ad = _advection_config5(c5, 64)
+        with torch.no_grad():
+            lml = ad.log_marginal_likelihood()
+            g = ad.predict_grid(dev(gold["s_new"]))
+            gn = ad.predict_grid(dev(gold["s_new"]), t_new=dev(gold["t_grid_new"]))
+            _hold("anchor predict_grid", {
+                "lml": (lml, gold["grid_lml"]), "lml vs config-5's StateSpaceGP": (lml, gp.log_marginal_likelihood()),
+                "mean": (g.mean, gold["grid_mean"]), "var": (g.var, gold["grid_var"]),
+                "mean at new times": (gn.mean, gold["grid_new_mean"]),
+                "var at new times": (gn.var, gold["grid_new_var"])})
+    finally:
+        del os.environ["PHYSS_SCAN_BLOCKS"]
+
+
+def _peak():
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_sampling_full():
+    """F1: config-5 at T = 100 000 (chunk 25 000) after 2 natural-gradient
+    steps at lr 0.5, float32: `CVIGP.sample_f` of 16 paths at 1000 new times
+    in covariance form and of 4 in square-root form, drawn from a seeded
+    generator on the card, each timed with its peak memory and launches
+    (counters reset just before `sample_f`, read just after). The draws are
+    held to `predict_f` at the same times: z = (f - mean) / sd, pooled over
+    samples, times and heads, must have |mean z| < 0.15 and var z in
+    [0.8, 1.2]. Returns the paths' (counts, routes)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    t_new = torch.as_tensor(np.sort(np.random.default_rng(23).uniform(0, 100, 1000)),
+                            dtype=torch.float32, device="cuda")
+    counts, routes = {}, {}
+    for form, sqrt, S, kern in (("cov", False, 16, ("bmm", "gj_solve", "gj_solve_logdet", "chol")),
+                                ("sqrt", True, 4, ("bmm", "gj_solve", "lq", "chol", "chol_gram"))):
+        tag, path = f"full sample {form}", f"config5 {'sqrt ' if sqrt else ''}sample f32"
+        torch.cuda.empty_cache()
+        model, elbos, _ = _run_slice(100_000, 25_000, torch.float32, 2, nan_guard=False, sqrt=sqrt)
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fs = model.sample_f(gen, S, t_new=t_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[path], routes[path] = kernels.launch_counts(), kernels.route_counts()
+        peak = _peak()
+        pf = model.predict_f(t_new)
+        z = (fs - pf.mean) / torch.sqrt(pf.var)
+        mz, vz = float(z.mean()), float(z.var())
+        ok = fs.shape == (S, 1000, 32) and bool(torch.isfinite(fs).all())
+        print(f"[{tag}] ELBOs after 2 steps {elbos.tolist()}")
+        print(f"[{tag}] sample_f({S}) at 1000 new times: {wall:.4f} s, peak {peak:.2f} GiB, "
+              f"finite and [{S}, 1000, 32] {ok}; z against predict_f: mean {mz:.4f} (bound 0.15), "
+              f"var {vz:.4f} (bounds 0.8, 1.2); grid heads: mean {float(z[..., :16].mean()):.4f}, "
+              f"var {float(z[..., :16].var()):.4f}; collocation heads: mean "
+              f"{float(z[..., 16:].mean()):.4f}, var {float(z[..., 16:].var()):.4f}")
+        if not (ok and abs(mz) < 0.15 and 0.8 <= vz <= 1.2):
+            raise AssertionError(f"{tag}: the draws disagree with predict_f")
+        _path_check(tag, counts[path], routes[path], kern)
+        del model, fs, pf, z
+    return counts, routes
+
+
+def phase_streaming_full():
+    """F2-F5 at config-5 width (T = 100 000, chunk 25 000, segments of 24 999
+    rows and a last one of 4). F2: `StreamingGP` over config-5's kernel,
+    heads and `IndependentGaussian`: float64 assimilation timed, its
+    summed lml held to the batch `log_marginal_likelihood()` (rtol 1e-8)
+    and the carried (m, P) to the batch filter's last row (1e-8); then
+    float32 assimilation and 50 requests, each an `update` of 256 rows past
+    t_last and a `forecast` at 64 later times, timed one by one (p50, p99).
+    F3: `StreamingCVI` on config-5 (lr 1, 2 iterations), float64, the same
+    segments: the segment ELBOs sum to the batch lml (rtol 1e-8), time per
+    segment. F4: `StreamingCVI` on the temporal Poisson data (10 segments of
+    10 000, 8 iterations, lr 0.5, float32): finite lml, `forecast` at 1000
+    later times finite with positive variance, RMSE of the online against
+    the batch (8 natural-gradient steps) posterior mean below 0.35. F5:
+    `advection_diffusion_gp` at config-5's geometry, float64: lml equal to
+    F2's (rtol 1e-9), `predict_grid` at 64 new sites at the training times
+    and at 1000 new times, timed with peak memory. Launch counters are reset
+    just before each path and read just after. Returns (counts, routes)."""
+    from physs_gp_tpu_torch.models import CVIGP, StreamingCVI
+    from physs_gp_tpu_torch.ops import cuda as kernels
+    from physs_gp_tpu_torch.ops.runner import run_filter
+    from physs_gp_tpu_torch.trainers.scan import natgrad_scan
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
+
+    T, chunk = 100_000, 25_000
+    segments = [(lo, min(lo + N_SEG, T)) for lo in range(0, T, N_SEG)]
+    cov = ("bmm", "gj_solve", "gj_solve_logdet")
+    counts, routes = {}, {}
+
+    def start():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        return time.perf_counter()
+
+    def read(path, kern):
+        torch.cuda.synchronize()
+        counts[path], routes[path] = kernels.launch_counts(), kernels.route_counts()
+        _path_check(path, counts[path], routes[path], kern)
+
+    # F2, float64: assimilation against the batch filter
+    torch.cuda.empty_cache()
+    c5 = build_config5(T, chunk, dtype=torch.float64)
+    gp, s = _c5_gp(c5, chunk)
+    with torch.no_grad():
+        t0 = start()
+        st = s.init_state(t0=c5.t[0])
+        for lo, hi in segments:
+            st, _ = s.update(st, c5.t[lo:hi], c5.Y[lo:hi])
+        torch.cuda.synchronize()
+        wall, peak = time.perf_counter() - t0, _peak()
+        ssm, R = gp._filter_inputs()
+        f = run_filter(ssm, R, gp.Y, parallel=True, chunk_size=chunk)[0]
+    batch_lml = float(f.lml)
+    gaps = {"lml": abs(float(st.lml) - batch_lml) / abs(batch_lml),
+            "m": _rel_np(st.m, f.ms[-1].cpu().numpy()), "P": _rel_np(st.P, f.Ps[-1].cpu().numpy())}
+    print(f"[full stream gp] float64 assimilation of {T} rows in {len(segments)} segments: "
+          f"{wall:.4f} s, peak {peak:.2f} GiB; against the batch filter: "
+          + ", ".join(f"{k} rel {v:.3e}" for k, v in gaps.items()) + " (tol 1e-8)")
+    if not max(gaps.values()) <= 1e-8:
+        raise AssertionError("full stream gp: streaming disagrees with the batch filter")
+    del f, ssm, R
+
+    # F3, float64: StreamingCVI on config-5
+    sc = StreamingCVI(kernel=c5.kernel, likelihood=c5.likelihood, observation=c5.observation,
+                      parallel=True, chunk_size=chunk, lr=1.0, n_iters=2)
+    t0 = start()
+    st, walls = sc.init_state(t0=c5.t[0]), []
+    for lo, hi in segments:
+        t1 = time.perf_counter()
+        st, _ = sc.update(st, c5.t[lo:hi], c5.Y[lo:hi])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    peak = _peak()
+    read("stream cvi config5 f64", cov)
+    gap = abs(float(st.lml) - batch_lml) / abs(batch_lml)
+    print(f"[full stream cvi config5] float64 segment wall s {[round(w, 4) for w in walls]}, "
+          f"peak {peak:.2f} GiB; summed segment ELBOs {float(st.lml)!r} vs batch lml {batch_lml!r}: "
+          f"rel {gap:.3e} (tol 1e-8)")
+    if not gap <= 1e-8:
+        raise AssertionError("full stream cvi config5: the segment ELBOs do not sum to the batch lml")
+
+    # F5, float64: the same model as a SpatioTemporalGP
+    ad = _advection_config5(c5, chunk)
+    s_new = torch.as_tensor(np.random.default_rng(26).uniform(0, 1, (64, 2)), dtype=torch.float64,
+                            device="cuda")
+    t_new = torch.as_tensor(np.sort(np.random.default_rng(27).uniform(0, 100, 1000)),
+                            dtype=torch.float64, device="cuda")
+    with torch.no_grad():
+        lml = float(ad.log_marginal_likelihood())
+        t0 = start()
+        g = ad.predict_grid(s_new)
+        torch.cuda.synchronize()
+        wall, peak = time.perf_counter() - t0, _peak()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        gn = ad.predict_grid(s_new, t_new=t_new)
+        torch.cuda.synchronize()
+        wall_new, peak_new = time.perf_counter() - t1, _peak()
+    read("st predict_grid f64", cov)
+    gap = abs(lml - batch_lml) / abs(batch_lml)
+    ok = (g.mean.shape == (T, 64) and gn.mean.shape == (1000, 64)
+          and all(bool(torch.isfinite(x).all()) for x in (*g, *gn))
+          and bool((g.var > 0).all() and (gn.var > 0).all()))
+    print(f"[full st] lml {lml!r} vs config-5's StateSpaceGP {batch_lml!r}: rel {gap:.3e} (tol 1e-9)")
+    print(f"[full st] predict_grid at 64 sites: training times {wall:.4f} s, peak {peak:.2f} GiB; "
+          f"1000 new times {wall_new:.4f} s, peak {peak_new:.2f} GiB; finite, positive var, shapes {ok}")
+    if not (gap <= 1e-9 and ok):
+        raise AssertionError("full st: the SpatioTemporalGP disagrees with config-5's StateSpaceGP")
+    del c5, gp, s, sc, ad, g, gn, st
+
+    # F2, float32: assimilation, then 50 requests
+    torch.cuda.empty_cache()
+    c5 = build_config5(T, chunk, dtype=torch.float32)
+    _, s = _c5_gp(c5, chunk)
+    rng = np.random.default_rng(25)
+    with torch.no_grad():
+        t0 = start()
+        st = s.init_state(t0=c5.t[0])
+        for lo, hi in segments:
+            st, _ = s.update(st, c5.t[lo:hi], c5.Y[lo:hi])
+        torch.cuda.synchronize()
+        wall, peak = time.perf_counter() - t0, _peak()
+        t_cur, lat = float(c5.t[-1]), []
+        t0 = start()
+        for _ in range(N_REQUESTS):
+            tb = t_cur + np.sort(rng.uniform(0, 0.256, REQUEST_ROWS))
+            yb = np.concatenate([rng.normal(size=(REQUEST_ROWS, 16)), np.zeros((REQUEST_ROWS, 16))], 1)
+            tq = tb[-1] + np.sort(rng.uniform(0, 0.064, REQUEST_FORECAST))
+            t1 = time.perf_counter()
+            st, _ = s.update(st, torch.as_tensor(tb, dtype=torch.float32, device="cuda"),
+                             torch.as_tensor(yb, dtype=torch.float32, device="cuda"))
+            fc = s.forecast(st, torch.as_tensor(tq, dtype=torch.float32, device="cuda"))
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+            t_cur = float(tb[-1])
+        peak_serve = _peak()
+    read("stream gp serve f32", cov)
+    p50, p99 = np.percentile(lat, [50, 99])
+    ok = bool(torch.isfinite(st.lml) & torch.isfinite(fc.mean).all() & (fc.var > 0).all())
+    print(f"[full stream gp] float32 assimilation {wall:.4f} s, peak {peak:.2f} GiB; {N_REQUESTS} requests "
+          f"({REQUEST_ROWS} rows + forecast at {REQUEST_FORECAST} times): p50 {p50 * 1e3:.2f} ms, "
+          f"p99 {p99 * 1e3:.2f} ms, max {max(lat) * 1e3:.2f} ms, peak {peak_serve:.2f} GiB; "
+          f"lml finite and forecast finite with positive var {ok}")
+    if not ok:
+        raise AssertionError("full stream gp: float32 serving gave a non-finite result")
+    del c5, s, st, fc
+
+    # F4, float32: StreamingCVI on the temporal Poisson data
+    torch.cuda.empty_cache()
+    tm = build_temporal(T, chunk)
+    sc = StreamingCVI(kernel=tm.kernel, likelihood=tm.likelihood, parallel=True, chunk_size=chunk,
+                      lr=0.5, n_iters=8)
+    t0 = start()
+    st, walls, means = sc.init_state(t0=tm.t[0]), [], []
+    for lo in range(0, T, 10_000):
+        t1 = time.perf_counter()
+        st, seg = sc.update(st, tm.t[lo:lo + 10_000], tm.Y[lo:lo + 10_000])
+        means.append(seg.posterior().mean[1:])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    peak = _peak()
+    read("stream cvi temporal f32", cov)
+    t_fc = torch.as_tensor(1000.0 + np.sort(np.random.default_rng(28).uniform(0, 100, 1000)),
+                           dtype=torch.float32, device="cuda")
+    fc = sc.forecast(st, t_fc)
+    batch = CVIGP.init(tm.t, tm.Y, tm.kernel, tm.likelihood, parallel=True, chunk_size=chunk)
+    batch, _ = natgrad_scan(batch, 0.5, n_steps=8, nan_guard=False)
+    with torch.no_grad():
+        rmse = float(torch.sqrt(torch.mean((torch.cat(means) - batch.posterior().mean) ** 2)))
+    ok = bool(torch.isfinite(st.lml) & torch.isfinite(fc.mean).all() & (fc.var > 0).all())
+    print(f"[full stream cvi temporal] float32 segment wall s {[round(w, 4) for w in walls]}, "
+          f"peak {peak:.2f} GiB; lml {float(st.lml)!r}; forecast at 1000 later times finite with "
+          f"positive var {ok}; RMSE online vs batch posterior mean {rmse:.4f} (bound 0.35)")
+    if not (ok and rmse < 0.35):
+        raise AssertionError("full stream cvi temporal: non-finite or drifted online fit")
+    return counts, routes
+
+
 def _ct(gen, out, layout):
     """A cotangent for `out` as autograd may hand it over: contiguous,
     expanded (every stride 0, as `out.sum()` gives) or a transposed view."""
@@ -1727,6 +2112,7 @@ def phase_train_full():
 
 
 def main():
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1752,10 +2138,14 @@ def main():
         raise AssertionError("anchor temporal: PHYSS_FUSED_COMBINE=1 changed the d = 2 ELBOs")
     print("[anchor temporal cov knob on] ELBOs equal, bit for bit, to the knob-off run")
     phase_temporal_oracle()
+    phase_serving_anchor()
     paths, routes = phase_slice_full()
-    temporal_paths, temporal_routes = phase_temporal_full()
-    paths.update(temporal_paths)
-    routes.update(temporal_routes)
+    for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full):
+        t0 = time.perf_counter()
+        more_paths, more_routes = phase()
+        print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+        paths.update(more_paths)
+        routes.update(more_routes)
     paths.update(phase_train_full())
     # `launches` of the fused combines from the fused covariance run, of the
     # others from the square-root run; `launches_by_path` has every run's,
@@ -1771,6 +2161,7 @@ def main():
          "max_abs_err": worst[name], **times[name]}
         for name in SOURCES
     ]
+    print(f"[total] {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,11 @@ same attribute names, so each path is walked attribute by attribute:
 buffer they name, in the model's device and dtype. A path that names a
 Python number (a setting the JAX package keeps static, such as
 `.likelihood.binsize`) takes the scalar's value, in the number's type.
+Tied and derived leaves walk the same way: `.likelihood.variances[0].p.raw`
+of a `SharedVariance` group, `...terms[1].coeff.base.raw` of a `NegParam`.
+
+`load_stream_state(arrays, dtype, device)` carries a JAX `StreamState`
+(m, P, t_last, lml as numpy) into the port's.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["load_numpy_params"]
+__all__ = ["load_numpy_params", "load_stream_state"]
 
 _STEP = re.compile(r"\.([A-Za-z_]\w*)|\[(\d+)\]")
 
@@ -59,3 +64,17 @@ def load_numpy_params(model, flat: dict) -> None:
                 current.copy_(new)
         else:
             setattr(obj, leaf, new)
+
+
+def load_stream_state(arrays, dtype=torch.float64, device="cuda"):
+    """A `models.streaming.StreamState` from a mapping (or object) holding
+    the numpy leaves m [d], P [d, d], t_last [] and lml [] of a JAX one."""
+    from .models.streaming import StreamState
+
+    def get(name):
+        return arrays[name] if isinstance(arrays, dict) else getattr(arrays, name)
+
+    return StreamState(*[
+        torch.as_tensor(np.array(get(name)), dtype=dtype, device=device)
+        for name in StreamState._fields
+    ])

@@ -1,7 +1,8 @@
 """Gaussian likelihoods (PyTorch counterpart of
 `physs_gp_tpu/likelihoods/gaussian.py`: the scalar iid-noise `Gaussian`,
-`IndependentGaussian` and the CVI pseudo-likelihood `BlockDiagonalGaussian`,
-the noise model of the surrogate `StateSpaceGP`)."""
+`IndependentGaussian` with its tied `SharedVariance` groups, and the CVI
+pseudo-likelihood `BlockDiagonalGaussian`, the noise model of the surrogate
+`StateSpaceGP`)."""
 from __future__ import annotations
 
 import math
@@ -11,7 +12,8 @@ from torch import nn
 
 from ..utils.params import Param, positive_param
 
-__all__ = ["Likelihood", "Gaussian", "IndependentGaussian", "BlockDiagonalGaussian"]
+__all__ = ["Likelihood", "Gaussian", "SharedVariance", "IndependentGaussian",
+           "BlockDiagonalGaussian"]
 
 
 class Likelihood(nn.Module):
@@ -41,9 +43,29 @@ class Gaussian(Likelihood):
         return self.variance.value.expand(f.shape)
 
 
+class SharedVariance(nn.Module):
+    """One scalar variance Param expanded across `n` heads: a TIED noise
+    group for `IndependentGaussian`. Its single `nn.Parameter` is broadcast
+    to the n heads, so training keeps them tied."""
+
+    def __init__(self, p: Param, n: int = 1):
+        super().__init__()
+        self.p = p
+        self.n = n
+
+    @property
+    def value(self):
+        return torch.atleast_1d(self.p.value).expand(self.n)
+
+    def fix(self) -> "SharedVariance":
+        self.p.fix()
+        return self
+
+
 class IndependentGaussian(Likelihood):
-    """Independent Gaussian noise with one variance Param per output head
-    (data heads and collocation heads, each fixable on its own)."""
+    """Independent Gaussian noise with a variance per output head (data
+    heads and collocation heads, each fixable on its own); an entry may be a
+    `SharedVariance` group spanning several heads."""
 
     def __init__(self, variances):
         super().__init__()

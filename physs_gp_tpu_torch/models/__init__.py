@@ -1,1 +1,9 @@
-"""Subpackage of the PyTorch port; see the module docstrings."""
+"""The port's models; the names the JAX package's `models` exports, as far
+as they are ported."""
+from .ssgp import GaussianMoments, StateSpaceGP
+from .cvi_gp import CVIGP
+from .stgp import SpatioTemporalGP
+from .streaming import StreamingGP, StreamingCVI, StreamState, SegmentResult
+
+__all__ = ["GaussianMoments", "StateSpaceGP", "CVIGP", "SpatioTemporalGP", "StreamingGP",
+           "StreamingCVI", "StreamState", "SegmentResult"]

@@ -11,8 +11,13 @@ all from one Kalman filter + smoother pass over the surrogate.
 place and return the model. Prediction runs on the surrogate as a
 `StateSpaceGP` (`surrogate_model`): `predict_f` on its NaN-augmented grid,
 `predict_y` by Gauss-Hermite moment matching, `nlpd` by log-domain
-Gauss-Hermite quadrature. A prior mean and Monte-Carlo keys are not ported
-yet: asking for them raises.
+Gauss-Hermite quadrature, `sample_f` by Matheron pathwise conditioning on
+the surrogate. `init_state` = (m0, P0) replaces the stationary prior of the
+filter (online CVI carries the previous segment's filtered state in it,
+`models/streaming.py`); as in the reference, `surrogate_model()` does not
+pass it on, so `predict_f` and `sample_f` start from the stationary prior.
+A prior mean and Monte-Carlo keys are not ported yet: asking for them
+raises.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ def _no_key(key):
 
 class CVIGP(nn.Module):
     def __init__(self, t, Y, kernel, likelihood, sites: Sites, observation=None,
-                 mean=None, parallel: bool = False, sqrt: bool = False, chunk_size=None):
+                 mean=None, parallel: bool = False, sqrt: bool = False, chunk_size=None,
+                 init_state=None):
         super().__init__()
         if mean is not None:
             raise NotImplementedError("a prior mean is not ported yet")
@@ -56,10 +62,11 @@ class CVIGP(nn.Module):
         self.parallel = parallel
         self.sqrt = sqrt
         self.chunk_size = chunk_size
+        self.init_state = init_state
 
     @classmethod
     def init(cls, t, Y, kernel, likelihood, observation=None, mean=None, parallel=False,
-             sqrt=False, chunk_size=None, site_var: float = 1.0):
+             sqrt=False, chunk_size=None, site_var: float = 1.0, init_state=None):
         active = (
             likelihood.site_active_mask(Y)
             if hasattr(likelihood, "site_active_mask")
@@ -69,6 +76,7 @@ class CVIGP(nn.Module):
             t=t.reshape(-1), Y=Y, kernel=kernel, likelihood=likelihood,
             sites=init_sites(Y, site_var, active=active), observation=observation,
             mean=mean, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
+            init_state=init_state,
         )
 
     # ---- surrogate filtering ----
@@ -78,6 +86,8 @@ class CVIGP(nn.Module):
         ssm = build_lgssm(self.kernel, self.t)
         if self.observation is not None:
             ssm = ssm._replace(H=self.observation.H(self.kernel))
+        if self.init_state is not None:
+            ssm = ssm._replace(m0=self.init_state[0], P0=self.init_state[1])
         f, s = run_filter_smoother(
             ssm, self.sites.V, self.sites.Y, parallel=self.parallel,
             sqrt=self.sqrt, chunk_size=self.chunk_size,
@@ -176,6 +186,17 @@ class CVIGP(nn.Module):
             likelihood=BlockDiagonalGaussian(V=self.sites.V), observation=self.observation,
             parallel=self.parallel, sqrt=self.sqrt, chunk_size=self.chunk_size,
         )
+
+    @torch.no_grad()
+    def sample_f(self, generator, n_samples: int, t_new=None):
+        """Joint posterior sample paths [S, T*, p]: q(f) is the surrogate's
+        smoothed posterior, so this is the surrogate's `sample_f`."""
+        return self.surrogate_model().sample_f(generator, n_samples, t_new=t_new)
+
+    @torch.no_grad()
+    def sample_f_given(self, eps_x, eps_y, eps_corr=None, t_new=None):
+        """`sample_f` on given standard-normal draws (`StateSpaceGP.sample_f_given`)."""
+        return self.surrogate_model().sample_f_given(eps_x, eps_y, eps_corr, t_new=t_new)
 
     @torch.no_grad()
     def predict_f(self, t_new) -> GaussianMoments:

@@ -5,8 +5,9 @@ one Kalman-filter pass, the posterior a filter + RTS smoother pass, and
 prediction augments the time grid with NaN observations, sorts it, filters
 and smooths, and unsorts. `parallel=True` runs the parallel scans,
 `sqrt=True` the square-root filters, `chunk_size` the chunked scans; the
-runner pads the augmented grid to a multiple of the chunk. A prior mean and
-posterior sampling (`sample_f`) are not ported yet.
+runner pads the augmented grid to a multiple of the chunk. `sample_f` draws
+joint posterior sample paths by Matheron pathwise conditioning
+(`ops/sampling.py`). A prior mean is not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from ..likelihoods.gaussian import Gaussian
 from ..ops.lgssm import build_lgssm, project_mean, project_var
 from ..ops.matrix import diag_from_XDXT
 from ..ops.runner import run_filter, run_filter_smoother
+from ..ops.sampling import matheron_state_samples_given, standard_normal
 
 __all__ = ["StateSpaceGP", "StateSpaceGPView", "GaussianMoments"]
 
@@ -55,18 +57,41 @@ class StateSpaceGP(nn.Module):
                                    chunk_size=self.chunk_size)
         return ssm, f, s
 
-    def _filter_inputs(self):
-        ssm = _lgssm(self.kernel, self.observation, self.t)
-        T = self.Y.shape[0]
-        p = ssm.H.shape[-2]
+    def _corr(self):
+        """[p] conditional-variance correction of off-site heads, or None."""
+        if self.observation is None:
+            return None
+        return self.observation.var_correction(self.kernel)
+
+    def _noise(self):
+        """R [T, p, p] of the training rows; off-site heads fold their
+        conditional-variance residual into it."""
+        T, p = self.Y.shape
         R = self.likelihood.R(T, p)
-        if self.observation is not None:
-            corr = self.observation.var_correction(self.kernel)
-            if corr is not None:
-                # off-site heads: the conditional-variance residual folds
-                # into the observation noise
-                R = R + torch.diag_embed(corr.expand(T, p))
-        return ssm, R
+        corr = self._corr()
+        if corr is not None:
+            R = R + torch.diag_embed(corr.expand(T, p))
+        return R
+
+    def _filter_inputs(self):
+        return _lgssm(self.kernel, self.observation, self.t), self._noise()
+
+    def _augmented(self, t_new, what: str):
+        """(t, Y, R, inv) of the grid augmented with NaN rows at t_new
+        (identity noise there), sorted stably; `inv` unsorts it."""
+        if self.observation is not None and self.observation.H(self.kernel).dim() == 3:
+            raise ValueError(
+                f"{what} does not support time-varying observation operators "
+                "(H [T, p, d]): the training H cannot be reused on the augmented grid"
+            )
+        T, p = self.Y.shape
+        R = self._noise()
+        t_all = torch.cat([self.t, t_new])
+        Y_all = torch.cat([self.Y, self.Y.new_full((t_new.shape[0], p), float("nan"))])
+        eye = torch.eye(p, dtype=R.dtype, device=R.device)
+        R_all = torch.cat([R, eye.expand(t_new.shape[0], p, p)])
+        order = torch.argsort(t_all, stable=True)
+        return t_all[order], Y_all[order], R_all[order], torch.argsort(order)
 
     def log_marginal_likelihood(self):
         ssm, R = self._filter_inputs()
@@ -85,10 +110,9 @@ class StateSpaceGP(nn.Module):
         """Smoothed marginals at the training times: [T, p] mean and var."""
         ssm, _, s = self.filter_smooth()
         var = project_var(ssm.H, s.Ps)
-        if self.observation is not None:
-            corr = self.observation.var_correction(self.kernel)
-            if corr is not None:
-                var = var + corr
+        corr = self._corr()
+        if corr is not None:
+            var = var + corr
         return GaussianMoments(mean=project_mean(ssm.H, s.ms), var=var)
 
     def posterior_blocks(self):
@@ -100,27 +124,10 @@ class StateSpaceGP(nn.Module):
         """Posterior at new times: the grid augmented with NaN observations
         (identity noise there), sorted stably, filtered and smoothed, and
         unsorted."""
-        t_new = t_new.reshape(-1)
-        n_new = t_new.shape[0]
-        T, p = self.Y.shape
-        corr = None
-        if self.observation is not None:
-            if self.observation.H(self.kernel).dim() == 3:
-                raise ValueError(
-                    "predict_f does not support time-varying observation operators "
-                    "(H [T, p, d]): the training H cannot be reused on the augmented grid"
-                )
-            corr = self.observation.var_correction(self.kernel)
-        t_all = torch.cat([self.t, t_new])
-        Y_all = torch.cat([self.Y, self.Y.new_full((n_new, p), float("nan"))])
-        R_train = self.likelihood.R(T, p)
-        if corr is not None:
-            R_train = R_train + torch.diag_embed(corr.expand(T, p))
-        eye = torch.eye(p, dtype=R_train.dtype, device=R_train.device)
-        R_all = torch.cat([R_train, eye.expand(n_new, p, p)])
-        order = torch.argsort(t_all, stable=True)
-        inv = torch.argsort(order)
-        view = StateSpaceGPView(t=t_all[order], Y=Y_all[order], R=R_all[order], base=self)
+        t, Y, R, inv = self._augmented(t_new.reshape(-1), "predict_f")
+        T = self.Y.shape[0]
+        corr = self._corr()
+        view = StateSpaceGPView(t=t, Y=Y, R=R, base=self)
         ssm, _, s = view.filter_smooth()
         mean = (s.ms @ ssm.H.T)[inv][T:]
         var = diag_from_XDXT(ssm.H, s.Ps)[inv][T:]
@@ -133,6 +140,61 @@ class StateSpaceGP(nn.Module):
         if isinstance(self.likelihood, Gaussian):
             return GaussianMoments(f.mean, f.var + self.likelihood.variance.value)
         return f
+
+    def _sample_inputs(self, t_new):
+        """(ssm, R, Y, unsort) of the sampling pass: the training grid, or
+        the grid augmented at `t_new` (`_augmented`), whose `unsort` maps the
+        samples back and keeps the new rows."""
+        if t_new is None:
+            ssm, R = self._filter_inputs()
+            return ssm, R, self.Y, None
+        t, Y, R, inv = self._augmented(t_new.reshape(-1), "sample_f at new times")
+        T = self.Y.shape[0]
+        return _lgssm(self.kernel, self.observation, t), R, Y, lambda f: f[:, inv][:, T:]
+
+    def _sample(self, inputs, eps_x, eps_y, eps_corr):
+        ssm, R, Y, unsort = inputs
+        xs = matheron_state_samples_given(
+            ssm, R, Y, eps_x, eps_y, parallel=self.parallel, sqrt=self.sqrt,
+            chunk_size=self.chunk_size,
+        )  # [S, T*, d]
+        f = xs @ ssm.H.T if ssm.H.dim() == 2 else torch.einsum("tpd,std->stp", ssm.H, xs)
+        if unsort is not None:
+            f = unsort(f)
+        corr = self._corr()
+        if corr is not None:
+            # the off-site conditional residual, drawn independently per row:
+            # sampled paths carry posterior()'s dispersion
+            f = f + torch.sqrt(corr.expand(f.shape[1:])) * eps_corr
+        return f
+
+    def sample_f_given(self, eps_x, eps_y, eps_corr=None, t_new=None):
+        """Joint posterior sample paths of the heads, [S, T_out, p], from
+        given standard-normal draws: eps_x [T*, S, d] for the prior states
+        and eps_y [S, T*, p] for the pseudo-observation noise, on the grid
+        of the pass (T* rows: the training times, or them and `t_new`
+        sorted), and eps_corr [S, T_out, p] for the off-site conditional
+        residual (read only when a head has a `var_correction`)."""
+        return self._sample(self._sample_inputs(t_new), eps_x, eps_y, eps_corr)
+
+    def sample_f(self, generator, n_samples: int, t_new=None):
+        """Joint posterior sample paths of the heads, [S, T_out, p], by
+        Matheron pathwise conditioning: prior trajectories by the affine
+        scan and one smoother pass per dataset (`ops/sampling.py`).
+        `t_new=None` samples at the training times, otherwise at `t_new`
+        (the augmented grid of `predict_f`). The draws eps_x, eps_y, then
+        eps_corr come from `generator`, a `torch.Generator` on the model's
+        device."""
+        inputs = self._sample_inputs(t_new)
+        ssm, _, Y, _ = inputs
+        n_all, p = Y.shape
+        n_out = n_all if t_new is None else n_all - self.Y.shape[0]
+        eps_x = standard_normal(generator, (n_all, n_samples, ssm.A.shape[-1]), Y)
+        eps_y = standard_normal(generator, (n_samples, n_all, p), Y)
+        eps_corr = None
+        if self._corr() is not None:
+            eps_corr = standard_normal(generator, (n_samples, n_out, p), Y)
+        return self._sample(inputs, eps_x, eps_y, eps_corr)
 
 
 class StateSpaceGPView:

@@ -4,13 +4,15 @@ Counterpart of `physs_gp_tpu/utils/params.py`. A `Param` is an `nn.Module`
 holding the unconstrained value as an `nn.Parameter` named `raw`; `.value`
 applies the bijector's forward transform. `.fix()` turns gradients off
 (`requires_grad_(False)`), the counterpart of the JAX package's stop-gradient.
+`NegParam` is a view of a `Param` as its negation.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-__all__ = ["Identity", "Positive", "identity", "positive", "Param", "positive_param"]
+__all__ = ["Identity", "Positive", "identity", "positive", "Param", "param", "positive_param",
+           "NegParam"]
 
 _SOFTPLUS_SHIFT = 1e-6  # lower bound keeping positive params away from 0
 
@@ -62,6 +64,24 @@ class Param(nn.Module):
         return self
 
 
+def param(value, dtype=None, device=None) -> Param:
+    return Param(torch.as_tensor(value, dtype=dtype, device=device))
+
+
 def positive_param(value, dtype=None, device=None, fixed: bool = False) -> Param:
     v = torch.as_tensor(value, dtype=dtype, device=device)
     return Param(positive.inverse(v), bijector=positive, fixed=fixed)
+
+
+class NegParam(nn.Module):
+    """View of a (typically positive) Param as its negation: a strictly
+    negative trainable coefficient (e.g. the -a Δf diffusion term) whose
+    `base` trains in the positive bijector's space."""
+
+    def __init__(self, base: Param):
+        super().__init__()
+        self.base = base
+
+    @property
+    def value(self) -> torch.Tensor:
+        return -self.base.value

@@ -1,9 +1,11 @@
 """Drive the PyTorch port on one CUDA card: the config-5 CVI step in
 covariance form (unfused and with the fused combines) and in square-root
 form, the temporal Poisson CVI fit in both forms, prediction at new times
-on both models, hyperparameter training on both, and the serving path:
-posterior sampling, streaming assimilation and forecasts, and the
-spatio-temporal model's predictions at new sites.
+on both models, hyperparameter training on both, the serving path
+(posterior sampling, streaming assimilation and forecasts, and the
+spatio-temporal model's predictions at new sites) and the physics-informed
+path (the Allen-Cahn, pendulum and monotonic CVI models with their
+Monte-Carlo residuals, and `ode_gp`).
 
     python3 chip_smoke.py
 
@@ -97,13 +99,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (float64: its lml equal to F2's, `predict_grid` at 64 sites at the
      training times and at 1000 new times); each path timed with its
      peak memory, its launch counters reset just before it and read just
-     after, on the warp and tiled kernels only.
+     after, on the warp and tiled kernels only;
+ 10. physics anchors, float64, against tests/data/physics_golden.npz (made
+     by scripts/port/make_physics_golden.py from the JAX package): the
+     Allen-Cahn experiment at full width (T = 56, Ns = 10, Nc = 12,
+     n_mc = 32) for 3 Gauss-Newton steps fed the JAX draws, in sequential
+     covariance and square-root form, the pendulum and the monotonic model
+     at their experiments' sizes (3 steps each) and `ode_gp`'s lml and
+     `predict_f`; then the experiment's hardware gate on the JAX-trained
+     Allen-Cahn sites (float64 covariance posterior to 1e-7, float32
+     square-root posterior within max |Δmean| 0.02 of the JAX CPU float32
+     one);
+ 11. the physics path at full width: Allen-Cahn, float32, sequential
+     square-root, 20 Gauss-Newton iterations with fresh draws and `nlpd` on
+     the extrapolation window, with each iteration's wall time, peak
+     memory, the busy share of one profiled iteration and the launches by
+     kernel and route: this path must take the block-per-matrix kernels of
+     the solves, the LQ and the Cholesky (d = 34, the [64, 64] update
+     pre-array), which the kernels phase also checks and times at these
+     shapes.
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
+import contextlib
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -500,6 +522,7 @@ def phase_kernels():
                         fc.fused_smooth_plain(a, b), dtype, f"[{N_SCAN},{D},{D}] {label}")
         # its own generator: the checks above keep the draws they had
         _check_small_d(torch.Generator(device="cuda").manual_seed(7), dtype, report)
+        _check_physics_shapes(torch.Generator(device="cuda").manual_seed(8), dtype, report)
     torch.cuda.synchronize()
     times = _time_kernels(gen)
     for name, rows in _time_scan_batch(gen).items():
@@ -507,6 +530,8 @@ def phase_kernels():
     times.update(_time_fused(gen))
     for name, rows in _time_temporal(gen).items():
         times[name]["at_temporal"] = rows
+    for name, rows in _time_physics(gen).items():
+        times[name]["at_physics"] = rows
     return worst, times
 
 
@@ -2111,6 +2136,337 @@ def phase_train_full():
     return paths
 
 
+# ---------------------------------------------------------------------------
+# The physics-informed path: Allen-Cahn, the pendulum, the monotonic model
+# and ode_gp (slice 5b)
+# ---------------------------------------------------------------------------
+
+PHYSICS_GOLDEN = os.path.join(REPO, "tests", "data", "physics_golden.npz")
+PHYSICS_PATH = "physics ac sqrt f32"
+# every kernel the Allen-Cahn path launches (no bmm: its sequential filters
+# and site ELL multiply in PyTorch's own ops), and the block-per-matrix
+# routes its d > 32 shapes take: the [1, 64, 64] update and smoother
+# pre-arrays (lq), the [56, 34, 34] site inverses (the two solves) and the
+# site factors R^1/2 [56, 34, 34] (chol)
+PHYSICS_KERNELS = ("gj_solve", "gj_solve_logdet", "lq", "chol")
+PHYSICS_BLOCK_ROUTES = ("gj_solve", "gj_solve_logdet", "lq", "chol")
+PHYSICS_ITERS = 20
+TOL_HARDWARE = 0.02  # experiments/ac.py: max |Δmean| on the extrapolation window
+# The outcome gate (physics on against off, 300 iterations each) runs in
+# scripts/port/physics_outcome.py, not here: its two trainings take ~115 s
+# on one H100.
+# Allen-Cahn anchors: 10 x the JAX package's largest gap between its CPU
+# branch and its Gauss-Jordan / Pallas-Cholesky branch on the same anchor
+# (`scripts/port/make_physics_golden.py --self-gap`: ELBOs 3.344e-08, sites
+# Y 9.444e-08, site variances 5.848e-09, posterior mean 5.522e-08, var
+# 1.707e-07): the samples' block covariance S is numerically singular, so
+# its Cholesky factor is fixed only up to rounding in the near-null
+# directions, which the collocation noise 1e-5 amplifies
+AC_TOL = {"elbos": 3.3e-7, "sites Y": 9.4e-7, "sites V diag": 5.8e-8, "posterior mean": 5.5e-7,
+          "posterior var": 1.7e-6}
+PHYSICS_TOL = {"elbos": 1e-9, "sites Y": 1e-7, "sites V diag": 1e-7, "posterior mean": 1e-7,
+               "posterior var": 1e-7}
+
+
+def _physics_outcome():
+    """scripts/port/physics_outcome.py: the Allen-Cahn inputs and model."""
+    sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
+    import physics_outcome
+
+    return physics_outcome
+
+
+@contextlib.contextmanager
+def _kzz_jitter(value):
+    """PHYSS_KZZ_JITTER set to `value` (None: unset) for the block."""
+    old = os.environ.pop("PHYSS_KZZ_JITTER", None)
+    if value is not None:
+        os.environ["PHYSS_KZZ_JITTER"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("PHYSS_KZZ_JITTER", None)
+        if old is not None:
+            os.environ["PHYSS_KZZ_JITTER"] = old
+
+
+def _check_physics_shapes(gen, dtype, report):
+    """The kernels at the Allen-Cahn path's shapes (T = 56, p = 34, d = 30):
+    the site inverse and solve + logdet [56, 34, 34] with a stride-0
+    identity (block route), the LQ of the update pre-array [1, 64, 64]
+    (block) and of the prediction's [1, 30, 60] and the smoother's
+    [1, 60, 60], the Cholesky of the site blocks [56, 34, 34] (block) and of
+    Q [56, 30, 30]. Each launch's route is asserted."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    T, p, d = 56, 34, 30
+    build.reset_launch_counts()
+    S = _spd(gen, T, p, dtype)
+    eye = torch.eye(p, dtype=dtype, device="cuda").expand(T, p, p)
+    report("gj_solve", "solve", *_rel(bl.batch_solve(S, eye), bl.gj_solve_plain(S, eye)), dtype,
+           f"[{T},{p},{p}] r={p} stride-0 I (physics)")
+    X, ld = bl.batch_solve_logdet(S, eye)
+    Xp, ldp = bl.gj_solve_logdet_plain(S, eye)
+    report("gj_solve_logdet", "solve", *_rel(X, Xp), dtype, f"[{T},{p},{p}] r={p} (physics)")
+    report("gj_solve_logdet", "logdet", *_rel(ld, ldp), dtype, f"[{T},{p},{p}] r={p} (physics)")
+    for dd, m in ((p + d, p + d), (d, 2 * d), (2 * d, 2 * d)):
+        B = _randn(gen, 1, dd, m).to(dtype)
+        L, Lp = bq.batch_tria(B), bq.tria_plain(B)
+        report("lq", "factor", *_rel(L @ L.mT, Lp @ Lp.mT), dtype, f"[1,{dd},{m}] L L^T (physics)")
+    for n in (p, d):
+        A = _spd(gen, T, n, dtype)
+        L, Lp = bc.batch_cholesky(A), bc.cholesky_plain(A)
+        report("chol", "factor", *_rel(L, Lp), dtype, f"[{T},{n},{n}] (physics)")
+    routes = build.route_counts()
+    want = {"gj_solve": (0, 1), "gj_solve_logdet": (0, 1), "lq": (1, 2), "chol": (1, 1)}
+    got = {k: (routes[k]["warp"], routes[k]["block"]) for k in want}
+    if got != want:
+        raise AssertionError(f"physics shapes: routes {got}, expected (warp, block) {want}")
+    print(f"[kernels] physics shapes {str(dtype)[6:]}: routes (warp, block) {got}")
+
+
+def _time_physics(gen):
+    """Kernel, plain and library time at the Allen-Cahn path's block-route
+    shapes, float32: the LQ of [1, 64, 64] (kernel: device time back to
+    back) against `torch.linalg.qr`; the solve and solve + logdet of
+    [56, 34, 34] with r = 34 (the site inverses) against
+    `torch.linalg.solve`; the Cholesky of the site blocks [56, 34, 34]
+    against `torch.linalg.cholesky`. The library calls take longer on the
+    host than on the device and cannot be queued: CUDA events around a run
+    of calls, as the host sends them. Returns {kernel: [row]}."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
+
+    f32, T, p = torch.float32, 56, 34
+    S = _spd(gen, T, p, f32)
+    eye = torch.eye(p, device="cuda").expand(T, p, p)
+    pre = _randn(gen, 1, 64, 64).to(f32)
+    host = "as the host sends them"
+    solve_flops = T * (2 * p ** 3 // 3 + 2 * p ** 3)
+    timed = [  # kernel, shape, call, plain, library, label, clock, bytes, flops
+        ("lq", "[1,64,64]", lambda: bq.batch_tria(pre), lambda: bq.tria_plain(pre),
+         lambda: torch.linalg.qr(pre.mT, mode="r"), f"torch.linalg.qr(B^T, mode='r'), {host}",
+         _time_device,
+         _nbytes(pre) + 4 * 64 * 64, 2 * 64 ** 3 - 2 * 64 ** 3 // 3),
+        ("gj_solve", f"[{T},{p},{p}] r={p} (stride-0 I)", lambda: bl.batch_solve(S, eye),
+         lambda: bl.gj_solve_plain(S, eye), lambda: torch.linalg.solve(S, eye),
+         f"torch.linalg.solve, {host}", _time, _nbytes(S, eye) + 4 * T * p * p, solve_flops),
+        ("gj_solve_logdet", f"[{T},{p},{p}] r={p} (stride-0 I)", lambda: bl.batch_solve_logdet(S, eye),
+         lambda: bl.gj_solve_logdet_plain(S, eye), None, None, _time,
+         _nbytes(S, eye) + 4 * T * (p * p + 1), solve_flops),
+        # the Cholesky reads only the lower triangle: p (p + 1) / 2 words
+        ("chol", f"[{T},{p},{p}]", lambda: bc.batch_cholesky(S), lambda: bc.cholesky_plain(S),
+         lambda: torch.linalg.cholesky(S), f"torch.linalg.cholesky, {host}", _time,
+         4 * T * p * (p + 1) // 2 + 4 * T * p * p, T * p ** 3 // 3),
+    ]
+    out = {}
+    for name, shape, kern, plain, lib, lib_label, clock, nbytes, flops in timed:
+        kern(), plain()
+        if lib is not None:
+            lib()
+        torch.cuda.synchronize()
+        p1, k1 = _time(plain), clock(kern)
+        l1 = _time(lib) if lib is not None else None
+        l2 = _time(lib) if lib is not None else None
+        k2, p2 = clock(kern), _time(plain)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+        row = {"shape": shape, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "library_ms": None if lib is None else (l1 + l2) / 2, "library": lib_label,
+               "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "timing": "device_back_to_back" if clock is _time_device else "events"}
+        out.setdefault(name, []).append(row)
+        lib_txt = "none" if lib is None else f"{row['library_ms']:.4f} ms ({lib_label})"
+        print(f"[kernels] time {name} {shape} f32 (physics, block route): kernel {row['ms']:.4f} ms "
+              f"({row['timing']}), plain {row['plain_ms']:.4f} ms, library {lib_txt}, bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']}: {nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e9:.4f} GFLOP)")
+    return out
+
+
+def _hold_elbos(tag, elbos, ref, tol=1e-9):
+    r = float(np.max(np.abs(np.asarray(elbos) - ref) / np.abs(ref)))
+    print(f"[{tag}] ELBOs {elbos} max rel {r:.3e} (tol {tol:g})")
+    if not r <= tol:
+        raise AssertionError(f"{tag}: ELBOs disagree with the JAX reference")
+
+
+def _hold_cvi(tag, model, elbos, g, key, tol=PHYSICS_TOL):
+    """ELBOs, sites and posterior moments against the golden `key_*`."""
+    _hold_elbos(tag, elbos, g[f"{key}_elbos"], tol["elbos"])
+    post = model.posterior()
+    got = {"sites Y": (model.sites.Y, g[f"{key}_sites_Y"]),
+           "sites V diag": (torch.diagonal(model.sites.V, dim1=-2, dim2=-1), g[f"{key}_sites_Vdiag"]),
+           "posterior mean": (post.mean, g[f"{key}_mean"]),
+           "posterior var": (post.var, g[f"{key}_var"])}
+    for q, pair in got.items():
+        _hold(tag, {q: pair}, tol[q])
+
+
+def phase_physics_anchor():
+    """Float64 anchors against tests/data/physics_golden.npz (made by
+    scripts/port/make_physics_golden.py from the JAX package on the CPU):
+    Allen-Cahn at the experiment's full width (T = 56, Ns = 10, Nc = 12,
+    n_mc = 32), 3 Gauss-Newton steps at lr 0.3 fed the JAX draws, in
+    sequential covariance and square-root form; the pendulum (40 data, 80
+    collocation points, n_mc = 16) likewise; the monotonic model (30 data,
+    100 collocation points), 3 exact steps at lr 0.5; `ode_gp`'s lml and
+    `predict_f`. Then the experiment's hardware gate on the JAX-trained
+    Allen-Cahn sites: the float64 covariance posterior to 1e-7, and the
+    float32 square-root posterior (PHYSS_KZZ_JITTER=1e-4 on both sides)
+    within max |Δmean| < 0.02 on the grid heads over the extrapolation
+    window of the JAX CPU float32 one."""
+    from physs_gp_tpu_torch.approx.cvi import Sites
+    from physs_gp_tpu_torch.kernels.matern import Matern72
+    from physs_gp_tpu_torch.zoo.physics import monotonic_cvi_gp, nonlinear_ode_cvi_gp, ode_gp
+
+    po = _physics_outcome()
+    g = np.load(PHYSICS_GOLDEN)
+    f64 = torch.float64
+
+    def dev(x, dtype=f64):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
+
+    ac_in = (g["ac_t"], g["ac_Y"], g["ac_Z"], g["ac_coll"])
+    with _kzz_jitter(None):
+        for form in ("cov", "sqrt"):
+            tag = f"anchor physics ac {form}"
+            m = po.build(*ac_in, po.FULL["n_mc"], f64, form == "sqrt", "cuda")
+            elbos = [float(m.step_with_elbo(0.3, hessian="gauss_newton", draws=dev(d))[1])
+                     for d in g["ac_draws"]]
+            _hold_cvi(tag, m, elbos, g, f"ac_{form}", AC_TOL)
+        m = nonlinear_ode_cvi_gp(
+            g["pend_t_data"], g["pend_y_data"], g["pend_t_coll"],
+            lambda f: f[..., 2] + 0.3 * f[..., 1] + 9.0 * torch.sin(f[..., 0]), n_heads=3,
+            kernel=Matern72(1.0, 1.0, dtype=f64, device="cuda"), noise=0.03**2, coll_noise=1e-4,
+            n_mc=16, device="cuda")
+        elbos = [float(m.step_with_elbo(0.3, hessian="gauss_newton", draws=dev(d))[1])
+                 for d in g["pend_draws"]]
+        _hold_cvi("anchor physics pendulum", m, elbos, g, "pend")
+        m = monotonic_cvi_gp(g["mono_t_data"], g["mono_y_data"], g["mono_t_coll"], noise=0.15**2,
+                             device="cuda")
+        elbos = [float(m.step_with_elbo(0.5)[1]) for _ in range(3)]
+        _hold_cvi("anchor physics monotonic", m, elbos, g, "mono")
+        m = ode_gp(g["ode_t_data"], g["ode_y_data"], g["ode_t_coll"], [4.0, 0.4, 1.0],
+                   kernel=Matern72(1.5, 1.0, dtype=f64, device="cuda"), noise=0.05**2, coll_noise=1e-6,
+                   device="cuda")
+        with torch.no_grad():
+            lml = float(m.log_marginal_likelihood())
+            f = m.predict_f(dev(g["ode_t_test"]))
+        _hold_elbos("anchor physics ode_gp", [lml], np.asarray([g["ode_lml"]]))
+        _hold("anchor physics ode_gp", {"predict_f mean": (f.mean, g["ode_f_mean"]),
+                                        "predict_f var": (f.var, g["ode_f_var"])}, 1e-7)
+        m = po.build(*ac_in, po.FULL["n_mc"], f64, False, "cuda")
+        m.sites = Sites(dev(g["ac_trained_sites_Y"]), dev(g["ac_trained_sites_V"]))
+        post = m.posterior()
+        _hold("hardware gate f64", {"posterior mean": (post.mean, g["ac_trained_f64_mean"]),
+                                    "posterior var": (post.var, g["ac_trained_f64_var"])}, 1e-7)
+    with _kzz_jitter("1e-4"):
+        f32 = torch.float32
+        m = po.build(*ac_in, po.FULL["n_mc"], f32, True, "cuda")
+        m.sites = Sites(dev(g["ac_trained_sites_Y"], f32), dev(g["ac_trained_sites_V"], f32))
+        mean = m.posterior().mean.double().cpu().numpy()
+    later, Ns = po.extrapolation_rows(g["ac_t"]), g["ac_Z"].shape[0]
+    dm = float(np.max(np.abs(mean[later][:, :Ns] - g["ac_trained_f32_mean"][later][:, :Ns])))
+    dm_all = float(np.max(np.abs(mean - g["ac_trained_f32_mean"])))
+    print(f"[hardware gate f32] sequential square-root posterior from the JAX-trained sites: "
+          f"max |Δmean| {dm:.3e} on the grid heads over the extrapolation window (tol "
+          f"{TOL_HARDWARE}), {dm_all:.3e} over every head and step")
+    if not dm < TOL_HARDWARE:
+        raise AssertionError("hardware gate: the float32 posterior disagrees with the JAX CPU one")
+
+
+def phase_physics_full():
+    """Allen-Cahn at the experiment's full width, float32, sequential
+    square-root (its accelerator arm): 20 Gauss-Newton natural-gradient
+    iterations at lr 0.3, fresh draws from one seeded generator each
+    iteration, then `nlpd` on the extrapolation window (truth at the grid
+    heads). Launch counters are reset just before the iterations and read
+    after them and after `nlpd`; the path must take the block routes of
+    PHYSICS_BLOCK_ROUTES. Prints each iteration's wall time, peak memory
+    and the device's busy share over one more, profiled, iteration."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    po = _physics_outcome()
+    cfg, f32 = po.FULL, torch.float32
+    t, Y, Z, coll, F = po.inputs(cfg["T"], cfg["Ns"], cfg["Nc"])
+    with _kzz_jitter(None):
+        model = po.build(t, Y, Z, coll, cfg["n_mc"], f32, True, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        walls, elbos = [], []
+        for _ in range(PHYSICS_ITERS):
+            t0 = time.perf_counter()
+            model, elbo = model.step_with_elbo(po.LR, hessian="gauss_newton", generator=gen)
+            elbos.append(float(elbo))
+            walls.append(time.perf_counter() - t0)
+        train_counts = kernels.launch_counts()
+        later = po.extrapolation_rows(t)
+        y_nlpd = np.full((int(later.sum()), cfg["Ns"] + 2 * cfg["Nc"]), np.nan)
+        y_nlpd[:, :cfg["Ns"]] = F[later]
+        t0 = time.perf_counter()
+        nlpd = float(model.nlpd(torch.as_tensor(t[later], dtype=f32, device="cuda"),
+                                torch.as_tensor(y_nlpd, dtype=f32, device="cuda")))
+        wall_nlpd = time.perf_counter() - t0
+        counts, routes = kernels.launch_counts(), kernels.route_counts()
+        peak = _peak()
+        post = model.posterior()
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            model.step_with_elbo(po.LR, hessian="gauss_newton", generator=gen)
+            torch.cuda.synchronize()
+            wall_prof = time.perf_counter() - t0
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in events)
+        ours = {}  # the hand-written kernels by name: (us, launches)
+        for e in events:
+            m = re.match(r"void \(anonymous namespace\)::(\w+_kernel<[^(]*>)\(", e.key)
+            if m:
+                us, n = ours.get(m.group(1), (0.0, 0))
+                ours[m.group(1)] = (us + e.self_device_time_total, n + e.count)
+    finite = bool(np.all(np.isfinite(elbos)) and torch.isfinite(post.mean).all()
+                  and torch.isfinite(post.var).all() and np.isfinite(nlpd))
+    rmse = float(np.sqrt(np.mean((post.mean[:, :cfg["Ns"]].double().cpu().numpy()[later] - F[later]) ** 2)))
+    print(f"[full physics ac] T={cfg['T']} Ns={cfg['Ns']} Nc={cfg['Nc']} n_mc={cfg['n_mc']} "
+          f"(state d = {3 * cfg['Ns']}, p = {cfg['Ns'] + 2 * cfg['Nc']}), float32 sequential square-root")
+    print(f"[full physics ac] ELBOs {elbos}")
+    print(f"[full physics ac] iteration wall s {[round(w, 4) for w in walls]}; median after the first "
+          f"{float(np.median(walls[1:])):.4f} s; nlpd {nlpd!r} in {wall_nlpd:.4f} s; peak {peak:.3f} GiB; "
+          f"extrapolation RMSE after {PHYSICS_ITERS} iterations {rmse:.4f}; finite {finite}")
+    ours_us = sum(us for us, _ in ours.values())
+    print(f"[full physics ac] profiled iteration: wall {wall_prof * 1e3:.1f} ms, device busy "
+          f"{dev_us / 1e3:.2f} ms ({100 * dev_us / 1e3 / (wall_prof * 1e3):.1f} % of wall): "
+          f"hand-written kernels {ours_us / 1e3:.2f} ms, PyTorch's own {(dev_us - ours_us) / 1e3:.2f} ms")
+    for name, (us, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
+        print(f"[full physics ac] profiled iteration: {name} {us / 1e3:.3f} ms in {n} launches")
+    print(f"[full physics ac] launches per iteration: "
+          f"{ {k: v / PHYSICS_ITERS for k, v in train_counts.items()} }")
+    if not finite:
+        raise AssertionError("full physics ac: a non-finite ELBO, posterior or nlpd")
+    _path_check_physics(PHYSICS_PATH, counts, routes)
+    return {PHYSICS_PATH: counts}, {PHYSICS_PATH: routes}
+
+
+def _path_check_physics(tag, counts, routes):
+    """Every kernel of the path launched, each block route it must take
+    taken, no fused combine."""
+    print(f"[{tag}] launches: {counts}")
+    print(f"[{tag}] launches by route: {routes}")
+    if not all(counts[k] > 0 for k in PHYSICS_KERNELS):
+        raise AssertionError(f"{tag}: a kernel of the path was never launched")
+    if not all(routes[k]["block"] > 0 for k in PHYSICS_BLOCK_ROUTES):
+        raise AssertionError(f"{tag}: a block route the path takes was never taken")
+    if any(counts[k] for k in FUSED):
+        raise AssertionError(f"{tag}: a fused combine ran with its knob unset")
+    print(f"[{tag}] block routes taken: { {k: routes[k]['block'] for k in PHYSICS_BLOCK_ROUTES} }")
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2139,8 +2495,11 @@ def main():
     print("[anchor temporal cov knob on] ELBOs equal, bit for bit, to the knob-off run")
     phase_temporal_oracle()
     phase_serving_anchor()
+    t0 = time.perf_counter()
+    phase_physics_anchor()
+    print(f"[phase_physics_anchor] {time.perf_counter() - t0:.1f} s")
     paths, routes = phase_slice_full()
-    for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full):
+    for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full, phase_physics_full):
         t0 = time.perf_counter()
         more_paths, more_routes = phase()
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
@@ -2149,16 +2508,20 @@ def main():
     paths.update(phase_train_full())
     # `launches` of the fused combines from the fused covariance run, of the
     # others from the square-root run; `launches_by_path` has every run's,
-    # `launches_by_kernel` the split of that run's launches between the
-    # warp- and block-per-matrix kernels, where a wrapper has both
+    # `launches_by_kernel` the split between the warp- and block-per-matrix
+    # kernels, where a wrapper has both, of that run's launches and of the
+    # physics path's where it took a block route
+    def by_kernel(name):
+        split = {p: routes[p][name] for p in (LAUNCHES_PATH[name], PHYSICS_PATH)
+                 if name in routes[p] and (p != PHYSICS_PATH or routes[p][name]["block"])}
+        return {"launches_by_kernel": split} if split else {}
+
     kernels = [
         {"name": name, "route": "cuda", "source": f"physs_gp_tpu_torch/csrc/{SOURCES[name]}.cu",
          "replaces": REPLACES[name],
          "launches": paths[LAUNCHES_PATH[name]][name], "launches_path": LAUNCHES_PATH[name],
          "launches_by_path": {path: counts[name] for path, counts in paths.items()},
-         **({"launches_by_kernel": routes[LAUNCHES_PATH[name]][name]}
-            if name in routes[LAUNCHES_PATH[name]] else {}),
-         "max_abs_err": worst[name], **times[name]}
+         **by_kernel(name), "max_abs_err": worst[name], **times[name]}
         for name in SOURCES
     ]
     print(f"[total] {time.perf_counter() - start:.1f} s")

@@ -10,7 +10,13 @@ buffer they name, in the model's device and dtype. A path that names a
 Python number (a setting the JAX package keeps static, such as
 `.likelihood.binsize`) takes the scalar's value, in the number's type.
 Tied and derived leaves walk the same way: `.likelihood.variances[0].p.raw`
-of a `SharedVariance` group, `...terms[1].coeff.base.raw` of a `NegParam`.
+of a `SharedVariance` group, `...terms[1].coeff.base.raw` of a `NegParam`;
+the physics path's leaves too: `.likelihood.heads[3].variance.raw` and
+`.likelihood.residual.noise_var.raw` of a `CompositeLikelihood`, its
+`.likelihood.residual_mask`, a `LinearOperatorHead`'s
+`.observation.heads[1].coeffs[1].raw` (a Param) or `...coeffs[0]` (a
+number), and static numbers such as `.likelihood.heads[1].nu` (`Probit`) or
+`.likelihood.residual.n_mc`.
 
 `load_stream_state(arrays, dtype, device)` carries a JAX `StreamState`
 (m, P, t_last, lml as numpy) into the port's.
@@ -46,13 +52,20 @@ def load_numpy_params(model, flat: dict) -> None:
         obj = model
         for step in parents:
             obj = obj[step] if isinstance(step, int) else getattr(obj, step)
-        if isinstance(leaf, int) or not hasattr(obj, leaf):
+        if isinstance(leaf, int):  # an entry of a list of numbers
+            current = obj[leaf]
+        elif hasattr(obj, leaf):
+            current = getattr(obj, leaf)
+        else:
             raise KeyError(f"{key!r} does not name a leaf of the model")
-        current = getattr(obj, leaf)
         if isinstance(current, (int, float)) and not isinstance(current, bool):
             if np.size(value) != 1:
                 raise ValueError(f"{key!r}: a number takes a scalar, got shape {np.shape(value)}")
-            setattr(obj, leaf, type(current)(np.asarray(value).item()))
+            number = type(current)(np.asarray(value).item())
+            if isinstance(leaf, int):
+                obj[leaf] = number
+            else:
+                setattr(obj, leaf, number)
             continue
         if not isinstance(current, torch.Tensor):
             raise KeyError(f"{key!r} names {type(current).__name__}, not a tensor or number")

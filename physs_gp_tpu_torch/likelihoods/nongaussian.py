@@ -1,5 +1,6 @@
 """Non-Gaussian likelihoods (PyTorch counterpart of
-`physs_gp_tpu/likelihoods/nongaussian.py`: `Poisson` and the
+`physs_gp_tpu/likelihoods/nongaussian.py`: `Poisson`, the probit-link
+`Bernoulli` and the nu-scaled `Probit` of constraint heads, and the
 `expected_log_lik` dispatch; the other likelihoods are not ported yet).
 
 Every likelihood exposes `log_prob(y, f)`, the elementwise
@@ -13,9 +14,10 @@ import math
 
 import torch
 
+from ..ops.quadrature import expect_gh
 from .gaussian import Gaussian, Likelihood
 
-__all__ = ["Poisson", "expected_log_lik"]
+__all__ = ["Poisson", "Bernoulli", "Probit", "expected_log_lik"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -52,6 +54,63 @@ class Poisson(Likelihood):
 
     def conditional_variance(self, f):
         return torch.exp(f) * self.binsize
+
+
+def _log_ndtr(z):
+    return torch.special.log_ndtr(z)
+
+
+class Bernoulli(Likelihood):
+    """y in {0, 1} with the probit link P(y = 1 | f) = Phi(f); the
+    expectation by Gauss-Hermite quadrature."""
+
+    def __init__(self, gh_points: int = 20):
+        super().__init__()
+        self.gh_points = gh_points
+
+    def log_prob(self, y, f):
+        return _log_ndtr(torch.where(y > 0.5, f, -f))
+
+    def expected_log_lik(self, y, m, v):
+        y0 = torch.nan_to_num(y)
+        val = expect_gh(lambda ff: _log_ndtr(torch.where(y0[..., None] > 0.5, ff, -ff)),
+                        m, v, self.gh_points)
+        return _mask_nan(y, val)
+
+    def conditional_mean(self, f):
+        return torch.special.ndtr(f)
+
+    def conditional_variance(self, f):
+        p = torch.special.ndtr(f)
+        return p * (1 - p)
+
+
+class Probit(Likelihood):
+    """nu-scaled probit on pseudo-observations, p(y = 1 | f) = Phi(f / nu):
+    inequality and monotonicity constraints (`zoo/physics.monotonic_cvi_gp`)."""
+
+    def __init__(self, nu: float = 1e-2, gh_points: int = 20):
+        super().__init__()
+        self.nu = nu
+        self.gh_points = gh_points
+
+    def log_prob(self, y, f):
+        return _log_ndtr(torch.where(y > 0.5, f, -f) / self.nu)
+
+    def expected_log_lik(self, y, m, v):
+        y0 = torch.nan_to_num(y)
+        val = expect_gh(
+            lambda ff: _log_ndtr(torch.where(y0[..., None] > 0.5, ff, -ff) / self.nu),
+            m, v, self.gh_points,
+        )
+        return _mask_nan(y, val)
+
+    def conditional_mean(self, f):
+        return torch.special.ndtr(f / self.nu)
+
+    def conditional_variance(self, f):
+        p = torch.special.ndtr(f / self.nu)
+        return p * (1 - p)
 
 
 def expected_log_lik(lik, y, m, v):

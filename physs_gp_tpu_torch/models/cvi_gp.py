@@ -16,8 +16,18 @@ the surrogate. `init_state` = (m0, P0) replaces the stationary prior of the
 filter (online CVI carries the previous segment's filtered state in it,
 `models/streaming.py`); as in the reference, `surrogate_model()` does not
 pass it on, so `predict_f` and `sample_f` start from the stationary prior.
-A prior mean and Monte-Carlo keys are not ported yet: asking for them
-raises.
+Block likelihoods (`CompositeLikelihood`: per-column heads and a nonlinear
+Monte-Carlo residual) supply the data ELL, its Gauss-Newton site gradients
+(`hessian="gauss_newton"`) and their own predictive densities.
+
+Monte-Carlo noise: `elbo`, `get_objective`, `natural_gradient_update` and
+`step_with_elbo` take `generator=`, a `torch.Generator` on the model's
+device, where the reference takes a PRNG key; one call draws the
+likelihood's [n_mc, T, p] standard normals once and every term of the call
+shares them. `generator=None` draws the same noise on every call (a fresh
+generator seeded with the residual's `seed`). `draws=` hands in the draws
+themselves (the JAX package's, in the tests). A prior mean is not ported
+yet: asking for one raises.
 """
 from __future__ import annotations
 
@@ -41,9 +51,10 @@ __all__ = ["CVIGP", "GaussianMoments"]
 _LOG2PI = math.log(2.0 * math.pi)
 
 
-def _no_key(key):
-    if key is not None:
-        raise NotImplementedError("Monte-Carlo keys are not ported yet")
+def check_generator(generator) -> None:
+    """A Monte-Carlo source is a `torch.Generator` or None (never a JAX key)."""
+    if generator is not None and not isinstance(generator, torch.Generator):
+        raise TypeError("Monte-Carlo noise needs a torch.Generator on the model's device")
 
 
 class CVIGP(nn.Module):
@@ -98,12 +109,25 @@ class CVIGP(nn.Module):
         return f.lml, project_mean(ssm.H, s.ms), S
 
     # ---- ELL terms ----
-    def _ell_data(self, m, S):
+    def mc_draws(self, generator=None):
+        """The likelihood's Monte-Carlo draws [n_mc, T, p] for one call, from
+        `generator` (None: the frozen seed), or None when the likelihood has
+        no Monte-Carlo term."""
+        check_generator(generator)
+        residual = getattr(self.likelihood, "residual", None)
+        if residual is None:
+            return None
+        return residual.draws(self.sites.Y, generator)
+
+    def _ell_data(self, m, S, draws=None):
         if self.observation is not None:
             corr = self.observation.var_correction(self.kernel)
             if corr is not None:
                 # off-site heads: q(f(s)) marginal var = H P H^T + ρ(s)
                 S = S + torch.diag_embed(corr.expand(m.shape))
+        if hasattr(self.likelihood, "expected_log_lik_blocks"):
+            # block likelihoods: per-column heads and nonlinear residuals
+            return self.likelihood.expected_log_lik_blocks(self.Y, m, S, draws=draws)
         v = torch.diagonal(S, dim1=-2, dim2=-1)
         return torch.sum(expected_log_lik(self.likelihood, self.Y, m, v))
 
@@ -132,44 +156,51 @@ class CVIGP(nn.Module):
         return self._ell_sites_ex(m, S)[0]
 
     # ---- public API ----
-    def elbo(self, key=None):
-        _no_key(key)
+    def _draws(self, generator, draws):
+        return self.mc_draws(generator) if draws is None else draws
+
+    def elbo(self, generator=None, draws=None):
+        draws = self._draws(generator, draws)
         lml_sur, m, S = self._surrogate_pass()
-        return self._ell_data(m, S) - self._ell_sites(m, S) + lml_sur
+        return self._ell_data(m, S, draws) - self._ell_sites(m, S) + lml_sur
 
-    def get_objective(self, key=None):
-        return -self.elbo(key=key)
+    def get_objective(self, generator=None, draws=None):
+        return -self.elbo(generator=generator, draws=draws)
 
-    def _site_grads(self, m, S, hessian: str):
+    def _site_grads(self, m, S, hessian: str, draws=None):
         """(g1, g2) of the data ELL from a likelihood that supplies them
-        (`natgrad_moments`, e.g. a Gauss-Newton form when hessian is not
-        "exact"); None lets `natgrad_update` take the exact gradient by
-        autograd, as it does for every likelihood ported so far."""
+        (`natgrad_moments`: the Gauss-Newton form of a residual when hessian
+        is not "exact"); None lets `natgrad_update` take the exact gradient
+        by autograd."""
         if hessian != "exact" and hasattr(self.likelihood, "natgrad_moments"):
-            return self.likelihood.natgrad_moments(self.Y, m, S, residual_hessian=hessian)
+            return self.likelihood.natgrad_moments(self.Y, m, S, residual_hessian=hessian,
+                                                   draws=draws)
         return None
 
     @torch.no_grad()
-    def natural_gradient_update(self, lr: float, hessian: str = "exact", key=None):
+    def natural_gradient_update(self, lr: float, hessian: str = "exact", generator=None,
+                                draws=None):
         """One CVI step on all sites; the sites are replaced in place."""
-        _no_key(key)
+        draws = self._draws(generator, draws)
         _, m, S = self._surrogate_pass()
         self.sites = natgrad_update(
-            self.sites, m, S, self._ell_data, lr, grads=self._site_grads(m, S, hessian)
+            self.sites, m, S, lambda mm, SS: self._ell_data(mm, SS, draws), lr,
+            grads=self._site_grads(m, S, hessian, draws),
         )
         return self
 
     @torch.no_grad()
-    def step_with_elbo(self, lr: float, hessian: str = "exact", key=None):
+    def step_with_elbo(self, lr: float, hessian: str = "exact", generator=None, draws=None):
         """One CVI step and the (pre-update) ELBO from a single surrogate
-        filter + smoother pass; the sites are replaced in place."""
-        _no_key(key)
+        filter + smoother pass; the sites are replaced in place. The ELBO and
+        the site gradients share one set of Monte-Carlo draws."""
+        draws = self._draws(generator, draws)
         lml_sur, m, S = self._surrogate_pass()
         ell_sites, naturals = self._ell_sites_ex(m, S)
-        elbo = self._ell_data(m, S) - ell_sites + lml_sur
+        elbo = self._ell_data(m, S, draws) - ell_sites + lml_sur
         self.sites = natgrad_update(
-            self.sites, m, S, self._ell_data, lr, grads=self._site_grads(m, S, hessian),
-            naturals=naturals,
+            self.sites, m, S, lambda mm, SS: self._ell_data(mm, SS, draws), lr,
+            grads=self._site_grads(m, S, hessian, draws), naturals=naturals,
         )
         return self, elbo
 
@@ -206,9 +237,12 @@ class CVIGP(nn.Module):
     @torch.no_grad()
     def predict_y(self, t_new, gh_points: int = 20) -> GaussianMoments:
         """Moment-matched predictive p(y*): E[y] = E_q[E[y | f]] and
-        Var[y] = E_q[Var[y | f] + E[y | f]^2] - E[y]^2 by Gauss-Hermite."""
+        Var[y] = E_q[Var[y | f] + E[y | f]^2] - E[y]^2 by Gauss-Hermite;
+        composite likelihoods route column h through head h."""
         f = self.predict_f(t_new)
         lik = self.likelihood
+        if hasattr(lik, "predict_y_moments"):
+            return GaussianMoments(*lik.predict_y_moments(f.mean, f.var, gh_points))
         ey = expect_gh(lik.conditional_mean, f.mean, f.var, gh_points)
         ey2 = expect_gh(
             lambda ff: lik.conditional_variance(ff) + lik.conditional_mean(ff) ** 2,
@@ -218,13 +252,22 @@ class CVIGP(nn.Module):
 
     @torch.no_grad()
     def nlpd(self, t_new, y_new, gh_points: int = 20):
-        """Negative log predictive density by log-domain Gauss-Hermite
-        quadrature, averaged over the finite elements of y_new."""
+        """Negative log predictive density by Gauss-Hermite quadrature,
+        averaged over the finite elements of y_new: the likelihood's own
+        `predictive_log_density` (log domain) where it has one, else its
+        `predictive_density`, else the log-domain rule on `log_prob`."""
         f = self.predict_f(t_new)
         y_new = y_new.reshape(f.mean.shape)
-        val = -expect_gh_log(
-            lambda ff: self.likelihood.log_prob(torch.nan_to_num(y_new)[..., None], ff),
-            f.mean, f.var, gh_points,
-        )
+        lik = self.likelihood
+        if hasattr(lik, "predictive_log_density"):
+            val = -lik.predictive_log_density(y_new, f.mean, f.var, gh_points)
+        elif hasattr(lik, "predictive_density"):
+            pd = lik.predictive_density(y_new, f.mean, f.var, gh_points)
+            val = -torch.log(torch.clamp(pd, min=torch.finfo(pd.dtype).tiny))
+        else:
+            val = -expect_gh_log(
+                lambda ff: lik.log_prob(torch.nan_to_num(y_new)[..., None], ff),
+                f.mean, f.var, gh_points,
+            )
         ok = torch.isfinite(y_new)
         return torch.sum(torch.where(ok, val, 0.0)) / torch.sum(ok)

@@ -27,7 +27,7 @@ from torch import nn
 from ..approx.cvi import Sites
 from ..ops.lgssm import build_lgssm, project_mean, project_var
 from ..ops.runner import run_filter
-from .cvi_gp import CVIGP, _no_key
+from .cvi_gp import CVIGP, check_generator
 from .ssgp import GaussianMoments
 
 __all__ = ["StreamingGP", "StreamingCVI", "StreamState", "SegmentResult"]
@@ -284,11 +284,14 @@ class StreamingCVI(nn.Module):
         the segment ELBO increments, each a lower bound on log p(y_seg | past)."""
         return _fresh_state(self.kernel, t0)
 
-    def update(self, state: StreamState, t, Y, key=None):
+    def update(self, state: StreamState, t, Y, generator=None, draws=None):
         """Assimilate one segment. Returns (state', segment_model), the
         fitted `CVIGP` over [t_last, t...] (its `posterior()` / `predict_y`
-        read within the segment; row 0 is the carry row)."""
-        _no_key(key)
+        read within the segment; row 0 is the carry row). A Monte-Carlo
+        likelihood draws fresh noise from `generator` at each iteration;
+        `draws` [n_mc, B + 1, p] are used at every iteration instead, and
+        with neither every iteration uses the frozen seed's draws."""
+        check_generator(generator)
         t, tc = _times(state, t)
         B = t.shape[0]
         Y = torch.as_tensor(Y, dtype=state.m.dtype, device=state.m.device)
@@ -305,7 +308,8 @@ class StreamingCVI(nn.Module):
         cvi.sites = Sites(site_Y, cvi.sites.V)
         elbo = state.m.new_zeros(())
         for _ in range(self.n_iters):
-            cvi, elbo = cvi.step_with_elbo(self.lr, hessian=self.hessian)
+            cvi, elbo = cvi.step_with_elbo(self.lr, hessian=self.hessian, generator=generator,
+                                           draws=draws)
         # the carry: the surrogate's filtered state under the final sites
         ssm = _carry_ssm(self.kernel, self.observation, state, tc)
         with torch.no_grad():

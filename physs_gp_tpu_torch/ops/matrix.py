@@ -14,6 +14,8 @@ whose backward calls the same forward entry points.
 3 <= d <= 80 to the pivot-floored Cholesky kernel (`ops/cuda/batched_chol.py`)
 with no batch-size gate; its backward recomputes through
 `torch.linalg.cholesky`, as the reference's does through XLA's.
+`robust_cholesky` stays off that kernel: it reads a failed factorisation as
+the sign to escalate its jitter, and the kernel never fails.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ __all__ = [
     "symmetrize",
     "safe_cholesky",
     "safe_cholesky_rel",
+    "robust_cholesky",
     "cholesky_solve",
     "gen_solve",
     "bmm",
@@ -137,6 +140,44 @@ def safe_cholesky_rel(A, rel: float | None = None):
     return _cholesky_any(
         symmetrize(A) + eps[..., None, None] * _eye(A.shape[-1], A), assume_psd=True
     )
+
+
+def _cholesky_or_nan(A):
+    """Library Cholesky with NaN for the members that are not positive
+    definite, as `jnp.linalg.cholesky` gives them; no error and no read-back
+    to the host (`cholesky_ex` with `check_errors=False`). n <= 2 runs the
+    closed form of `_cholesky_any`."""
+    if A.shape[-1] <= 2:
+        return _cholesky_any(A)
+    L, info = torch.linalg.cholesky_ex(A, check_errors=False)
+    return torch.where((info == 0)[..., None, None], L, float("nan")).tril()
+
+
+def robust_cholesky(A, rel: float | None = None, escalations=(1e2, 1e3, 1e4)):
+    """Cholesky with a per-member escalating relative jitter.
+
+    Projected block covariances S = H P Hᵀ over nearly dependent heads go
+    indefinite at the float32 error scale. Probe factorisations of sym(A) +
+    rel * lv * max|diag A| I at lv = 1, *escalations, without gradient, pick
+    per batch member the smallest level whose factor is finite; one real
+    factorisation then runs at that level. A member that fails at every
+    probed level takes the highest level unprobed (and is NaN if it fails
+    there too)."""
+    if rel is None:
+        rel = default_jitter(A.dtype)
+    A = symmetrize(A)
+    eye = _eye(A.shape[-1], A)
+    scale = torch.amax(torch.abs(torch.diagonal(A, dim1=-2, dim2=-1)), -1)[..., None, None] + 1e-30
+    levels = (1.0,) + tuple(escalations)
+    with torch.no_grad():
+        A_probe = A.detach()
+        mult = torch.full_like(scale, levels[-1])
+        # high to low: a finite smaller level overwrites
+        for lv in reversed(levels[:-1]):
+            L = _cholesky_or_nan(A_probe + (rel * lv) * scale * eye)
+            good = torch.isfinite(L).all(-1, keepdim=True).all(-2, keepdim=True)
+            mult = torch.where(good, lv, mult)
+    return _cholesky_or_nan(A + (rel * mult) * scale * eye)
 
 
 def cholesky_solve(L, B):

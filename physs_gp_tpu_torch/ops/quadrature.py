@@ -1,10 +1,10 @@
-"""Gauss-Hermite quadrature (PyTorch counterpart of
-`physs_gp_tpu/ops/quadrature.py`; the Monte-Carlo `expect_mc` is not ported
-yet).
+"""Gauss-Hermite quadrature and Monte-Carlo expectations (PyTorch
+counterpart of `physs_gp_tpu/ops/quadrature.py`).
 
 Nodes and weights are numpy constants (`numpy.polynomial.hermite.hermgauss`),
 so each expectation is one batched evaluation of g over a trailing axis of
-n nodes.
+n nodes. `expect_mc` draws from the caller's `torch.Generator` where the
+reference takes a PRNG key, or takes the draws themselves (`draws=`).
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-__all__ = ["gauss_hermite_points", "expect_gh", "expect_gh_log"]
+__all__ = ["gauss_hermite_points", "expect_gh", "expect_gh_log", "expect_mc"]
 
 
 @lru_cache(maxsize=None)
@@ -42,3 +42,15 @@ def expect_gh_log(log_g, m, v, n: int = 20):
     predictive densities that underflow float32 keep a finite log."""
     f, logw = _nodes(m, v, np.log, n)
     return torch.logsumexp(log_g(f) + logw, -1)
+
+
+def expect_mc(g, m, v, generator=None, n: int = 64, draws=None):
+    """Monte-Carlo E_{f ~ N(m, v)}[g(f)] over n standard-normal draws
+    [..., n] from `generator` (a `torch.Generator` on m's device), or over
+    the given `draws` of that shape."""
+    if draws is None:
+        from .sampling import standard_normal
+
+        draws = standard_normal(generator, m.shape + (n,), m)
+    f = m[..., None] + torch.sqrt(torch.clamp(v, min=0.0))[..., None] * draws
+    return torch.mean(g(f), -1)

@@ -13,6 +13,12 @@ Adam is `optax.adam`'s update (b1 0.9, b2 0.999, eps 1e-8 outside the
 square root, bias-corrected), which `torch.optim.Adam` computes. The
 natural-gradient half runs under `torch.no_grad()`, so no site carries
 autograd history into the next iteration.
+
+`generator=` (a `torch.Generator` on the model's device, where the
+reference splits a PRNG key per step) gives Monte-Carlo objectives fresh
+noise at every step; within one `vb_ng_adam_scan` iteration both halves
+share one set of draws, as the reference's halves share one key. Without
+it every step uses the model's frozen draws.
 """
 from __future__ import annotations
 
@@ -57,21 +63,26 @@ def _adam(model, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam(trainable_parameters(model), lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def _adam_step(model, opt):
-    """One Adam step on `model.get_objective()`; returns the objective
+def _adam_step(model, opt, **mc):
+    """One Adam step on `model.get_objective(**mc)`; returns the objective
     before the update, detached, on the device."""
     opt.zero_grad(set_to_none=True)
-    loss = model.get_objective()
+    loss = model.get_objective(**mc)
     loss.backward()
     opt.step()
     return loss.detach()
 
 
+def _mc(generator) -> dict:
+    """The keyword that passes `generator` on; none without one."""
+    return {} if generator is None else {"generator": generator}
+
+
 @torch.no_grad()
 def natgrad_scan(model: Any, lrs, n_steps: int | None = None, hessian: str = "exact",
-                 nan_guard: bool = True):
+                 generator=None, nan_guard: bool = True):
     """N CVI natural-gradient steps on a model exposing
-    `step_with_elbo(lr, hessian)`.
+    `step_with_elbo(lr, hessian, generator=)`.
 
     Returns `(model, elbos)` with `elbos[i]` the pre-update ELBO of step i.
     The model's sites are updated in place.
@@ -79,24 +90,25 @@ def natgrad_scan(model: Any, lrs, n_steps: int | None = None, hessian: str = "ex
     elbos = []
     for lr in _as_lrs(lrs, n_steps):
         old_sites = model.sites
-        model, elbo = model.step_with_elbo(lr, hessian=hessian)
+        model, elbo = model.step_with_elbo(lr, hessian=hessian, **_mc(generator))
         if nan_guard:
             _guard_sites(model, old_sites)
         elbos.append(elbo)
     return model, torch.stack(elbos)
 
 
-def adam_scan(model: Any, n_steps: int, lr: float = 1e-2):
+def adam_scan(model: Any, n_steps: int, lr: float = 1e-2, generator=None):
     """N Adam steps on the trainable hyperparameters of any model exposing
-    `get_objective()`. Returns `(model, losses)`, `losses[i]` the objective
-    before step i; the model's raws are updated in place."""
+    `get_objective()` (`get_objective(generator=)` with a generator).
+    Returns `(model, losses)`, `losses[i]` the objective before step i; the
+    model's raws are updated in place."""
     opt = _adam(model, lr)
-    losses = [_adam_step(model, opt) for _ in range(n_steps)]
+    losses = [_adam_step(model, opt, **_mc(generator)) for _ in range(n_steps)]
     return model, torch.stack(losses)
 
 
 def vb_ng_adam_scan(model: Any, n_steps: int, adam_lr: float = 1e-2, ng_lr: float = 1.0,
-                    hessian: str = "exact", nan_guard: bool = True):
+                    hessian: str = "exact", generator=None, nan_guard: bool = True):
     """VB_NG_ADAM: each iteration is one natural-gradient site step, then
     one Adam step on the trainable hyperparameters (ref
     `trainers/standard.py:58`).
@@ -108,8 +120,9 @@ def vb_ng_adam_scan(model: Any, n_steps: int, adam_lr: float = 1e-2, ng_lr: floa
     elbos = []
     for lr in _as_lrs(ng_lr, n_steps):
         old_sites = model.sites
-        model.natural_gradient_update(lr, hessian)
+        mc = {} if generator is None else {"draws": model.mc_draws(generator)}
+        model.natural_gradient_update(lr, hessian, **mc)
         if nan_guard:
             _guard_sites(model, old_sites)
-        elbos.append(-_adam_step(model, opt))
+        elbos.append(-_adam_step(model, opt, **mc))
     return model, torch.stack(elbos)

@@ -6,23 +6,30 @@ Each step runs on the model's device and updates the model in place; the
 trainers never move it. As in the reference, the host reads each loss
 (`AdamTrainer`) and each acceptance test (`NatGradTrainer`) as it goes:
 `trainers/scan.py` has the loops that keep them on the device.
-Monte-Carlo keys (`seed`) are not ported yet: asking for one raises.
+`seed=` seeds a `torch.Generator` on the model's device, from which every
+step (and every retry) draws fresh Monte-Carlo noise, where the reference
+splits a PRNG key; without it each step uses the model's frozen draws.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from ..utils.training import trainable_parameters
-from .scan import _adam, _adam_step, _sites_ok
+from .scan import _adam, _adam_step, _mc, _sites_ok
 
 __all__ = ["AdamTrainer", "NatGradTrainer", "VB_NG_Adam", "lr_schedule"]
 
 
-def _no_seed(seed):
-    if seed is not None:
-        raise NotImplementedError("Monte-Carlo keys (seed) are not ported yet")
+def _generator(model, seed):
+    """A generator on the model's device seeded with `seed`, or None."""
+    if seed is None:
+        return None
+    tensor = next(itertools.chain(model.buffers(), model.parameters()))
+    return torch.Generator(device=tensor.device).manual_seed(seed)
 
 
 def lr_schedule(kind: str, base: float, n: int):
@@ -43,9 +50,9 @@ class AdamTrainer:
     `train` takes that model."""
 
     def __init__(self, model: Any, lr: float = 1e-2, seed: int | None = None):
-        _no_seed(seed)
         self.opt = _adam(model, lr)
         self._params = trainable_parameters(model)
+        self.generator = _generator(model, seed)
 
     def train(self, model: Any, epochs: int, callback: Callable | None = None):
         """`epochs` Adam steps; returns `(model, losses)` with `losses[i]`
@@ -54,7 +61,7 @@ class AdamTrainer:
             raise ValueError("AdamTrainer.train takes the model the trainer was built for")
         losses = []
         for i in range(epochs):
-            loss = float(_adam_step(model, self.opt))
+            loss = float(_adam_step(model, self.opt, **_mc(self.generator)))
             losses.append(loss)
             if callback:
                 callback(i, model, loss)
@@ -69,9 +76,10 @@ class NatGradTrainer:
 
     def __init__(self, nan_max_attempts: int = 4, hessian: str = "exact",
                  seed: int | None = None):
-        _no_seed(seed)
         self.nan_max_attempts = nan_max_attempts
         self.hessian = hessian
+        self.seed = seed
+        self.generator = None  # made on the first model's device
 
     def train(self, model: Any, lrs, callback: Callable | None = None):
         """One step per learning rate in `lrs` (or one step at a scalar lr);
@@ -79,11 +87,13 @@ class NatGradTrainer:
         model."""
         if isinstance(lrs, (int, float)):
             lrs = [float(lrs)]
+        if self.generator is None:
+            self.generator = _generator(model, self.seed)
         for i, lr in enumerate(lrs):
             lr_try = float(lr)
             for _ in range(self.nan_max_attempts):
                 old_sites = model.sites
-                model.natural_gradient_update(lr_try, self.hessian)
+                model.natural_gradient_update(lr_try, self.hessian, **_mc(self.generator))
                 if bool(_sites_ok(model.sites, old_sites)):
                     break
                 model.sites = old_sites
@@ -100,7 +110,7 @@ class VB_NG_Adam:
     def __init__(self, model: Any, adam_lr: float = 1e-2, ng_lr: float = 1.0,
                  hessian: str = "exact", seed: int | None = None):
         self.adam = AdamTrainer(model, adam_lr, seed=seed)
-        self.ng = NatGradTrainer(hessian=hessian, seed=seed)
+        self.ng = NatGradTrainer(hessian=hessian, seed=None if seed is None else seed + 1)
         self.ng_lr = ng_lr
 
     def train(self, model: Any, epochs: int, callback: Callable | None = None):

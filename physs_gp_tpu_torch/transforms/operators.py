@@ -1,11 +1,13 @@
 """Physics as linear observation operators over the Markov state (PyTorch).
 
-Counterpart of the spatio-temporal parts of
+Counterpart of the temporal and gridded spatio-temporal parts of
 `physs_gp_tpu/transforms/operators.py`. A Matérn(p + 1/2) state holds
 (f, f', ..., f^(p)) up to scale, so any linear temporal operator is a
-constant row over the state; spatial operators act through the Kronecker
-spatial conditional w = (L_s k_s)(s, Z) Kzz^-1. Spatial operators carry a
-`.kind` tag that routes to the kernel's closed form (`RBF.K_op`).
+constant row over the state: the temporal heads (`ValueHead`,
+`DerivativeHead`, `LinearOperatorHead`) give one row (`.row`), the spatial
+heads a block of rows (`.rows`). Spatial operators act through the Kronecker
+spatial conditional w = (L_s k_s)(s, Z) Kzz^-1 and carry a `.kind` tag that
+routes to the kernel's closed form (`RBF.K_op`).
 """
 from __future__ import annotations
 
@@ -16,11 +18,16 @@ from ..kernels.matern import Matern
 
 __all__ = [
     "derivative_row",
+    "ValueHead",
+    "DerivativeHead",
+    "LinearOperatorHead",
     "StateObservation",
     "SpatialHead",
     "OperatorTerm",
     "STOperatorHead",
+    "s_identity",
     "s_grad",
+    "s_grad2",
     "s_laplacian",
 ]
 
@@ -42,6 +49,75 @@ def derivative_row(kernel, order: int):
     return onehot * kernel._lam.to(raw.dtype) ** order
 
 
+class ValueHead(nn.Module):
+    """Observe f itself."""
+
+    def row(self, kernel):
+        return derivative_row(kernel, 0)
+
+
+class DerivativeHead(nn.Module):
+    """Observe f^(order), e.g. f' for monotonicity constraints."""
+
+    def __init__(self, order: int = 1):
+        super().__init__()
+        self.order = order
+
+    def row(self, kernel):
+        return derivative_row(kernel, self.order)
+
+
+class Coefficients(nn.Module):
+    """A list of coefficients, each a number or a `Param` (registered as a
+    submodule, so it trains); indexed as a list."""
+
+    def __init__(self, values):
+        super().__init__()
+        self._values = list(values)
+        for i, c in enumerate(self._values):
+            if isinstance(c, nn.Module):
+                self.add_module(str(i), c)
+
+    def __len__(self):
+        return len(self._values)
+
+    def __iter__(self):
+        return iter(self._values)
+
+    def __getitem__(self, i):
+        return self._values[i]
+
+    def __setitem__(self, i, value):
+        if isinstance(self._values[i], nn.Module) or isinstance(value, nn.Module):
+            raise TypeError("only a number coefficient can be replaced")
+        self._values[i] = value
+
+
+class LinearOperatorHead(nn.Module):
+    """Observe L[f] = sum_k c_k f^(k), a linear ODE residual (e.g. the damped
+    oscillator f'' + c f' + k f observed as 0 at collocation times); a
+    coefficient may be a trainable `Param`."""
+
+    def __init__(self, coeffs):
+        super().__init__()
+        self.coeffs = Coefficients(coeffs)
+
+    def row(self, kernel):
+        out = 0.0
+        for k, c in enumerate(self.coeffs):
+            cv = c.value if hasattr(c, "value") else c
+            out = out + cv * derivative_row(kernel, k)
+        return out
+
+
+def s_identity(k, s, z):
+    """k_s itself, tagged for the closed form."""
+    return k(s, z)
+
+
+s_identity.kind = "identity"
+
+
 def s_grad(i: int):
     """∂k_s/∂s_i in the first argument, tagged for the closed form."""
 
@@ -49,6 +125,16 @@ def s_grad(i: int):
         return torch.func.grad(lambda ss: k(ss, z))(s)[i]
 
     op.kind = ("grad", i)
+    return op
+
+
+def s_grad2(i: int):
+    """∂²k_s/∂s_i² in the first argument, tagged for the closed form."""
+
+    def op(k, s, z):
+        return torch.func.grad(lambda ss: torch.func.grad(lambda s2: k(s2, z))(ss)[i])(s)[i]
+
+    op.kind = ("grad2", i)
     return op
 
 
@@ -61,30 +147,33 @@ s_laplacian.kind = "laplacian"
 
 
 class StateObservation(nn.Module):
-    """Observation matrix H [n_obs, d_state] stacked from heads."""
+    """Observation matrix H [n_obs, d_state] stacked from heads: one row per
+    `.row` head, a block per `.rows` head."""
 
     def __init__(self, heads):
         super().__init__()
         self.heads = nn.ModuleList(heads)
 
     def H(self, kernel):
-        return torch.cat([h.rows(kernel) for h in self.heads], 0)
+        return torch.cat(
+            [h.rows(kernel) if hasattr(h, "rows") else h.row(kernel)[None, :] for h in self.heads], 0
+        )
 
     def var_correction(self, kernel):
         """[p] conditional-variance correction per head row, or None when
         every head reads the state exactly."""
         parts = []
-        any_corr = False
         for h in self.heads:
             if hasattr(h, "var_correction") and getattr(h, "correction", True):
                 parts.append(h.var_correction(kernel))
-                any_corr = True
-            else:
-                pts = h.points
-                parts.append(torch.zeros(pts.shape[-2], dtype=pts.dtype, device=pts.device))
-        if not any_corr:
+            else:  # reads the state exactly: a zero per row
+                parts.append(h.points.shape[-2] if hasattr(h, "rows") else 1)
+        like = next((c for c in parts if isinstance(c, torch.Tensor)), None)
+        if like is None:
             return None
-        return torch.cat(parts, 0)
+        return torch.cat([
+            c if isinstance(c, torch.Tensor) else like.new_zeros(c) for c in parts
+        ], 0)
 
 
 class SpatialHead(nn.Module):

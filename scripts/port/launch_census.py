@@ -2,9 +2,14 @@
 prediction, or one Adam step's objective forward and backward) of the port
 by kernel and operand shape.
 
-    python3 scripts/port/launch_census.py [--model temporal|config5] [--sqrt]
-        [--T 100000] [--chunk 50000] [--blocks 1024] [--predict 1000]
+    python3 scripts/port/launch_census.py [--model temporal|config5|allen_cahn]
+        [--sqrt] [--T 100000] [--chunk 50000] [--blocks 1024] [--predict 1000]
         [--train] [--device cpu|cuda] [--dtype float32|float64]
+
+`--model allen_cahn` is the Allen-Cahn experiment at its full width
+(`physics_outcome.FULL`: T = 56, Ns = 10, Nc = 12, n_mc = 32; sequential
+filters, so `--T`, `--chunk` and `--blocks` do not apply) and its step is
+a Gauss-Newton step at lr 0.3 with a seeded generator.
 
 `--train` adds, after the step, the calls of `get_objective()` (the
 forward of an Adam step) and of its backward (`backward()` to every
@@ -57,10 +62,19 @@ def census(args):
         f"[{dims(X)}] + [{'-' if Y is None else dims(Y)}] plus_eye={int(plus_eye)}")
 
     os.environ["PHYSS_SCAN_BLOCKS"] = str(args.blocks)
-    build = getattr(bench_configs, f"build_{args.model}")
     dtype = getattr(torch, args.dtype)
-    model = build(args.T, args.chunk, dtype=dtype, sqrt=args.sqrt, device=args.device)
-    natgrad_scan(model, 0.5, n_steps=1)
+    if args.model == "allen_cahn":
+        import physics_outcome as po
+
+        cfg = po.FULL
+        t, Y, Z, coll, _ = po.inputs(cfg["T"], cfg["Ns"], cfg["Nc"])
+        model = po.build(t, Y, Z, coll, cfg["n_mc"], dtype, args.sqrt, args.device)
+        natgrad_scan(model, po.LR, n_steps=1, hessian="gauss_newton",
+                     generator=torch.Generator(device=args.device).manual_seed(0))
+    else:
+        build = getattr(bench_configs, f"build_{args.model}")
+        model = build(args.T, args.chunk, dtype=dtype, sqrt=args.sqrt, device=args.device)
+        natgrad_scan(model, 0.5, n_steps=1)
     out = {"step": dict(calls)}
     if args.predict:
         calls.clear()
@@ -80,7 +94,7 @@ def census(args):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", default="temporal", choices=["temporal", "config5"])
+    p.add_argument("--model", default="temporal", choices=["temporal", "config5", "allen_cahn"])
     p.add_argument("--sqrt", action="store_true")
     p.add_argument("--T", type=int, default=100_000)
     p.add_argument("--chunk", type=int, default=50_000)
@@ -91,6 +105,7 @@ def main():
     p.add_argument("--dtype", default="float32")
     args = p.parse_args()
     sys.path.insert(0, os.getcwd())
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     form = "square-root" if args.sqrt else "covariance"
     print(f"{args.model} {form} T={args.T} chunk={args.chunk} blocks={args.blocks} "
           f"{args.dtype} on {args.device}")

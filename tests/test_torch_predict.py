@@ -258,9 +258,10 @@ def test_config5_predict_f_matches_golden(monkeypatch, form):
 
 def test_what_is_not_ported_raises():
     model = tbuild(8, None, dtype=torch.float64, device="cpu")
-    for call in (lambda: model.elbo(key=0), lambda: model.step_with_elbo(0.5, key=0),
-                 lambda: model.natural_gradient_update(0.5, key=0)):
-        with pytest.raises(NotImplementedError):
+    # Monte-Carlo noise is ported: it takes a torch.Generator, never a JAX key
+    for call in (lambda: model.elbo(generator=0), lambda: model.step_with_elbo(0.5, generator=0),
+                 lambda: model.natural_gradient_update(0.5, generator=0)):
+        with pytest.raises(TypeError):
             call()
     with pytest.raises(NotImplementedError):
         CVIGP.init(model.t, model.Y, model.kernel, model.likelihood, mean=object())

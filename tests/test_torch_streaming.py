@@ -16,9 +16,9 @@ StreamingCVI runs on config-5 and the temporal Poisson data, which
 
 `CVIGP`'s `init_state` is held here too: it replaces the filter's prior in
 the ELBO, and, as in the reference, `surrogate_model()` (so `predict_f`)
-does not carry it. The reference's residual-mask test needs
-`likelihoods/composite`, which is not ported; `_segment_likelihood`'s mask
-logic is held to the JAX one on a stand-in likelihood until then.
+does not carry it. The reference's residual-mask test has its counterpart
+here on the port's `CompositeLikelihood`, and a stream with a Monte-Carlo
+residual is held to the JAX one on the draws JAX makes from its frozen key.
 """
 import os
 
@@ -374,37 +374,79 @@ def test_streaming_cvi_poisson_two_segments():
 
 
 def test_streaming_cvi_rejects_a_key():
+    """Monte-Carlo noise comes from a `torch.Generator`; a JAX-style key is
+    refused."""
     _, ps = _gp()
     s = StreamingCVI(kernel=ps.kernel, likelihood=Poisson())
-    with pytest.raises(NotImplementedError, match="Monte-Carlo"):
-        s.update(s.init_state(), t_([0.5]), t_([[1.0]]), key=0)
+    with pytest.raises(TypeError, match="torch.Generator"):
+        s.update(s.init_state(), t_([0.5]), t_([[1.0]]), generator=0)
+
+
+def _residual_pair(mask=None):
+    from physs_gp_tpu.likelihoods.composite import CompositeLikelihood as JComposite
+    from physs_gp_tpu.likelihoods.composite import NonlinearResidual as JResidual
+    from physs_gp_tpu_torch.likelihoods.composite import CompositeLikelihood, NonlinearResidual
+
+    jlik = JComposite(heads=[JGaussian(jpositive(0.05))],
+                      residual=JResidual(fn=lambda f: f[..., 0] ** 2 - 0.5, noise_var=jpositive(0.1),
+                                         n_mc=4),
+                      residual_mask=None if mask is None else jnp.asarray(mask))
+    lik = CompositeLikelihood(heads=[Gaussian(positive_param(0.05, **F64))],
+                              residual=NonlinearResidual(fn=lambda f: f[..., 0] ** 2 - 0.5,
+                                                         noise_var=positive_param(0.1, **F64),
+                                                         n_mc=4),
+                              residual_mask=None if mask is None else t_(mask))
+    return jlik, lik
 
 
 def test_segment_likelihood_mask_matches_jax():
     """The carry row drops out of a residual likelihood's mask; a user mask
-    keeps its rows behind it; a mask of another length raises. The stand-in
-    carries `residual` and `residual_mask`, the fields `_segment_likelihood`
-    reads, until `likelihoods/composite` is ported."""
-    from physs_gp_tpu.likelihoods.composite import CompositeLikelihood, NonlinearResidual
-
-    class StandIn(torch.nn.Module):
-        def __init__(self, residual_mask=None):
-            super().__init__()
-            self.residual = object()
-            self.register_buffer("residual_mask", residual_mask)
-
-    res = NonlinearResidual(fn=lambda f: f[..., 0] ** 2, noise_var=jpositive(0.1))
+    keeps its rows behind it; a mask of another length raises; the model's
+    own likelihood keeps its mask."""
     kern = Matern32(**F64)
     for mask, B in ((None, 5), ([1.0, 0.0, 1.0], 3)):
-        jlik = CompositeLikelihood(heads=[JGaussian(jpositive(0.05))], residual=res,
-                                   residual_mask=None if mask is None else jnp.asarray(mask))
+        jlik, lik = _residual_pair(mask)
         want = JStreamingCVI(kernel=JMatern32(), likelihood=jlik)._segment_likelihood(B).residual_mask
-        lik = StandIn(None if mask is None else t_(mask))
         seg = StreamingCVI(kernel=kern, likelihood=lik)._segment_likelihood(B)
         assert np.array_equal(seg.residual_mask.numpy(), np.asarray(want))
         assert lik.residual_mask is None or lik.residual_mask.shape == (B,)  # untouched
+        assert seg.residual is lik.residual and seg.heads is lik.heads
     with pytest.raises(ValueError, match="must cover one segment"):
-        StreamingCVI(kernel=kern, likelihood=StandIn(t_([1.0, 0.0, 1.0])))._segment_likelihood(7)
+        StreamingCVI(kernel=kern, likelihood=_residual_pair([1.0, 0.0, 1.0])[1])._segment_likelihood(7)
+
+
+def test_streaming_cvi_segment_likelihood_residual_mask():
+    """Counterpart of the reference's test of the same name: the dummy carry
+    row is excluded from the residual ([0, 1, ..., 1]; a user mask stays
+    behind the 0). Then two segments of a `StreamingCVI` with the residual,
+    fed the draws JAX makes from its frozen key (PRNGKey(0), [n_mc, B + 1,
+    p] per segment), carry the JAX states."""
+    kern = Matern32(lengthscale=0.9, **F64)
+    jlik, lik = _residual_pair()
+    rm = StreamingCVI(kernel=kern, likelihood=lik)._segment_likelihood(5).residual_mask
+    assert rm.shape == (6,) and rm[0] == 0.0 and bool(torch.all(rm[1:] == 1.0))
+    _, lik2 = _residual_pair([1.0, 0.0, 1.0])
+    rm2 = StreamingCVI(kernel=kern, likelihood=lik2)._segment_likelihood(3).residual_mask
+    np.testing.assert_array_equal(rm2.numpy(), [0.0, 1.0, 0.0, 1.0])
+
+    t, y = _series(T=24, seed=10)
+    bounds = [(0, 10), (10, 24)]
+    js = JStreamingCVI(kernel=JMatern32(lengthscale=0.9), likelihood=jlik, lr=0.5, n_iters=3,
+                       hessian="gauss_newton")
+    ps = StreamingCVI(kernel=kern, likelihood=lik, lr=0.5, n_iters=3, hessian="gauss_newton")
+    ref = _jax_stream(js, t, y, bounds)
+    st = ps.init_state(t0=float(t[0]))
+    for (lo, hi), (jst, jseg) in zip(bounds, ref):
+        draws = t_(jax.random.normal(jax.random.PRNGKey(0), (4, hi - lo + 1, 1), jnp.float64))
+        st, seg = ps.update(st, t_(t[lo:hi]), t_(y[lo:hi]), draws=draws)
+        _close(st, jst)
+        assert rel(seg.posterior().mean, jseg.posterior().mean) <= TOL
+    # a generator draws fresh noise at each iteration: another state than
+    # the frozen draws give
+    st0 = ps.init_state(t0=float(t[0]))
+    frozen, _ = ps.update(st0, t_(t[:10]), t_(y[:10]))
+    fresh, _ = ps.update(st0, t_(t[:10]), t_(y[:10]), generator=torch.Generator().manual_seed(3))
+    assert torch.isfinite(fresh.m).all() and not torch.equal(fresh.m, frozen.m)
 
 
 def test_cvi_init_state_matches_jax():

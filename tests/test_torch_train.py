@@ -120,10 +120,14 @@ def test_adam_trainer_takes_its_own_model():
     _, b = _temporal_pair(8)
     with pytest.raises(ValueError):
         trainers.AdamTrainer(a, 0.05).train(b, 1)
-    for make in (lambda: trainers.AdamTrainer(a, seed=0), lambda: trainers.NatGradTrainer(seed=0),
-                 lambda: trainers.VB_NG_Adam(a, seed=0)):
-        with pytest.raises(NotImplementedError):
-            make()
+    # a seed makes a generator on the model's device (the NatGradTrainer's
+    # at its first `train`, when it sees the model)
+    assert trainers.AdamTrainer(a, seed=0).generator.device == a.t.device
+    assert trainers.VB_NG_Adam(a, seed=0).adam.generator.initial_seed() == 0
+    ng = trainers.NatGradTrainer(seed=0)
+    assert ng.generator is None
+    ng.train(a, [0.5])
+    assert ng.generator.initial_seed() == 0
 
 
 def test_natgrad_trainer_halves_a_diverging_lr(blocked, monkeypatch):

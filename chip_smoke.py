@@ -3,9 +3,11 @@ covariance form (unfused and with the fused combines) and in square-root
 form, the temporal Poisson CVI fit in both forms, prediction at new times
 on both models, hyperparameter training on both, the serving path
 (posterior sampling, streaming assimilation and forecasts, and the
-spatio-temporal model's predictions at new sites) and the physics-informed
+spatio-temporal model's predictions at new sites), the physics-informed
 path (the Allen-Cahn, pendulum and monotonic CVI models with their
-Monte-Carlo residuals, and `ode_gp`).
+Monte-Carlo residuals, and `ode_gp`) and the scattered-sensor and
+vector-field paths (scattered and sparse spatio-temporal models, the
+Helmholtz flow, the magnetic field, the state-space LMC).
 
     python3 chip_smoke.py
 
@@ -29,7 +31,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      at N = 1, 255, 257; the temporal model's shapes (d = 1 and 2: every
      product with sizes in {1, 2}, the solves with r = 1 .. 6, the LQ at
      m = d .. 6, the Cholesky, the Gram + Cholesky) at N = 1, 255, 257 and
-     100 000, all on the warp kernels; then kernel, plain and library call
+     100 000, all on the warp kernels; the scattered path's shapes at
+     T = 100 000, chunk 25 000 (d = 24 and p = 4 operands with masked
+     filler rows, the scan's strided views at its batches 128 to 512, the
+     SC_* tables), all on the warp kernels; then kernel, plain and library call
      timed with CUDA events beside the bound from bytes and operations, the
      product, the Gram + Cholesky, the solve and the LQ also at the scans'
      batches ([256, 32, 32]; the solve also [512, 32, 32] with r = 64, the
@@ -117,7 +122,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      kernel and route: this path must take the block-per-matrix kernels of
      the solves, the LQ and the Cholesky (d = 34, the [64, 64] update
      pre-array), which the kernels phase also checks and times at these
-     shapes.
+     shapes;
+ 12. vector-field anchors (Phase A), float64, against
+     tests/data/vector_field_golden.npz (made by
+     scripts/port/make_vector_field_golden.py from the JAX package): first
+     both LQ kernels on a Householder tail with a subnormal vᵀv; then the
+     scattered experiment's full configuration (200 times, 516 rows, the 12
+     k-means sites the JAX recipe chose; d = 24, Ng = 4; chunk 64, padded)
+     in parallel covariance, square-root and fused form (lml, the posterior
+     through `unsort`, `scattered_st_predict` at the held-out rows),
+     `sparse_st_gp` with its gradient, Helmholtz at the quick configuration
+     (D = 100: PyTorch's own routines) in sequential covariance and
+     square-root form and one CVI step, the magnetic field with and without
+     the potential block in both scans, and `lmc_markov_gp` (lml, two
+     Poisson CVI steps); the Helmholtz square-root anchor must take the
+     "lq" wrapper's library route (its pre-arrays exceed `lq_fits`);
+ 13. the scattered model at full length (Phase B): the experiment's field,
+     noise, kernels and sites at 25 times per unit over 100 000 times
+     (about 250 000 rows, 20 % held out), float32, parallel covariance and
+     square-root form at chunk 25 000: `log_marginal_likelihood`,
+     `posterior` and `scattered_st_predict` timed, peak memory, launches by
+     kernel and route (every kernel of the form, warp routes only), the
+     float64 lml beside the float32 ones (relative gap at most
+     SCATTERED_LML_GAP); then the outcome gates of the
+     scattered and the Helmholtz experiments
+     (scripts/port/vector_field_outcome.py).
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -523,6 +552,7 @@ def phase_kernels():
         # its own generator: the checks above keep the draws they had
         _check_small_d(torch.Generator(device="cuda").manual_seed(7), dtype, report)
         _check_physics_shapes(torch.Generator(device="cuda").manual_seed(8), dtype, report)
+        _check_scattered_shapes(torch.Generator(device="cuda").manual_seed(9), dtype, report)
     torch.cuda.synchronize()
     times = _time_kernels(gen)
     for name, rows in _time_scan_batch(gen).items():
@@ -2416,21 +2446,8 @@ def phase_physics_full():
         counts, routes = kernels.launch_counts(), kernels.route_counts()
         peak = _peak()
         post = model.posterior()
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            model.step_with_elbo(po.LR, hessian="gauss_newton", generator=gen)
-            torch.cuda.synchronize()
-            wall_prof = time.perf_counter() - t0
-        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in events)
-        ours = {}  # the hand-written kernels by name: (us, launches)
-        for e in events:
-            m = re.match(r"void \(anonymous namespace\)::(\w+_kernel<[^(]*>)\(", e.key)
-            if m:
-                us, n = ours.get(m.group(1), (0.0, 0))
-                ours[m.group(1)] = (us + e.self_device_time_total, n + e.count)
+        wall_prof, dev_us, ours = _profiled(
+            lambda: model.step_with_elbo(po.LR, hessian="gauss_newton", generator=gen))
     finite = bool(np.all(np.isfinite(elbos)) and torch.isfinite(post.mean).all()
                   and torch.isfinite(post.var).all() and np.isfinite(nlpd))
     rmse = float(np.sqrt(np.mean((post.mean[:, :cfg["Ns"]].double().cpu().numpy()[later] - F[later]) ** 2)))
@@ -2440,18 +2457,41 @@ def phase_physics_full():
     print(f"[full physics ac] iteration wall s {[round(w, 4) for w in walls]}; median after the first "
           f"{float(np.median(walls[1:])):.4f} s; nlpd {nlpd!r} in {wall_nlpd:.4f} s; peak {peak:.3f} GiB; "
           f"extrapolation RMSE after {PHYSICS_ITERS} iterations {rmse:.4f}; finite {finite}")
-    ours_us = sum(us for us, _ in ours.values())
-    print(f"[full physics ac] profiled iteration: wall {wall_prof * 1e3:.1f} ms, device busy "
-          f"{dev_us / 1e3:.2f} ms ({100 * dev_us / 1e3 / (wall_prof * 1e3):.1f} % of wall): "
-          f"hand-written kernels {ours_us / 1e3:.2f} ms, PyTorch's own {(dev_us - ours_us) / 1e3:.2f} ms")
-    for name, (us, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
-        print(f"[full physics ac] profiled iteration: {name} {us / 1e3:.3f} ms in {n} launches")
+    _print_profile("full physics ac", "profiled iteration", wall_prof, dev_us, ours)
     print(f"[full physics ac] launches per iteration: "
           f"{ {k: v / PHYSICS_ITERS for k, v in train_counts.items()} }")
     if not finite:
         raise AssertionError("full physics ac: a non-finite ELBO, posterior or nlpd")
     _path_check_physics(PHYSICS_PATH, counts, routes)
     return {PHYSICS_PATH: counts}, {PHYSICS_PATH: routes}
+
+
+def _profiled(fn):
+    """(wall s, device busy us, {hand-written kernel: (us, launches)}) of one
+    call of fn under `torch.profiler`, ending in a synchronise."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = {}
+    for e in events:
+        m = re.match(r"void \(anonymous namespace\)::(\w+_kernel<[^(]*>)\(", e.key)
+        if m:
+            us, n = ours.get(m.group(1), (0.0, 0))
+            ours[m.group(1)] = (us + e.self_device_time_total, n + e.count)
+    return wall, sum(e.self_device_time_total for e in events), ours
+
+
+def _print_profile(tag, what, wall, dev_us, ours):
+    ours_us = sum(us for us, _ in ours.values())
+    print(f"[{tag}] {what}: wall {wall * 1e3:.1f} ms, device busy {dev_us / 1e3:.2f} ms "
+          f"({100 * dev_us / 1e3 / (wall * 1e3):.1f} % of wall): hand-written kernels "
+          f"{ours_us / 1e3:.2f} ms, PyTorch's own {(dev_us - ours_us) / 1e3:.2f} ms")
+    for name, (us, n) in sorted(ours.items(), key=lambda kv: -kv[1][0]):
+        print(f"[{tag}] {what}: {name} {us / 1e3:.3f} ms in {n} launches")
 
 
 def _path_check_physics(tag, counts, routes):
@@ -2466,6 +2506,312 @@ def _path_check_physics(tag, counts, routes):
     if any(counts[k] for k in FUSED):
         raise AssertionError(f"{tag}: a fused combine ran with its knob unset")
     print(f"[{tag}] block routes taken: { {k: routes[k]['block'] for k in PHYSICS_BLOCK_ROUTES} }")
+
+
+# ---------------------------------------------------------------------------
+# The scattered-sensor and vector-field paths: sparse and scattered ST,
+# Helmholtz, magnetic field, state-space LMC (slice 5d's vector-field part)
+# ---------------------------------------------------------------------------
+
+# Phase B: the scattered experiment's field, noise, kernels and 12 inducing
+# sites at its sampling density (25 times per unit) over 100 000 times
+SCATTERED_T, SCATTERED_END, SCATTERED_CHUNK = 100_000, 4000.0, 25_000
+# every kernel each form launches: the Kzz factor takes `chol` in both
+# (the square-root lml reads its log-determinant off the LQ factor: no
+# solve + logdet)
+SCATTERED_KERNELS = {"cov": ("bmm", "gj_solve", "gj_solve_logdet", "chol"),
+                     "sqrt": ("bmm", "gj_solve", "lq", "chol", "chol_gram")}
+# float32 against float64 lml, relative, either form: 3.6 x the larger of
+# the readings it was set from (covariance 8.68e-5, square-root 1.37e-4 on
+# one H100; PERF.md, section 6)
+SCATTERED_LML_GAP = 5e-4
+# The kernels' operand shapes on that path (state d = 24, p = Ng = 4 rows a
+# step, Kzz [12, 12]), as `launch_census.py --model scattered --T 100000
+# --chunk 25000 --blocks 256 [--sqrt]` lists them. Batches: 128, 256, 512
+# (the blocked scan's sequential pass and levels), a chunk, a chunk padded to
+# 256 blocks of 98, the 93 690 training times padded to four chunks, and 1.
+SC_D, SC_P, SC_KZZ = 24, 4, 12
+SC_CHUNK_PAD, SC_T_PAD = 25_088, 100_000
+# bmm: (batch, A's [rows, cols], B's [rows, cols], ta, tb); a dimension of
+# size SC_P is a step's rows, masked as the filter masks them
+SC_BMM = (
+    [(N, (24, 24), (24, 24), ta, tb) for N in (128, 256) for ta in (0, 1) for tb in (0, 1)]
+    + [(SCATTERED_CHUNK, a, b, ta, tb) for a, b, ta, tb in [
+        ((24, 24), (24, 24), 0, 0), ((24, 24), (24, 24), 1, 0), ((4, 24), (4, 24), 1, 0),
+        ((4, 24), (24, 24), 0, 0), ((4, 24), (4, 24), 0, 1), ((24, 24), (4, 24), 0, 1),
+        ((24, 4), (4, 24), 0, 0), ((24, 4), (4, 4), 0, 0), ((24, 24), (4, 24), 1, 1)]]
+    + [(SC_CHUNK_PAD, (24, 24), (24, 24), ta, tb) for ta, tb in ((0, 0), (0, 1), (1, 0))]
+    + [(SC_T_PAD, a, b, ta, tb) for a, b, ta, tb in [
+        ((24, 24), (24, 24), 0, 0), ((24, 24), (24, 24), 0, 1), ((24, 24), (24, 24), 1, 0),
+        ((4, 24), (24, 24), 0, 0), ((4, 24), (4, 24), 0, 1)]]
+)
+# solves: (batch, d, r); d = 4 is a step's masked innovation covariance S
+SC_SOLVE = [(128, 24, 24), (256, 24, 24), (256, 24, 48), (512, 24, 48), (SCATTERED_CHUNK, 4, 49),
+            (SCATTERED_CHUNK, 4, 53), (SC_CHUNK_PAD, 24, 24), (SC_CHUNK_PAD, 24, 25),
+            (SC_T_PAD, 24, 24), (SC_T_PAD, 4, 1)]
+SC_SOLVE_LOGDET = [(SC_T_PAD, 4, 1)]
+SC_CHOL = [(1, SC_KZZ), (1, 24), (SC_T_PAD, 24), (SC_T_PAD, 4)]
+SC_CHOL_GRAM = [(128, 24), (256, 24), (SCATTERED_CHUNK, 4), (SC_CHUNK_PAD, 24), (SC_T_PAD, 24)]  # (batch, Y's cols)
+SC_LQ = [(128, 24, 48), (256, 24, 48), (512, 24, 48), (1, 24, 48), (SCATTERED_CHUNK, 4, 28),
+         (SCATTERED_CHUNK, 24, 24), (SC_CHUNK_PAD, 24, 48), (SC_T_PAD, 4, 28)]
+
+
+def _vector_field():
+    """scripts/port/vector_field_outcome.py: the inputs, models, anchors and
+    outcome gates of these paths."""
+    sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
+    import vector_field_outcome
+
+    return vector_field_outcome
+
+
+def _check_subnormal_tails():
+    """Both LQ kernels on a row whose Householder tail has a subnormal vᵀv
+    (it reflects nothing; 2 / vᵀv would overflow and turn the rows below
+    NaN): the scattered square-root scans reach such tails in their
+    rank-deficient information factors. L Lᵀ against B Bᵀ and against the
+    plain version's."""
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
+
+    rng = np.random.default_rng(0)
+    for dtype, tiny in ((torch.float64, 1e-160), (torch.float32, 1e-20)):
+        for d, m in ((24, 48), (40, 50)):
+            B = rng.normal(size=(3, d, m))
+            B[:, 0] = 0.0
+            B[:, 0, 0] = 2.0
+            B[:, 1, 1:] = tiny * rng.normal(size=(3, m - 1))
+            B = torch.as_tensor(B, dtype=dtype, device="cuda")
+            L, Lp = bq.batch_tria(B), bq.tria_plain(B)
+            gram = B @ B.transpose(-1, -2)
+            err = float((L @ L.transpose(-1, -2) - gram).abs().max() / gram.abs().max())
+            err_plain = _rel(L @ L.transpose(-1, -2), Lp @ Lp.transpose(-1, -2))[0]
+            ok = bool(torch.isfinite(L).all()) and max(err, err_plain) <= TOL[dtype]["factor"]
+            print(f"[kernels lq subnormal tail] {str(dtype)[6:]} [3, {d}, {m}] finite "
+                  f"{bool(torch.isfinite(L).all())}, L Lᵀ rel err {err:.2e} (against B Bᵀ), "
+                  f"{err_plain:.2e} (against the plain version)")
+            if not ok:
+                raise AssertionError("lq: a subnormal Householder tail broke the factor")
+
+
+def _check_scattered_shapes(gen, dtype, report):
+    """The kernels at the scattered path's shapes (the SC_* tables), each
+    against its plain version at TOL: the products, the solves (L and the
+    log-determinant), the Choleskys and the LQ (L and L Lᵀ). Operands at the
+    scan's batches (<= 512) are strided views of [N, 3, ...], as the blocked
+    scan's sequential pass hands them over; a step's p = 4 rows carry the
+    filler rows of a step with 1-3 sensors as the filter builds them: zero
+    rows of H, a unit diagonal in S (`mask_covariance`), a unit noise entry
+    in the LQ's [H, R^1/2] pre-array. Every launch must take the warp
+    kernel."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
+    from physs_gp_tpu_torch.ops.cuda import build
+    from physs_gp_tpu_torch.ops.gaussian import mask_covariance
+
+    p = SC_P
+
+    def view(x):
+        """x as the scan hands it over at its batches: x[:, 1] of [N, 3, ...]."""
+        if x.shape[0] > 512:
+            return x
+        y = torch.zeros((x.shape[0], 3) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        y[:, 1] = x
+        return y[:, 1]
+
+    def observed(N):
+        """[N, p]: 1 for a step's sensors (1-4 of them), 0 for its filler rows."""
+        k = torch.randint(1, p + 1, (N, 1), generator=gen, device="cuda")
+        return (torch.arange(p, device="cuda") < k).to(torch.float64)
+
+    def operand(N, shape, obs):
+        x = _randn(gen, N, *shape)
+        if shape[0] == p:
+            x = x * obs[:, :, None]
+        if shape[1] == p:
+            x = x * obs[:, None, :]
+        return view(x.to(dtype))
+
+    def matrix(N, d):
+        """An SPD system at d = 24 (the scan's I + C J at the scan's batches),
+        the masked S at d = p."""
+        if d == p:
+            return mask_covariance(_spd(gen, N, p, torch.float64), observed(N)).to(dtype)
+        return view(_icj(gen, N, d, dtype) if N <= 512 else _spd(gen, N, d, dtype))
+
+    def factor(name, L, Lp, label):
+        if not torch.isfinite(L).all():
+            raise AssertionError(f"{name} {label} (scattered): non-finite factor")
+        report(name, "factor", *_rel(L, Lp), dtype, f"{label} L (scattered)")
+        report(name, "factor", *_rel(L @ L.mT, Lp @ Lp.mT), dtype, f"{label} L L^T (scattered)")
+
+    build.reset_launch_counts()
+    for N, a, b, ta, tb in SC_BMM:
+        obs = observed(N)
+        A, B = operand(N, a, obs), operand(N, b, obs)
+        report("bmm", "bmm", *_rel(bl.batch_bmm(A, B, bool(ta), bool(tb)), bl.bmm_plain(A, B, bool(ta), bool(tb))),
+               dtype, f"[{N},{a[0]},{a[1]}]{'^T' * ta} x [{N},{b[0]},{b[1]}]{'^T' * tb} (scattered)")
+    for name, cases in (("gj_solve", SC_SOLVE), ("gj_solve_logdet", SC_SOLVE_LOGDET)):
+        for N, d, r in cases:
+            M, R = matrix(N, d), view(_randn(gen, N, d, r).to(dtype))
+            label = f"[{N},{d},{d}] r={r}"
+            if name == "gj_solve":
+                report(name, "solve", *_rel(bl.batch_solve(M, R), bl.gj_solve_plain(M, R)), dtype,
+                       f"{label} (scattered)")
+                continue
+            (X, ld), (Xp, ldp) = bl.batch_solve_logdet(M, R), bl.gj_solve_logdet_plain(M, R)
+            report(name, "solve", *_rel(X, Xp), dtype, f"{label} X (scattered)")
+            report(name, "logdet", *_rel(ld, ldp), dtype, f"{label} logdet (scattered)")
+    for N, d in SC_CHOL:
+        A = matrix(N, d) if d == p else _spd(gen, N, d, dtype)
+        factor("chol", bc.batch_cholesky(A), bc.cholesky_plain(A), f"[{N},{d},{d}]")
+    for N, my in SC_CHOL_GRAM:
+        d = SC_D
+        # a predicted covariance's factor beside a step's masked rows (my = p),
+        # or two [d, d] factors of the scan's combine
+        X = view(torch.linalg.cholesky(_spd(gen, N, d, torch.float64)).to(dtype).contiguous()) if my == p \
+            else operand(N, (d, d), None)
+        Y = operand(N, (d, my), observed(N))
+        factor("chol_gram", bc.batch_chol_gram(X, Y), bc.chol_gram_plain(X, Y), f"[{N},{d},{d}]+[{N},{d},{my}]")
+    for N, d, m in SC_LQ:
+        if d == p:  # [H P^1/2 | R^1/2] with a filler row's unit noise
+            obs = observed(N)
+            B = torch.cat([_randn(gen, N, p, m - p) * obs[:, :, None],
+                           torch.diag_embed(0.1 * obs + (1.0 - obs))], -1).to(dtype)
+        else:
+            B = operand(N, (d, m), None)
+        factor("lq", bq.batch_tria(B), bq.tria_plain(B), f"[{N},{d},{m}]")
+    routes = build.route_counts()
+    if any(r["block"] for r in routes.values()):
+        raise AssertionError(f"scattered shapes: a block kernel ran: {routes}")
+    print(f"[kernels] scattered shapes {str(dtype)[6:]}: launches {build.launch_counts()}, "
+          f"all on the warp kernels")
+
+
+def phase_vector_field_anchor():
+    """Phase A, float64 anchors against tests/data/vector_field_golden.npz
+    (made by scripts/port/make_vector_field_golden.py from the JAX package
+    on the CPU): the scattered experiment's full configuration (200 times,
+    516 rows, 12 k-means sites, d = 24, Ng = 4; chunk 64, padded) in
+    parallel covariance form, square-root form and with
+    PHYSS_FUSED_COMBINE=1 (lml, the posterior through `unsort`,
+    `scattered_st_predict` at the 120 held-out rows); `sparse_st_gp` (lml
+    and its gradient by every raw, Z among them); Helmholtz at the quick
+    configuration (T = 16, Ns = 25, D = 100; lml and `helmholtz_st_predict`
+    in sequential covariance and square-root form, one CVI step's ELBO and
+    prediction); the magnetic field with and without the potential block,
+    sequential and parallel; `lmc_markov_gp` (lml, two Poisson CVI steps'
+    ELBOs). lml, ELBO, means and gradients rtol 1e-9, variances 1e-7. The
+    fused anchor must launch the fused combines (d = 24 is eligible)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    vf = _vector_field()
+    _check_subnormal_tails()
+    kernels.reset_launch_counts()
+    with _kzz_jitter(None):
+        res = vf.anchors(np.load(vf.GOLDEN), "cuda")
+    counts, routes = kernels.launch_counts(), kernels.route_counts()
+    for name, outs in res.items():
+        for key, (got, want, tol) in outs.items():
+            r = vf.relerr(got, want)
+            print(f"[anchor {name}] {key} max rel {r:.3e} (tol {tol:g})")
+            if not (got.shape == want.shape and np.all(np.isfinite(got)) and r <= tol):
+                raise AssertionError(f"anchor {name}: {key} disagrees with the JAX reference")
+    print(f"[anchor vector field] launches: {counts}; routes: {routes}")
+    if not all(counts[k] > 0 for k in FUSED):
+        raise AssertionError("anchor scattered fused: the fused combines never ran")
+    # the Helmholtz square-root anchor's [100, 200] pre-arrays exceed `lq_fits`
+    if not routes.get("lq", {}).get("library"):
+        raise AssertionError("anchor Helmholtz square-root: no tria took the library QR")
+
+
+def phase_scattered_full():
+    """Phase B, the scattered model at full length, float32: the
+    experiment's field, noise, kernels and 12 inducing sites at its sampling
+    density over SCATTERED_T times (1-4 sensors each, about 250 000 rows, 20 %
+    held out), parallel scans at chunk 25 000, covariance and square-root
+    form: the wall time of `log_marginal_likelihood`, `posterior` and
+    `scattered_st_predict` at the held-out rows, peak memory, and the
+    launches by kernel and route (counters reset just before the three calls
+    and read just after; every kernel of the form launched, no block
+    route), and one more `posterior` under `torch.profiler` (device busy
+    share, device time by kernel). Then the float64 covariance lml beside
+    the float32 one
+    (PHYSS_KZZ_JITTER=1e-4 on both), and the outcome gates of both
+    experiments (`vector_field_outcome.outcome`)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    vf = _vector_field()
+    Z = np.load(vf.GOLDEN)["sc::in::Z"]
+    train, test = vf.scattered_rows_long(SCATTERED_T, SCATTERED_END)
+    counts, routes, lml = {}, {}, {}
+    with _kzz_jitter("1e-4"):
+        for form in ("cov", "sqrt"):
+            tag = f"scattered {form} f32"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model, data = vf.scattered_model(train, Z, torch.float32, "cuda", sqrt=form == "sqrt",
+                                             chunk_size=SCATTERED_CHUNK)
+            torch.cuda.synchronize()
+            walls, out = {"build": time.perf_counter() - t0}, {}
+            kernels.reset_launch_counts()
+            with torch.no_grad():
+                for part, run in (("lml", model.log_marginal_likelihood), ("posterior", model.posterior),
+                                  ("predict", lambda: vf.scattered_st_predict(model, data, test[:, :3]))):
+                    t0 = time.perf_counter()
+                    out[part] = run()
+                    torch.cuda.synchronize()
+                    walls[part] = time.perf_counter() - t0
+            counts[tag], routes[tag] = kernels.launch_counts(), kernels.route_counts()
+            post, pred = out["posterior"], out["predict"]
+            lml[form] = float(out["lml"])
+            finite = bool(np.isfinite(lml[form]) and all(torch.isfinite(x).all() for x in (*post, *pred)))
+            shapes = post.mean.shape == (data.Nt, data.Ng) and pred.mean.shape == (test.shape[0], 1)
+            rmse = vf.rmse(vf.numpy(pred.mean)[:, 0], test[:, 3])
+            if form == "cov":
+                print(f"[full scattered] T = {data.Nt} times, {train.shape[0]} training rows, "
+                      f"{test.shape[0]} held out, Ng = {data.Ng}, d = {model.kernel.state_dim}, "
+                      f"chunk {SCATTERED_CHUNK}")
+            print(f"[full {tag}] lml {lml[form]!r}; wall s: build {walls['build']:.4f}, lml "
+                  f"{walls['lml']:.4f}, posterior {walls['posterior']:.4f}, scattered_st_predict "
+                  f"{walls['predict']:.4f}; peak {_peak():.3f} GiB; held-out RMSE {rmse:.4f}; "
+                  f"finite {finite}")
+            if not (finite and shapes):
+                raise AssertionError(f"full {tag}: a non-finite or misshapen result")
+            _path_check(f"full {tag}", counts[tag], routes[tag], SCATTERED_KERNELS[form])
+            with torch.no_grad():
+                _print_profile(f"full {tag}", "profiled posterior",
+                               *_profiled(lambda: model.posterior()))
+            del model, data, out, post, pred
+        torch.cuda.empty_cache()
+        model, _ = vf.scattered_model(train, Z, torch.float64, "cuda", chunk_size=SCATTERED_CHUNK)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lml64 = float(model.log_marginal_likelihood())
+        wall = time.perf_counter() - t0
+        del model
+    gaps = {form: abs(v - lml64) / abs(lml64) for form, v in lml.items()}
+    print(f"[full scattered] float64 covariance lml {lml64!r} ({wall:.4f} s); float32 rel gap: "
+          f"covariance {gaps['cov']:.3e}, square-root {gaps['sqrt']:.3e} (limit {SCATTERED_LML_GAP:g})")
+    if not np.isfinite(lml64):
+        raise AssertionError("full scattered: non-finite float64 lml")
+    if not all(g <= SCATTERED_LML_GAP for g in gaps.values()):
+        raise AssertionError("full scattered: the float32 lml is too far from the float64 one")
+    res = vf.outcome("cuda")
+    print(f"[outcome vector field] {json.dumps(res)}")
+    print(f"[outcome scattered] float32 parallel covariance: rmse_test {res['scattered']['rmse_test']:.5f} "
+          f"(JAX CPU float64 {vf.SC_RESULTS['rmse_test']:.5f}), nlpd_test "
+          f"{res['scattered']['nlpd_test']:.5f} ({vf.SC_RESULTS['nlpd_test']:.5f}); within 5 %: "
+          f"{res['scattered']['ok']}")
+    print(f"[outcome helmholtz] T = {vf.HZ_FULL}, float32 sequential: rmse_v_reconstructed "
+          f"{res['helmholtz_full']['rmse_v_reconstructed']:.5f} < 0.35 x rms_v_truth "
+          f"{res['helmholtz_full']['rms_v_truth']:.5f}: {res['helmholtz_full']['ok']}; quick "
+          f"configuration {res['helmholtz_quick']} beside {vf.HZ_RESULTS}; {res['seconds']:.1f} s")
+    if not res["ok"]:
+        raise AssertionError("outcome gate of the scattered or the Helmholtz experiment failed")
+    return counts, routes
+
 
 def main():
     start = time.perf_counter()
@@ -2495,11 +2841,13 @@ def main():
     print("[anchor temporal cov knob on] ELBOs equal, bit for bit, to the knob-off run")
     phase_temporal_oracle()
     phase_serving_anchor()
-    t0 = time.perf_counter()
-    phase_physics_anchor()
-    print(f"[phase_physics_anchor] {time.perf_counter() - t0:.1f} s")
+    for phase in (phase_physics_anchor, phase_vector_field_anchor):
+        t0 = time.perf_counter()
+        phase()
+        print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
     paths, routes = phase_slice_full()
-    for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full, phase_physics_full):
+    for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full, phase_physics_full,
+                  phase_scattered_full):
         t0 = time.perf_counter()
         more_paths, more_routes = phase()
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -84,6 +84,7 @@
 // with these kernels to rounding.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 #include "tiles.cuh"
@@ -91,6 +92,15 @@
 namespace {
 
 using tiles::Pack;
+
+// the smallest normal number of T: a Householder step whose v^T v is below it
+// reflects nothing
+template <typename T>
+__device__ __forceinline__ T min_normal();
+template <>
+__device__ __forceinline__ float min_normal<float>() { return FLT_MIN; }
+template <>
+__device__ __forceinline__ double min_normal<double>() { return DBL_MIN; }
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -103,8 +113,10 @@ __device__ __forceinline__ T warp_sum(T v) {
 // m > 64). Step k reflects
 // row k's tail (columns >= k) onto alpha e_k with a right reflector
 // I - beta v v^T supported on columns >= k, and applies it to the rows below.
-// A zero tail gets beta = 0 (identity), so zero and rank-deficient inputs
-// stay finite. L = W[:, :d], column j scaled by sign(L[j][j]) (0 -> +1),
+// A zero tail gets beta = 0 (identity), and so does a tail whose v^T v is
+// below the smallest normal number (a numerically zero tail of a
+// rank-deficient row, where 2 / v^T v overflows): zero and rank-deficient
+// inputs stay finite. L = W[:, :d], column j scaled by sign(L[j][j]) (0 -> +1),
 // upper triangle zero.
 // ---------------------------------------------------------------------------
 template <typename T>
@@ -142,7 +154,7 @@ __global__ void lq_block_kernel(const T* __restrict__ B, T* __restrict__ L, int 
       const T vtv = warp_sum(t);
       if (lane == 0) {
         scal[0] = alpha;
-        scal[1] = vtv > T(0) ? T(2) / vtv : T(0);
+        scal[1] = vtv >= min_normal<T>() ? T(2) / vtv : T(0);
       }
     }
     __syncthreads();
@@ -249,7 +261,8 @@ lq_warp_kernel(const T* __restrict__ B, T* __restrict__ L, int N, int d, int m,
       const T alpha = xk < T(0) ? norm : -norm;
       const T vk = xk - alpha;
       const T vtv = vk * vk + tail;
-      betas[k & 1] = vtv > T(0) ? T(2) / vtv : T(0);  // a zero tail reflects nothing
+      // a zero (or subnormal) tail reflects nothing
+      betas[k & 1] = vtv >= min_normal<T>() ? T(2) / vtv : T(0);
       alpha_own = alpha;
 #pragma unroll
       for (int q = k / W; q < MW / W; ++q) {

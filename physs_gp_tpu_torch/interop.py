@@ -16,7 +16,12 @@ the physics path's leaves too: `.likelihood.heads[3].variance.raw` and
 `.likelihood.residual_mask`, a `LinearOperatorHead`'s
 `.observation.heads[1].coeffs[1].raw` (a Param) or `...coeffs[0]` (a
 number), and static numbers such as `.likelihood.heads[1].nu` (`Probit`) or
-`.likelihood.residual.n_mc`.
+`.likelihood.residual.n_mc`; the stacked and vector-field models' leaves
+too: `.kernel.parts[1].k_time.lengthscales.raw` of a `StackedMarkov`, a
+`StackedHead`'s `(coeff, head)` part as `...parts[1][0]` (a number) or
+`...parts[1][0].raw` (a Param), a trainable `.kernel.Z.raw`, and a
+`MixedValueHead`'s `.observation.heads[0].W.raw` or `...W.z.raw`
+(`UnitLowerMixing`).
 
 `load_stream_state(arrays, dtype, device)` carries a JAX `StreamState`
 (m, P, t_last, lml as numpy) into the port's.

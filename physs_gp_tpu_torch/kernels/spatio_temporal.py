@@ -12,6 +12,7 @@ from __future__ import annotations
 import os
 
 import torch
+from torch import nn
 
 from .base import Kernel, _as_2d
 from .markov import noise_matrix, to_ss, transition_matrix
@@ -22,21 +23,30 @@ __all__ = ["SpatioTemporalKernel"]
 
 
 class SpatioTemporalKernel(Kernel):
-    """k_t (Markov) x k_s over the spatial sites Z (a fixed buffer)."""
+    """k_t (Markov) x k_s over the spatial sites Z: a fixed buffer, or a
+    `Param` (trainable inducing sites, which optimisers move jointly with
+    the hyperparameters)."""
 
     def __init__(self, k_time, k_space, Z):
         super().__init__()
         self.k_time = k_time
         self.k_space = k_space
-        self.register_buffer("Z", torch.as_tensor(Z))
+        if isinstance(Z, nn.Module):
+            self.Z = Z
+        else:
+            self.register_buffer("Z", torch.as_tensor(Z))
 
     @property
     def sites(self):
-        return self.Z
+        return self.Z.value if isinstance(self.Z, nn.Module) else self.Z
 
     @property
     def n_sites(self) -> int:
         return self.sites.shape[0]
+
+    @property
+    def state_dim(self) -> int:
+        return self.n_sites * to_ss(self.k_time).state_dim
 
     def Kzz(self):
         """Spatial Gram with relative jitter eps * mean(diag K). The

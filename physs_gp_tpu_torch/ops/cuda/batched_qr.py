@@ -10,7 +10,8 @@ with a row per lane in registers (`lq_warp_kernel`), above that one block per
 matrix in shared memory (`lq_block_kernel`); `lq_plan` gives the launch shape.
 `tria_plain` is the same Householder LQ in batched tensor ops, taken for CPU
 tensors. `ops/cuda/build.py` counts the launches (`launch_counts`, and
-`route_counts` for the two kernels).
+`route_counts` for the two kernels and for the "library" route that
+`sqrt_kalman.tria` takes above `lq_fits`).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from .build import (
     row_pitch, row_stride, stream_of, threads_for,
 )
 
-__all__ = ["batch_tria", "lq_plan", "tria_plain", "launch_counts", "reset_launch_counts"]
+__all__ = ["batch_tria", "lq_fits", "lq_plan", "tria_plain", "launch_counts", "reset_launch_counts"]
 
 WARP_M = 64  # a lane of the warp-per-matrix LQ holds up to 64 columns of its row
 
@@ -55,10 +56,14 @@ def lq_plan(N: int, d: int, m: int, itemsize: int):
 def tria_plain(B):
     """Householder LQ of B [N, d, m], step for step as the TPU kernel: step k
     reflects row k's tail (columns >= k) onto alpha e_k and applies the
-    reflector to the rows below; a zero tail takes beta = 0."""
+    reflector to the rows below; a zero tail takes beta = 0, and so does a
+    tail whose vᵀv is below the smallest normal number (a numerically zero
+    tail of a rank-deficient row, where 2 / vᵀv overflows; the TPU flushes
+    such values to zero)."""
     d = B.shape[-2]
     W = B.clone()
     one = torch.ones((), dtype=B.dtype, device=B.device)
+    tiny = torch.finfo(B.dtype).tiny
     for k in range(d):
         x = W[:, k, k:]
         xk = x[:, 0]
@@ -67,7 +72,8 @@ def tria_plain(B):
         v = x.clone()
         v[:, 0] = xk - alpha
         vtv = torch.sum(v * v, -1)
-        beta = torch.where(vtv > 0, 2.0 / torch.where(vtv > 0, vtv, one), 0.0)
+        ok = vtv >= tiny
+        beta = torch.where(ok, 2.0 / torch.where(ok, vtv, one), 0.0)
         w = torch.sum(W[:, k + 1:, k:] * v[:, None, :], -1)  # rows below k
         W[:, k + 1:, k:] -= (beta[:, None] * w)[:, :, None] * v[:, None, :]
         W[:, k, k] = alpha
@@ -77,6 +83,12 @@ def tria_plain(B):
     return torch.tril(L * sign[:, None, :])
 
 
+def lq_fits(d: int, m: int) -> bool:
+    """Whether the LQ kernels take a [d, m] pre-array (d <= D_MAX,
+    m <= 2 D_MAX); `sqrt_kalman.tria` sends larger ones to the library QR."""
+    return d <= D_MAX and m <= 2 * D_MAX
+
+
 def batch_tria(B):
     """L [N, d, d] with L Lᵀ = B Bᵀ for B [N, d, m], m >= d, diag >= 0."""
     if B.dim() != 3 or B.shape[-1] < B.shape[-2]:
@@ -84,7 +96,7 @@ def batch_tria(B):
     if on_cpu("batch_tria", B):
         return tria_plain(B)
     N, d, m = B.shape
-    if d > D_MAX or m > 2 * D_MAX:
+    if not lq_fits(d, m):
         raise ValueError(f"batch_tria: [{d}, {m}] exceeds d <= {D_MAX}, m <= {2 * D_MAX}")
     es = B.element_size()
     _, threads, smem = lq_plan(N, d, m, es)

@@ -23,7 +23,7 @@ import torch
 
 __all__ = [
     "build", "library", "build_info", "SMEM_LIMIT", "D_MAX", "LAUNCHES", "ROUTES", "launch",
-    "launch_counts", "reset_launch_counts", "route_counts",
+    "count_route", "launch_counts", "reset_launch_counts", "route_counts",
 ]
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -199,7 +199,15 @@ def launch(kernel: str, source: str, entry: str, *args, route: str | None = None
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
     LAUNCHES[kernel] += 1
     if route is not None:
-        ROUTES.setdefault(kernel, {_FAST_ROUTE.get(kernel, "warp"): 0, "block": 0})[route] += 1
+        count_route(kernel, route)
+
+
+def count_route(kernel: str, route: str) -> None:
+    """Count one call of `kernel`'s wrapper on `route`: a kernel's design, or
+    "library" where the caller sent a shape the kernels do not hold to
+    PyTorch's own call (no launch is counted then)."""
+    counts = ROUTES.setdefault(kernel, {_FAST_ROUTE.get(kernel, "warp"): 0, "block": 0})
+    counts[route] = counts.get(route, 0) + 1
 
 
 def launch_counts(*kernels: str) -> dict:

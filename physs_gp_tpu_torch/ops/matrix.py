@@ -41,6 +41,7 @@ __all__ = [
     "mat_inv",
     "kron",
     "kron_lift",
+    "block_diag",
     "diag_from_XDXT",
     "log_det_from_chol",
 ]
@@ -395,6 +396,23 @@ def kron_lift(B, C):
     Bg = B.repeat_interleave(n, dim=-2).repeat_interleave(n, dim=-1)
     Cg = C.repeat(1, m, m)
     return Bg[None] * Cg
+
+
+def block_diag(*blocks):
+    """Dense block-diagonal assembly of differently-sized (possibly
+    rectangular) blocks [..., r_i, c_i], batched over shared leading axes."""
+    blocks = [torch.atleast_2d(b) for b in blocks]
+    batch = torch.broadcast_shapes(*[b.shape[:-2] for b in blocks])
+    m = sum(b.shape[-2] for b in blocks)
+    n = sum(b.shape[-1] for b in blocks)
+    out = blocks[0].new_zeros(batch + (m, n))
+    i = j = 0
+    for b in blocks:
+        r, c = b.shape[-2:]
+        out[..., i:i + r, j:j + c] = b
+        i += r
+        j += c
+    return out
 
 
 def diag_from_XDXT(X, D):

@@ -26,8 +26,8 @@ import math
 import torch
 
 from .cuda.batched_chol import batch_chol_gram
-from .cuda.batched_qr import batch_tria
-from .cuda.build import D_MAX
+from .cuda.batched_qr import batch_tria, lq_fits
+from .cuda.build import D_MAX, count_route
 from .gaussian import mask_covariance
 from .kalman import FilterResult, SmootherResult, observation_mask
 from .matrix import symmetrize, unit_last
@@ -125,14 +125,21 @@ def _tria_reg(B):
 
 
 class _TriaCore(torch.autograd.Function):
-    """Forward: the LQ kernel on B; backward: through `ref` (the QR of B,
-    `_tria_canonical_ref`, or of the regularised pre-array, `_tria_reg`)."""
+    """Forward: the LQ kernel on B (above its shapes, `lq_fits`, the library
+    QR, `_tria_canonical_ref`, on B's own device, counted as the "lq"
+    wrapper's "library" route on the card); backward: through
+    `ref` (the QR of B, `_tria_canonical_ref`, or of the regularised
+    pre-array, `_tria_reg`)."""
 
     @staticmethod
     def forward(ctx, B, ref):
         ctx.save_for_backward(B)
         ctx.ref = ref
         d, m = B.shape[-2:]
+        if not lq_fits(d, m):
+            if B.is_cuda:
+                count_route("lq", "library")
+            return _tria_canonical_ref(B)
         L = batch_tria(unit_last(B.reshape(-1, d, m)))
         return L.reshape(B.shape[:-1] + (d,))
 

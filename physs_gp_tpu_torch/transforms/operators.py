@@ -1,13 +1,15 @@
 """Physics as linear observation operators over the Markov state (PyTorch).
 
-Counterpart of the temporal and gridded spatio-temporal parts of
-`physs_gp_tpu/transforms/operators.py`. A Matérn(p + 1/2) state holds
-(f, f', ..., f^(p)) up to scale, so any linear temporal operator is a
-constant row over the state: the temporal heads (`ValueHead`,
+Counterpart of `physs_gp_tpu/transforms/operators.py`. A Matérn(p + 1/2)
+state holds (f, f', ..., f^(p)) up to scale, so any linear temporal operator
+is a constant row over the state: the temporal heads (`ValueHead`,
 `DerivativeHead`, `LinearOperatorHead`) give one row (`.row`), the spatial
 heads a block of rows (`.rows`). Spatial operators act through the Kronecker
 spatial conditional w = (L_s k_s)(s, Z) Kzz^-1 and carry a `.kind` tag that
-routes to the kernel's closed form (`RBF.K_op`).
+routes to the kernel's closed form (`RBF.K_op`). `ScatteredSpatialHead`
+reads per-time-step points and gives a time-varying block [T, Ng, d];
+`StackedHead` and `MixedValueHead` read a `StackedMarkov` state (fixed
+physics mixings and the state-space LMC).
 """
 from __future__ import annotations
 
@@ -23,6 +25,10 @@ __all__ = [
     "LinearOperatorHead",
     "StateObservation",
     "SpatialHead",
+    "ScatteredSpatialHead",
+    "StackedHead",
+    "ScaledHead",
+    "MixedValueHead",
     "OperatorTerm",
     "STOperatorHead",
     "s_identity",
@@ -67,9 +73,11 @@ class DerivativeHead(nn.Module):
         return derivative_row(kernel, self.order)
 
 
-class Coefficients(nn.Module):
-    """A list of coefficients, each a number or a `Param` (registered as a
-    submodule, so it trains); indexed as a list."""
+class Entries(nn.Module):
+    """A list whose entries are numbers, None or modules (each module
+    registered as a submodule, so its Params train); indexed as a list, as
+    the JAX package's lists and tuples are, so key paths such as
+    `coeffs[1].raw` resolve. Only a number entry can be replaced."""
 
     def __init__(self, values):
         super().__init__()
@@ -89,7 +97,7 @@ class Coefficients(nn.Module):
 
     def __setitem__(self, i, value):
         if isinstance(self._values[i], nn.Module) or isinstance(value, nn.Module):
-            raise TypeError("only a number coefficient can be replaced")
+            raise TypeError("only a number entry can be replaced")
         self._values[i] = value
 
 
@@ -100,7 +108,7 @@ class LinearOperatorHead(nn.Module):
 
     def __init__(self, coeffs):
         super().__init__()
-        self.coeffs = Coefficients(coeffs)
+        self.coeffs = Entries(coeffs)
 
     def row(self, kernel):
         out = 0.0
@@ -147,33 +155,47 @@ s_laplacian.kind = "laplacian"
 
 
 class StateObservation(nn.Module):
-    """Observation matrix H [n_obs, d_state] stacked from heads: one row per
-    `.row` head, a block per `.rows` head."""
+    """Observation matrix H stacked from heads: one row per `.row` head, a
+    block per `.rows` head. H is [n_obs, d_state], or [T, n_obs, d_state]
+    when a head is time-varying (its block is [T, N, d]; static blocks are
+    broadcast over T)."""
 
     def __init__(self, heads):
         super().__init__()
         self.heads = nn.ModuleList(heads)
 
     def H(self, kernel):
-        return torch.cat(
-            [h.rows(kernel) if hasattr(h, "rows") else h.row(kernel)[None, :] for h in self.heads], 0
-        )
+        blocks = [h.rows(kernel) if hasattr(h, "rows") else h.row(kernel)[None, :]
+                  for h in self.heads]
+        T = next((b.shape[0] for b in blocks if b.dim() == 3), None)
+        if T is None:
+            return torch.cat(blocks, 0)
+        return torch.cat([b if b.dim() == 3 else b.expand((T,) + b.shape) for b in blocks], 1)
 
     def var_correction(self, kernel):
-        """[p] conditional-variance correction per head row, or None when
-        every head reads the state exactly."""
-        parts = []
+        """[p] or [T, p] conditional-variance correction per head row, or
+        None when every head reads the state exactly."""
+        parts, any_corr = [], False
         for h in self.heads:
             if hasattr(h, "var_correction") and getattr(h, "correction", True):
                 parts.append(h.var_correction(kernel))
-            else:  # reads the state exactly: a zero per row
-                parts.append(h.points.shape[-2] if hasattr(h, "rows") else 1)
-        like = next((c for c in parts if isinstance(c, torch.Tensor)), None)
-        if like is None:
+                any_corr = True
+            elif hasattr(h, "rows"):
+                pts = getattr(h, "points", None)
+                # reads the state exactly: a zero per row (per step and row
+                # for per-step points; a point-free head counts its rows)
+                parts.append(h.rows(kernel).shape[-2] if pts is None
+                             else tuple(pts.shape[:-1]))
+            else:
+                parts.append(1)
+        if not any_corr:
             return None
-        return torch.cat([
-            c if isinstance(c, torch.Tensor) else like.new_zeros(c) for c in parts
-        ], 0)
+        like = next(c for c in parts if isinstance(c, torch.Tensor))
+        parts = [c if isinstance(c, torch.Tensor) else like.new_zeros(c) for c in parts]
+        T = next((c.shape[0] for c in parts if c.dim() == 2), None)
+        if T is None:
+            return torch.cat(parts, 0)
+        return torch.cat([c if c.dim() == 2 else c.expand(T, c.shape[0]) for c in parts], 1)
 
 
 class SpatialHead(nn.Module):
@@ -209,6 +231,148 @@ class SpatialHead(nn.Module):
         return (c * c) * kernel.conditional_var_correction(
             self.points, self.s_op, self.t_order
         )
+
+
+class ScatteredSpatialHead(nn.Module):
+    """Observe (∂_t^order f) at per-time-step spatial points `points`
+    [T, Ng, ds] (moving sensors, ragged time groups:
+    `TemporallyGroupedData.X_st`): a time-varying block H [T, Ng, Ns·d]
+    through the spatial conditional at each step's points; NaN rows of Y
+    mask the filler points. The conditional-variance correction is on by
+    default (scattered points rarely coincide with Z). The weights are one
+    call on the flattened [T·Ng, ds] points, with one factor of Kzz."""
+
+    def __init__(self, points, t_order: int = 0, s_op=None, correction: bool = True):
+        super().__init__()
+        self.register_buffer("points", torch.as_tensor(points))
+        self.t_order = t_order
+        self.s_op = s_op
+        self.correction = correction
+
+    def _flat(self):
+        return self.points.reshape(-1, self.points.shape[-1])
+
+    def rows(self, kernel):
+        T, Ng = self.points.shape[:2]
+        w = kernel.spatial_weights(self._flat(), self.s_op)  # [T*Ng, Ns]
+        t_row = derivative_row(kernel.k_time, self.t_order)  # [d]
+        return (w[:, :, None] * t_row).reshape(T, Ng, -1)
+
+    def var_correction(self, kernel):
+        if not self.correction:
+            return self.points.new_zeros(self.points.shape[:2])
+        return kernel.conditional_var_correction(
+            self._flat(), self.s_op, self.t_order
+        ).reshape(self.points.shape[:2])
+
+
+class ScaledHead(Entries):
+    """A `(coeff, head)` part of a `StackedHead`: the coefficient (a number
+    or a trainable `Param`) scales the head's rows; `[0]` is the
+    coefficient and `[1]` the head, as in the JAX package's tuple."""
+
+    def __init__(self, coeff, head):
+        super().__init__([coeff, head])
+
+
+class StackedHead(nn.Module):
+    """One block of observation rows over a `StackedMarkov` state. `parts`
+    has one entry per stacked latent: None (a zero block), a head, or a
+    `(coeff, head)` pair (kept as a `ScaledHead`). The sub-heads give static
+    [N, d_part] rows of one common N; the blocks concatenate over the parts'
+    state slices. E.g. the 2-D Helmholtz flow over (φ potential, ψ stream):
+
+        u row: [ (∂x φ)(s) | +(∂y ψ)(s) ]
+        v row: [ (∂y φ)(s) | −(∂x ψ)(s) ]."""
+
+    def __init__(self, parts):
+        super().__init__()
+        self.parts = Entries([ScaledHead(*e) if isinstance(e, tuple) else e for e in parts])
+
+    @staticmethod
+    def _split(entry):
+        if isinstance(entry, ScaledHead):
+            c, h = entry
+            return (c.value if hasattr(c, "value") else c), h
+        return 1.0, entry
+
+    def rows(self, kernel):
+        blocks, like = [], None
+        for entry, part in zip(self.parts, kernel.parts):
+            if entry is None:
+                blocks.append(None)
+                continue
+            c, h = self._split(entry)
+            b = h.rows(part) if hasattr(h, "rows") else h.row(part)[None, :]
+            if b.dim() != 2:
+                raise ValueError(
+                    "StackedHead sub-heads must produce static [N, d_part] rows; got shape "
+                    f"{tuple(b.shape)} (time-varying sub-heads are not supported)"
+                )
+            blocks.append(c * b)
+            like = b
+        if like is None:
+            raise ValueError("StackedHead needs at least one non-None part")
+        return torch.cat([
+            like.new_zeros(like.shape[0], part.state_dim) if b is None else b
+            for b, part in zip(blocks, kernel.parts)
+        ], -1)
+
+    def var_correction(self, kernel):
+        """Σ_parts c² ρ_part(s): the conditional residual variances of
+        independent latents add, each scaled by its coefficient squared."""
+        out = None
+        for entry, part in zip(self.parts, kernel.parts):
+            if entry is None:
+                continue
+            c, h = self._split(entry)
+            if hasattr(h, "var_correction") and getattr(h, "correction", True):
+                v = (c * c) * h.var_correction(part)
+                out = v if out is None else out + v
+        if out is None:
+            out = self.points.new_zeros(self.points.shape[0])
+        return out
+
+    @property
+    def correction(self) -> bool:
+        return any(getattr(self._split(e)[1], "correction", False)
+                   for e in self.parts if e is not None)
+
+    @property
+    def points(self):
+        """The first non-None sub-head's points (its row count)."""
+        for e in self.parts:
+            if e is not None:
+                return self._split(e)[1].points
+        raise AttributeError("StackedHead with no parts has no points")
+
+
+class MixedValueHead(nn.Module):
+    """State-space LMC rows: observe g = W f over a `StackedMarkov` state,
+    P rows mixing the latents' ∂_t^order f. `W` is anything with `.value`
+    [P, L] (a `Param`, `kernels.multi_output.UnitLowerMixing`) or a plain
+    [P, L] tensor (a buffer)."""
+
+    def __init__(self, W, t_order: int = 0):
+        super().__init__()
+        if isinstance(W, nn.Module):
+            self.W = W
+        else:
+            self.register_buffer("W", torch.as_tensor(W))
+        self.t_order = t_order
+
+    def rows(self, kernel):
+        W = self.W.value if hasattr(self.W, "value") else self.W
+        parts = kernel.parts
+        if W.shape[1] != len(parts):
+            raise ValueError(
+                f"mixing W has {W.shape[1]} latent columns but the stacked kernel has "
+                f"{len(parts)} parts"
+            )
+        return torch.cat([
+            W[:, l:l + 1] * derivative_row(part, self.t_order)[None, :]
+            for l, part in enumerate(parts)
+        ], -1)
 
 
 class OperatorTerm(nn.Module):

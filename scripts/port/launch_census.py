@@ -2,14 +2,27 @@
 prediction, or one Adam step's objective forward and backward) of the port
 by kernel and operand shape.
 
-    python3 scripts/port/launch_census.py [--model temporal|config5|allen_cahn]
-        [--sqrt] [--T 100000] [--chunk 50000] [--blocks 1024] [--predict 1000]
-        [--train] [--device cpu|cuda] [--dtype float32|float64]
+    python3 scripts/port/launch_census.py
+        [--model temporal|config5|allen_cahn|scattered|helmholtz] [--sqrt] [--T 100000]
+        [--chunk 50000] [--blocks 1024] [--predict 1000] [--train]
+        [--device cpu|cuda] [--dtype float32|float64]
 
 `--model allen_cahn` is the Allen-Cahn experiment at its full width
 (`physics_outcome.FULL`: T = 56, Ns = 10, Nc = 12, n_mc = 32; sequential
 filters, so `--T`, `--chunk` and `--blocks` do not apply) and its step is
 a Gauss-Newton step at lr 0.3 with a seeded generator.
+
+`--model scattered` is the scattered-sensor model (`scattered_st_gp`,
+parallel scans) at T times, 25 a unit as in the experiment, with its 12
+inducing sites: it has no CVI step, so the parts counted are one
+`log_marginal_likelihood()`, one `posterior()` and one
+`scattered_st_predict` at the held-out 20 % of the rows (chip_smoke.py runs
+it at `--T 100000 --chunk 25000 --blocks 256`).
+
+`--model helmholtz` is the Helmholtz experiment at its full size (T = 64,
+Ns = 25, state D = 100, sequential as the experiment runs it; `--sqrt`
+the square-root form): one `log_marginal_likelihood()` and one
+`helmholtz_st_predict` at its 12 new sites.
 
 `--train` adds, after the step, the calls of `get_objective()` (the
 forward of an Adam step) and of its backward (`backward()` to every
@@ -63,6 +76,36 @@ def census(args):
 
     os.environ["PHYSS_SCAN_BLOCKS"] = str(args.blocks)
     dtype = getattr(torch, args.dtype)
+    if args.model == "scattered":
+        import numpy as np
+
+        import vector_field_outcome as vf
+
+        train, test = vf.scattered_rows_long(args.T, args.T / 25)
+        model, data = vf.scattered_model(train, np.load(vf.GOLDEN)["sc::in::Z"], dtype,
+                                         args.device, sqrt=args.sqrt, chunk_size=args.chunk)
+        out = {}
+        with torch.no_grad():
+            for part, run in (("lml", model.log_marginal_likelihood), ("posterior", model.posterior),
+                              ("scattered_st_predict",
+                               lambda: vf.scattered_st_predict(model, data, test[:, :3]))):
+                calls.clear()
+                run()
+                out[part] = dict(calls)
+        return out
+    if args.model == "helmholtz":
+        import vector_field_outcome as vf
+
+        t, Z, Y, S_new = vf.helmholtz_inputs(vf.HZ_FULL)
+        model = vf.helmholtz_model(t, Z, Y, dtype, args.device, sqrt=args.sqrt)
+        out = {}
+        with torch.no_grad():
+            for part, run in (("lml", model.log_marginal_likelihood),
+                              ("helmholtz_st_predict", lambda: vf.helmholtz_st_predict(model, S_new))):
+                calls.clear()
+                run()
+                out[part] = dict(calls)
+        return out
     if args.model == "allen_cahn":
         import physics_outcome as po
 
@@ -94,7 +137,7 @@ def census(args):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", default="temporal", choices=["temporal", "config5", "allen_cahn"])
+    p.add_argument("--model", default="temporal", choices=["temporal", "config5", "allen_cahn", "scattered", "helmholtz"])
     p.add_argument("--sqrt", action="store_true")
     p.add_argument("--T", type=int, default=100_000)
     p.add_argument("--chunk", type=int, default=50_000)

@@ -486,3 +486,40 @@ def test_cuda_small_d_factors_match_plain(cuda, dtype, N, d):
     assert routes["lq"] == {"warp": n_lq, "block": 0}
     assert routes["chol"] == {"warp": 3, "block": 0}
     assert routes["chol_gram"] == {"warp": n_gram, "block": 0}
+
+
+def _subnormal_tail(rng, d, m, dtype):
+    """[3, d, m] whose row 1 has a tail (columns >= 1) so small that its
+    Householder step's vᵀv is subnormal (entries 1e-160 in float64, 1e-20 in
+    float32): row 0 is a multiple of e_0, so step 0 leaves that tail alone,
+    and the rows below are full. The scattered square-root scans reach such
+    tails in their rank-deficient information factors."""
+    tiny = 1e-160 if dtype == torch.float64 else 1e-20
+    B = rng.normal(size=(3, d, m))
+    B[:, 0] = 0.0
+    B[:, 0, 0] = 2.0
+    B[:, 1, 1:] = tiny * rng.normal(size=(3, m - 1))
+    return _t(B).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tria_plain_subnormal_tail_stays_finite(dtype):
+    """A step whose vᵀv is subnormal reflects nothing (2 / vᵀv would
+    overflow to inf and the rows below would turn NaN); L Lᵀ still equals
+    B Bᵀ to rounding."""
+    B = _subnormal_tail(np.random.default_rng(3), 7, 9, dtype)
+    L = bq.tria_plain(B)
+    assert torch.isfinite(L).all()
+    _close_gram(L, B @ B.transpose(-1, -2), 1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d,m", [(7, 9), (24, 48), (40, 50)])
+def test_cuda_tria_subnormal_tail_stays_finite(cuda, dtype, d, m):
+    """Both LQ kernels (warp at d <= 32, block above) on a subnormal tail."""
+    B = _subnormal_tail(np.random.default_rng(d), d, m, dtype).to(cuda)
+    L = bq.batch_tria(B)
+    assert torch.isfinite(L).all()
+    _close_gram(L, B @ B.transpose(-1, -2), _CARD_TOL[dtype])
+    _close_gram(L, bq.tria_plain(B) @ bq.tria_plain(B).transpose(-1, -2), _CARD_TOL[dtype])

@@ -7,7 +7,8 @@ spatio-temporal model's predictions at new sites), the physics-informed
 path (the Allen-Cahn, pendulum and monotonic CVI models with their
 Monte-Carlo residuals, and `ode_gp`) and the scattered-sensor and
 vector-field paths (scattered and sparse spatio-temporal models, the
-Helmholtz flow, the magnetic field, the state-space LMC).
+Helmholtz flow, the magnetic field, the state-space LMC), and AOT serving
+(config-5 `predict_f` exported with `torch.export`, reloaded and served).
 
     python3 chip_smoke.py
 
@@ -146,7 +147,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      float64 lml beside the float32 ones (relative gap at most
      SCATTERED_LML_GAP); then the outcome gates of the
      scattered and the Helmholtz experiments
-     (scripts/port/vector_field_outcome.py).
+     (scripts/port/vector_field_outcome.py);
+ 14. AOT serving (`utils/serving`, the kernels as custom ops): the kernels
+     phase also times the host cost of one `bmm` call at [256, 32, 32]
+     through the dispatcher (`torch.ops.physs_gp.bmm`) against the launch
+     code called directly and the eager wrapper; after the float64 anchors,
+     their fitted T = 256 models (covariance with the fused knob off and
+     on, square-root) export `predict_f` at the golden's 40 new times on
+     the card, reload it from the bytes and hold it to
+     predict_T256_golden.npz (the three programs together launch all eight
+     kernels); after phase 6 the float32 covariance model at EXPORT_T
+     steps (chunk 25 000, 3 natural-gradient steps) exports its
+     `predict_f` at 1000 new times, reloads it and holds it to the live
+     call (rtol 1e-6, the same launches per kernel), with the export and
+     load wall, nodes, bytes, p50 / p99 of EXPORT_CALLS loaded and live
+     calls and the peak memory; the `kernels` line's `launches_by_path`
+     has the loaded call's launches under "export".
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -201,6 +217,18 @@ REPLACES = {
     "fused_smooth": "physs_gp_tpu/ops/pallas/fused_combine.py:161",
 }
 FUSED = ("fused_filter", "fused_smooth")
+# the kernels one config-5 `predict_f` launches, by form (no site ELL in
+# square-root form); the knob adds the fused combines
+EXPORT_KERNELS = {"cov": ("bmm", "gj_solve", "gj_solve_logdet", "chol"),
+                  "sqrt": ("bmm", "gj_solve", "lq", "chol", "chol_gram")}
+EXPORT_CALLS = 20  # loaded and live calls of the exported full-width predict_f
+# The exported full-width model: two chunks of the full run's 25 000 steps
+# (T + 1000 new times = 50 000). At T = 100 000 (five chunks, 34 065 nodes)
+# export took 315 s on an H100 machine's host, load 61 s: over the 240 s bar and,
+# with the anchors, over the export phases' 300 s budget.
+EXPORT_T = 49_000
+# the export anchors predict the 256 + 40 steps in one chunk of 32 blocks
+EXPORT_ANCHOR_CHUNK, EXPORT_ANCHOR_BLOCKS = 320, "32"
 # the full-width run whose count stands under `launches` in the summary
 LAUNCHES_PATH = {name: "cov fused f32" if name in FUSED else "sqrt f32" for name in SOURCES}
 
@@ -555,6 +583,7 @@ def phase_kernels():
         _check_scattered_shapes(torch.Generator(device="cuda").manual_seed(9), dtype, report)
     torch.cuda.synchronize()
     times = _time_kernels(gen)
+    times["bmm"]["host_us_per_call"] = _time_dispatch(gen)
     for name, rows in _time_scan_batch(gen).items():
         times[name]["at_scan_batch"] = rows
     times.update(_time_fused(gen))
@@ -710,6 +739,37 @@ def _time_kernels(gen):
         print(f"[kernels] time {name} {shape} f32: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library {lib_txt}, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return out
+
+
+def _time_dispatch(gen, n=2000):
+    """Host us per call of `bmm` at the scans' [256, 32, 32], float32: the
+    launch code called directly, the custom op through the dispatcher (as a
+    traced program calls it) and the public wrapper (eager: the launch code
+    after the wrapper's checks); n calls a run, host clock, one synchronise
+    at the end (the kernel takes ~5 us, the host more), interleaved direct,
+    op, wrapper, wrapper, op, direct."""
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+
+    A = _randn(gen, N_SCAN, D, D)
+    B = _randn(gen, N_SCAN, D, D)
+    calls = {"direct": lambda: bl.bmm_op.cuda(A, B, False, True),
+             "op": lambda: torch.ops.physs_gp.bmm(A, B, False, True),
+             "wrapper": lambda: bl.batch_bmm(A, B, False, True)}
+    runs = {k: [] for k in calls}
+    for key in ("direct", "op", "wrapper", "wrapper", "op", "direct"):
+        fn = calls[key]
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        runs[key].append((time.perf_counter() - t0) / n * 1e6)
+    out = {k: float(np.mean(v)) for k, v in runs.items()}
+    print(f"[kernels] host us per bmm call at [{N_SCAN},{D},{D}] f32: direct {out['direct']:.2f} "
+          f"{runs['direct']}, op {out['op']:.2f} {runs['op']}, wrapper {out['wrapper']:.2f} "
+          f"{runs['wrapper']}; the dispatcher adds {out['op'] - out['direct']:.2f} us a call")
     return out
 
 
@@ -1024,6 +1084,7 @@ def phase_slice_anchor(sqrt, fused=False):
         print(f"[{tag}] {key} max rel {r:.3e} (tol 1e-7)")
         if not r <= 1e-7:
             raise AssertionError(f"{tag}: {key} disagrees with the JAX reference")
+    return model
 
 
 def phase_oracle():
@@ -1339,6 +1400,131 @@ def phase_slice_full():
              "config5 cov predict f32": cov_predict[0], "config5 sqrt predict f32": sqrt_predict[0]},
             {"cov f32": cov_routes, "cov fused f32": fused_routes, "sqrt f32": routes,
              "config5 cov predict f32": cov_predict[1], "config5 sqrt predict f32": sqrt_predict[1]})
+
+
+# ---------------------------------------------------------------------------
+# AOT serving: config-5 `predict_f` exported, reloaded and served
+# ---------------------------------------------------------------------------
+
+
+def _exported(model, ts):
+    """`export_predictor(model, ts)` and `load_predictor` of its bytes: (the
+    loaded program, export s, load s, bytes, nodes of the loaded program
+    over all its submodules)."""
+    from physs_gp_tpu_torch.utils import serving
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = serving.export_predictor(model, ts)
+    t1 = time.perf_counter()
+    serve = serving.load_predictor(blob)
+    t2 = time.perf_counter()
+    nodes = sum(len(m.graph.nodes) for m in serve.modules()
+                if isinstance(m, torch.fx.GraphModule))
+    return serve, t1 - t0, t2 - t1, len(blob), nodes
+
+
+def _served(serve, ts):
+    """One call of a loaded program: (mean, var, launches, launches by
+    route, peak GiB)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        mean, var = serve(ts)
+    torch.cuda.synchronize()
+    return (mean, var, kernels.launch_counts(), kernels.route_counts(),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_export_anchor(models):
+    """The float64 T = 256 config-5 models of the anchors (covariance with
+    the fused knob off and on, square-root), each `predict_f` at the
+    golden's 40 new times exported and reloaded on the card, the loaded
+    program held to tests/data/predict_T256_golden.npz at the live anchors'
+    tolerance; together the three programs launch all eight kernels. The
+    export predicts in one chunk with EXPORT_ANCHOR_BLOCKS blocks (the live
+    anchors: chunk 64, 8 blocks): the same function, with fewer scan levels
+    to trace."""
+    gp = np.load(GOLDEN_PREDICT)
+    ts = torch.as_tensor(gp["t5_new"], dtype=torch.float64, device="cuda")
+    launched = set()
+    for (form, fused), model in models.items():
+        tag = f"export anchor {form}{' knob on' if fused else ''}"
+        model.chunk_size = EXPORT_ANCHOR_CHUNK
+        env = {"PHYSS_SCAN_BLOCKS": EXPORT_ANCHOR_BLOCKS,
+               **({"PHYSS_FUSED_COMBINE": "1"} if fused else {})}
+        os.environ.update(env)
+        try:
+            serve, t_export, t_load, nbytes, nodes = _exported(model, ts)
+        finally:
+            for key in env:
+                del os.environ[key]
+        mean, var, counts, _, _ = _served(serve, ts)
+        ran = {k: n for k, n in counts.items() if n}
+        print(f"[{tag}] export {t_export:.1f} s, load {t_load:.1f} s, {nodes} nodes, "
+              f"{nbytes} bytes; one loaded call launched {ran}")
+        _check_moments(f"{tag} predict_f", {
+            "mean": (mean, gp[f"c5_{form}_f_mean"]), "var": (var, gp[f"c5_{form}_f_var"])}, 1e-7)
+        want = EXPORT_KERNELS[form] + (FUSED if fused else ())
+        if set(ran) != set(want):
+            raise AssertionError(f"{tag}: launched {sorted(ran)}, expected {sorted(want)}")
+        launched |= set(ran)
+    if launched != set(SOURCES):
+        raise AssertionError(f"export anchors: {sorted(set(SOURCES) - launched)} never launched")
+    print(f"[export anchor] the three programs launched all eight kernels: {sorted(launched)}")
+
+
+def phase_export_full():
+    """The float32 covariance model of the full-width run at EXPORT_T steps
+    (chunk 25 000, 256 blocks, after 3 natural-gradient steps), `predict_f`
+    at the full run's 1000 new times exported on the card and reloaded: the
+    loaded program against the live call: max abs difference (the same
+    kernels in the same order: fails above rtol 1e-6), launches per kernel
+    (fail unless equal), then p50 / p99 of EXPORT_CALLS loaded and live
+    calls, interleaved, and the peak device memory of a loaded call.
+    Returns the loaded call's launches."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    t_start = time.perf_counter()
+    model, _, _ = _run_slice(EXPORT_T, 25_000, torch.float32, 3, nan_guard=False, sqrt=False)
+    ts = torch.as_tensor(np.sort(np.random.default_rng(22).uniform(0, 100, 1000)),
+                         dtype=torch.float32, device="cuda")
+    kernels.reset_launch_counts()
+    live = model.predict_f(ts)
+    torch.cuda.synchronize()
+    live_counts = kernels.launch_counts()
+    serve, t_export, t_load, nbytes, nodes = _exported(model, ts)
+    print(f"[export full] config-5 cov f32 T={EXPORT_T} predict_f at {ts.shape[0]} new "
+          f"times: export {t_export:.1f} s (trace and save), {nodes} nodes, {nbytes} bytes "
+          f"({nbytes / 2**30:.3f} GiB), load {t_load:.1f} s")
+    mean, var, counts, routes, peak = _served(serve, ts)
+    err = max(float((mean - live.mean).abs().max()), float((var - live.var).abs().max()))
+    scale = max(float(live.mean.abs().max()), float(live.var.abs().max()))
+    print(f"[export full] loaded vs live: max abs diff {err:.3e} (rel {err / scale:.3e}, "
+          f"tol 1e-6); peak of a loaded call {peak:.2f} GiB")
+    print(f"[export full] launches: loaded {counts}, live {live_counts}")
+    if not err <= 1e-6 * scale:
+        raise AssertionError("export full: the loaded program disagrees with the live predict_f")
+    if counts != live_counts:
+        raise AssertionError("export full: the loaded program launched other kernels than live")
+    _path_check("export full loaded f32", counts, routes, EXPORT_KERNELS["cov"])
+    walls = {"loaded": [], "live": []}
+    for _ in range(EXPORT_CALLS):
+        for key, fn in (("live", lambda: model.predict_f(ts)), ("loaded", lambda: serve(ts))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t0)
+    for key, w in walls.items():
+        print(f"[export full] {key} predict_f, {EXPORT_CALLS} calls: "
+              f"p50 {np.percentile(w, 50):.4f} s, p99 {np.percentile(w, 99):.4f} s")
+    print(f"[phase_export_full] {time.perf_counter() - t_start:.1f} s")
+    return counts
 
 
 SERVING_GOLDEN = os.path.join(REPO, "tests", "data", "serving_T256_golden.npz")
@@ -2826,10 +3012,14 @@ def main():
     worst, times = phase_kernels()
     for name, rows in phase_backward().items():
         times[name]["at_backward"] = rows
-    phase_slice_anchor(sqrt=False)
-    phase_slice_anchor(sqrt=False, fused=True)
-    phase_slice_anchor(sqrt=True)
+    anchored = {("cov", False): phase_slice_anchor(sqrt=False),
+                ("cov", True): phase_slice_anchor(sqrt=False, fused=True),
+                ("sqrt", False): phase_slice_anchor(sqrt=True)}
     phase_slice_anchor(sqrt=True, fused=True)
+    t0 = time.perf_counter()
+    phase_export_anchor(anchored)
+    del anchored
+    print(f"[phase_export_anchor] {time.perf_counter() - t0:.1f} s")
     for form in ("c5_cov", "c5_sqrt", "t_cov", "t_sqrt"):
         phase_train_anchor(form)
     phase_train_anchor("c5_cov", fused=True)
@@ -2846,6 +3036,7 @@ def main():
         phase()
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
     paths, routes = phase_slice_full()
+    paths["export"] = phase_export_full()
     for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full, phase_physics_full,
                   phase_scattered_full):
         t0 = time.perf_counter()

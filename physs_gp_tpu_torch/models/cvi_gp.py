@@ -31,6 +31,7 @@ yet: asking for one raises.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -49,6 +50,20 @@ from .ssgp import GaussianMoments, StateSpaceGP
 __all__ = ["CVIGP", "GaussianMoments"]
 
 _LOG2PI = math.log(2.0 * math.pi)
+
+
+def _no_grad(method):
+    """`torch.no_grad()` around `method`, entered only where grad is on: a
+    tracer that runs under `no_grad` (`utils/serving`) then records no
+    grad-mode switch, which `torch.export` would have to split the graph
+    around."""
+    @functools.wraps(method)
+    def run(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return method(*args, **kwargs)
+        with torch.no_grad():
+            return method(*args, **kwargs)
+    return run
 
 
 def check_generator(generator) -> None:
@@ -229,12 +244,12 @@ class CVIGP(nn.Module):
         """`sample_f` on given standard-normal draws (`StateSpaceGP.sample_f_given`)."""
         return self.surrogate_model().sample_f_given(eps_x, eps_y, eps_corr, t_new=t_new)
 
-    @torch.no_grad()
+    @_no_grad
     def predict_f(self, t_new) -> GaussianMoments:
         """q(f) at new times through the surrogate's NaN-augmented grid."""
         return self.surrogate_model().predict_f(t_new)
 
-    @torch.no_grad()
+    @_no_grad
     def predict_y(self, t_new, gh_points: int = 20) -> GaussianMoments:
         """Moment-matched predictive p(y*): E[y] = E_q[E[y | f]] and
         Var[y] = E_q[Var[y | f] + E[y | f]^2] - E[y]^2 by Gauss-Hermite;

@@ -21,8 +21,10 @@ block per matrix in shared memory (`chol_block_kernel`); `chol_plan` gives
 the launch shape, and operands whose base and strides are multiples of 16
 bytes are staged 16 bytes at a time (`build.layout_aligned16`).
 `cholesky_plain` and `chol_gram_plain` are the same elimination in batched
-tensor ops, taken for CPU tensors. `ops/cuda/build.py` counts the launches
-(`launch_counts`).
+tensor ops, the CPU implementations of the custom ops
+`torch.ops.physs_gp.chol` and `chol_gram` (`chol_op`, `chol_gram_op`), whose
+CUDA implementations launch the kernels. `ops/cuda/build.py` counts the
+launches (`launch_counts`).
 """
 from __future__ import annotations
 
@@ -32,8 +34,8 @@ import torch
 
 from . import build
 from .build import (
-    D_MAX, SM_COUNT, WARP_D, WARP_GROUP, WARP_GROUP_SMEM, ceil4, check_smem, dtype_code, launch,
-    layout_aligned16, on_cpu, row_pitch, row_stride, stream_of, threads_for,
+    D_MAX, SM_COUNT, WARP_D, WARP_GROUP, WARP_GROUP_SMEM, KernelOp, ceil4, check_smem, dtype_code,
+    launch, layout_aligned16, on_cpu, row_pitch, row_stride, stream_of, threads_for,
 )
 
 __all__ = [
@@ -127,13 +129,30 @@ def _launch(name, kernel, X, Y, gram: bool, plus_eye: bool, eps_rel):
     return L
 
 
+def _square(X):
+    return X.new_empty((X.shape[0], X.shape[-2], X.shape[-2]))
+
+
+chol_op = KernelOp(
+    "chol", "(Tensor A, float? eps_rel) -> Tensor",
+    lambda A, eps_rel: cholesky_plain(A, eps_rel).contiguous(),
+    lambda A, eps_rel: _launch("batch_cholesky", "chol", A, None, False, False, eps_rel),
+    lambda A, eps_rel: _square(A),
+)
+chol_gram_op = KernelOp(
+    "chol_gram", "(Tensor X, Tensor? Y, bool plus_eye, float? eps_rel) -> Tensor",
+    lambda X, Y, plus_eye, eps_rel: chol_gram_plain(X, Y, plus_eye, eps_rel).contiguous(),
+    lambda X, Y, plus_eye, eps_rel: _launch(
+        "batch_chol_gram", "chol_gram", X, Y, True, plus_eye, eps_rel),
+    lambda X, Y, plus_eye, eps_rel: _square(X),
+)
+
+
 def batch_cholesky(A, eps_rel=None):
     """L [N, d, d] with L Lᵀ ≈ A for explicit PSD A [N, d, d]."""
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"batch_cholesky: need A [N, d, d], got {list(A.shape)}")
-    if on_cpu("batch_cholesky", A):
-        return cholesky_plain(A, eps_rel)
-    return _launch("batch_cholesky", "chol", A, None, False, False, eps_rel)
+    return chol_op(on_cpu("batch_cholesky", A), A, eps_rel)
 
 
 def batch_chol_gram(X, Y=None, plus_eye: bool = False, eps_rel=None):
@@ -141,10 +160,8 @@ def batch_chol_gram(X, Y=None, plus_eye: bool = False, eps_rel=None):
     Y [N, d, my]."""
     if X.dim() != 3 or (Y is not None and (Y.dim() != 3 or Y.shape[:-1] != X.shape[:-1])):
         raise ValueError("batch_chol_gram: need X [N, d, mx] and Y [N, d, my]")
-    xs = (X,) if Y is None else (X, Y)
-    if on_cpu("batch_chol_gram", *xs):
-        return chol_gram_plain(X, Y, plus_eye, eps_rel)
-    return _launch("batch_chol_gram", "chol_gram", X, Y, True, plus_eye, eps_rel)
+    cpu = on_cpu("batch_chol_gram", *((X,) if Y is None else (X, Y)))
+    return chol_gram_op(cpu, X, Y, plus_eye, eps_rel)
 
 
 def launch_counts() -> dict:

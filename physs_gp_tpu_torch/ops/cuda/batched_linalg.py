@@ -11,11 +11,14 @@ all in `csrc/batched_linalg.cu`:
 - `batch_solve_logdet(M, R)`: the same elimination plus sum_k log|pivot_k| =
   log|det M| for SPD M (replaces `_gj_solve_logdet_kernel`).
 
-Each wrapper takes its plain PyTorch version (`*_plain`, same arithmetic in
-batched tensor ops) for a tensor that lies on the CPU; for a CUDA tensor it
-launches the kernel or raises. Operands are [N, rows, cols] with unit stride
-along the last dimension; the batch and row strides are passed to the kernel,
-so column slices and broadcast (stride-0) batches need no copy. Outputs are
+Each kernel is the custom op `torch.ops.physs_gp.{bmm, gj_solve,
+gj_solve_logdet}` (`bmm_op`, `gj_solve_op`, `gj_solve_logdet_op`): its CPU
+implementation is the plain PyTorch version (`*_plain`, same arithmetic in
+batched tensor ops), its CUDA implementation launches the kernel or raises.
+The wrappers check the operands and call the op (`build.KernelOp`).
+Operands are [N, rows, cols] with unit stride along the last dimension; the
+batch and row strides are passed to the kernel, so column slices and
+broadcast (stride-0) batches need no copy. Outputs are
 new contiguous tensors. The product's launch shape (products per block,
 threads, shared memory) comes from `bmm_plan`; an operand whose base address,
 batch stride and row stride are multiples of 16 bytes is staged 16 bytes at a
@@ -36,8 +39,8 @@ import torch
 
 from . import build
 from .build import (
-    D_MAX, SM_COUNT, WARP_D, WARP_GROUP, ceil4, check_smem, dtype_code, launch, layout_aligned16,
-    on_cpu, row_pitch, row_stride, stream_of, threads_for,
+    D_MAX, SM_COUNT, WARP_D, WARP_GROUP, KernelOp, ceil4, check_smem, dtype_code, launch,
+    layout_aligned16, on_cpu, row_pitch, row_stride, stream_of, threads_for,
 )
 
 __all__ = [
@@ -147,20 +150,28 @@ def gj_solve_logdet_plain(M, R):
 
 
 # ---------------------------------------------------------------------------
-# Wrappers
+# The kernels as custom ops (`build.KernelOp`): the plain version on the CPU,
+# the launch on the card, a fake for the tracers
 # ---------------------------------------------------------------------------
 
 
-def batch_bmm(A, B, ta: bool = False, tb: bool = False):
-    """C[b] = op(A[b]) @ op(B[b]); A [N, ka, ma], B [N, kb, mb]."""
+def _bmm_dims(A, B, ta: bool, tb: bool):
+    """(m, n, k) of op(A) @ op(B); raises when the contracted dims differ."""
     m = A.shape[-1] if ta else A.shape[-2]
     k = A.shape[-2] if ta else A.shape[-1]
     kb = B.shape[-1] if tb else B.shape[-2]
     n = B.shape[-2] if tb else B.shape[-1]
     if k != kb:
         raise ValueError(f"batch_bmm: contracted dims differ ({k} vs {kb})")
-    if on_cpu("batch_bmm", A, B):
-        return bmm_plain(A, B, ta, tb)
+    return m, n, k
+
+
+def _bmm_cpu(A, B, ta, tb):
+    return bmm_plain(A, B, ta, tb).contiguous()
+
+
+def _bmm_cuda(A, B, ta, tb):
+    m, n, k = _bmm_dims(A, B, ta, tb)
     if max(m, n, k) > D_MAX:
         raise ValueError(f"batch_bmm: dims ({m}, {n}, {k}) exceed {D_MAX}")
     N = A.shape[0]
@@ -181,17 +192,14 @@ def batch_bmm(A, B, ta: bool = False, tb: bool = False):
     return C
 
 
-def batch_matmul(A, B):
-    """C[b] = A[b] @ B[b]: the no-transpose case of `batch_bmm`."""
-    return batch_bmm(A, B)
+def _bmm_fake(A, B, ta, tb):
+    m, n, _ = _bmm_dims(A, B, ta, tb)
+    return A.new_empty((A.shape[0], m, n))
 
 
-def _solve(name, M, R, logdet: bool):
-    N, d, d2 = M.shape if M.dim() == 3 else (None, None, None)
-    if M.dim() != 3 or d != d2 or R.dim() != 3 or R.shape[-2] != d:
-        raise ValueError(f"{name}: need M [N, d, d] and R [N, d, r]")
-    if on_cpu(name, M, R):
-        return _gj_plain(M, R, logdet)
+def _solve_cuda(M, R, logdet: bool):
+    name = "batch_solve_logdet" if logdet else "batch_solve"
+    N, d, _ = M.shape
     r = R.shape[-1]
     if d > D_MAX:
         raise ValueError(f"{name}: d = {d} exceeds {D_MAX}")
@@ -211,14 +219,59 @@ def _solve(name, M, R, logdet: bool):
     return X, ld
 
 
+def _gj_solve_cpu(M, R):
+    return gj_solve_plain(M, R).contiguous()
+
+
+def _gj_solve_logdet_cpu(M, R):
+    X, ld = gj_solve_logdet_plain(M, R)
+    return X.contiguous(), ld
+
+
+bmm_op = KernelOp(
+    "bmm", "(Tensor A, Tensor B, bool ta, bool tb) -> Tensor", _bmm_cpu, _bmm_cuda, _bmm_fake,
+)
+gj_solve_op = KernelOp(
+    "gj_solve", "(Tensor M, Tensor R) -> Tensor", _gj_solve_cpu,
+    lambda M, R: _solve_cuda(M, R, False)[0], lambda M, R: R.new_empty(R.shape),
+)
+gj_solve_logdet_op = KernelOp(
+    "gj_solve_logdet", "(Tensor M, Tensor R) -> (Tensor, Tensor)", _gj_solve_logdet_cpu,
+    lambda M, R: _solve_cuda(M, R, True),
+    lambda M, R: (R.new_empty(R.shape), M.new_empty(M.shape[:1])),
+)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def batch_bmm(A, B, ta: bool = False, tb: bool = False):
+    """C[b] = op(A[b]) @ op(B[b]); A [N, ka, ma], B [N, kb, mb]."""
+    _bmm_dims(A, B, ta, tb)
+    return bmm_op(on_cpu("batch_bmm", A, B), A, B, ta, tb)
+
+
+def batch_matmul(A, B):
+    """C[b] = A[b] @ B[b]: the no-transpose case of `batch_bmm`."""
+    return batch_bmm(A, B)
+
+
+def _check_solve(name, M, R) -> bool:
+    if M.dim() != 3 or M.shape[-1] != M.shape[-2] or R.dim() != 3 or R.shape[-2] != M.shape[-1]:
+        raise ValueError(f"{name}: need M [N, d, d] and R [N, d, r]")
+    return on_cpu(name, M, R)
+
+
 def batch_solve(M, R):
     """Solve M[b] X[b] = R[b]; M [N, d, d], R [N, d, r]."""
-    return _solve("batch_solve", M, R, logdet=False)[0]
+    return gj_solve_op(_check_solve("batch_solve", M, R), M, R)
 
 
 def batch_solve_logdet(M, R):
     """(X, log|det M|) for SPD M [N, d, d], R [N, d, r]."""
-    return _solve("batch_solve_logdet", M, R, logdet=True)
+    return gj_solve_logdet_op(_check_solve("batch_solve_logdet", M, R), M, R)
 
 
 _KERNELS = ("bmm", "gj_solve", "gj_solve_logdet")

@@ -8,10 +8,11 @@ exactly zero upper triangle. The kernels are in `csrc/batched_factor.cu`
 (they replace `_lq_kernel`): for d <= 32 and m <= 64 one warp owns a matrix
 with a row per lane in registers (`lq_warp_kernel`), above that one block per
 matrix in shared memory (`lq_block_kernel`); `lq_plan` gives the launch shape.
-`tria_plain` is the same Householder LQ in batched tensor ops, taken for CPU
-tensors. `ops/cuda/build.py` counts the launches (`launch_counts`, and
-`route_counts` for the two kernels and for the "library" route that
-`sqrt_kalman.tria` takes above `lq_fits`).
+`tria_plain` is the same Householder LQ in batched tensor ops, the CPU
+implementation of the custom op `torch.ops.physs_gp.lq` (`lq_op`), whose CUDA
+implementation launches the kernels. `ops/cuda/build.py` counts the launches
+(`launch_counts`, and `route_counts` for the two kernels and for the
+"library" route that `sqrt_kalman.tria` takes above `lq_fits`).
 """
 from __future__ import annotations
 
@@ -21,8 +22,8 @@ import torch
 
 from . import build
 from .build import (
-    D_MAX, SM_COUNT, WARP_D, WARP_GROUP, WARP_GROUP_SMEM, check_smem, dtype_code, launch, on_cpu,
-    row_pitch, row_stride, stream_of, threads_for,
+    D_MAX, SM_COUNT, WARP_D, WARP_GROUP, WARP_GROUP_SMEM, KernelOp, check_smem, dtype_code, launch,
+    on_cpu, row_pitch, row_stride, stream_of, threads_for,
 )
 
 __all__ = ["batch_tria", "lq_fits", "lq_plan", "tria_plain", "launch_counts", "reset_launch_counts"]
@@ -89,12 +90,7 @@ def lq_fits(d: int, m: int) -> bool:
     return d <= D_MAX and m <= 2 * D_MAX
 
 
-def batch_tria(B):
-    """L [N, d, d] with L Lᵀ = B Bᵀ for B [N, d, m], m >= d, diag >= 0."""
-    if B.dim() != 3 or B.shape[-1] < B.shape[-2]:
-        raise ValueError(f"batch_tria: need B [N, d, m] with m >= d, got {list(B.shape)}")
-    if on_cpu("batch_tria", B):
-        return tria_plain(B)
+def _lq_cuda(B):
     N, d, m = B.shape
     if not lq_fits(d, m):
         raise ValueError(f"batch_tria: [{d}, {m}] exceeds d <= {D_MAX}, m <= {2 * D_MAX}")
@@ -110,6 +106,19 @@ def batch_tria(B):
         route="warp" if _lq_warp(d, m) else "block",
     )
     return L
+
+
+lq_op = KernelOp(
+    "lq", "(Tensor B) -> Tensor", lambda B: tria_plain(B).contiguous(), _lq_cuda,
+    lambda B: B.new_empty((B.shape[0], B.shape[-2], B.shape[-2])),
+)
+
+
+def batch_tria(B):
+    """L [N, d, d] with L Lᵀ = B Bᵀ for B [N, d, m], m >= d, diag >= 0."""
+    if B.dim() != 3 or B.shape[-1] < B.shape[-2]:
+        raise ValueError(f"batch_tria: need B [N, d, m] with m >= d, got {list(B.shape)}")
+    return lq_op(on_cpu("batch_tria", B), B)
 
 
 def launch_counts() -> dict:

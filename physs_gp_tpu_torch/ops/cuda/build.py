@@ -6,7 +6,8 @@ headers (`csrc/*.cuh`) and the flags,
 and loaded through ctypes. `build()` starts one `nvcc` per source that is
 not built yet, all side by side, and waits for them together. The helpers
 below are the operand checks and launch plumbing the wrappers share;
-`launch` counts every kernel launch in `LAUNCHES`.
+`launch` counts every kernel launch in `LAUNCHES`; `KernelOp` registers a
+kernel as a `torch.library` custom op.
 """
 from __future__ import annotations
 
@@ -20,10 +21,11 @@ import time
 from pathlib import Path
 
 import torch
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 
 __all__ = [
     "build", "library", "build_info", "SMEM_LIMIT", "D_MAX", "LAUNCHES", "ROUTES", "launch",
-    "count_route", "launch_counts", "reset_launch_counts", "route_counts",
+    "count_route", "launch_counts", "reset_launch_counts", "route_counts", "KernelOp", "traced",
 ]
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -175,6 +177,36 @@ def check_smem(name, words: int, x) -> None:
             f"{name}: {list(x.shape)} needs {smem} B of shared memory, more than "
             f"the {SMEM_LIMIT} B a block may use"
         )
+
+
+def traced() -> bool:
+    """Whether a wrapper runs under a tracer: `torch.export`, `make_fx` and
+    fake tensors push a dispatch mode, `torch.compile` compiles."""
+    return is_in_torch_dispatch_mode() or torch.compiler.is_compiling()
+
+
+class KernelOp:
+    """A kernel as the custom op `torch.ops.physs_gp.<name>` with `schema`:
+    `plain` is its CPU implementation, `cuda` the launch code, `fake` the
+    outputs' shapes and types for the tracers (new contiguous tensors: no
+    output aliases an input).
+
+    A wrapper calls `op(cpu, *args)`, `cpu` from its `on_cpu` check. Under a
+    tracer that goes through the dispatcher, which records one node per
+    call; in eager mode it goes straight to the implementation for the
+    device, which saves the dispatcher's host time on every launch."""
+
+    def __init__(self, name: str, schema: str, plain, cuda, fake):
+        self.op = torch.library.custom_op(
+            f"physs_gp::{name}", plain, mutates_args=(), device_types="cpu", schema=schema)
+        self.op.register_kernel("cuda", cuda)
+        self.op.register_fake(fake)
+        self.plain, self.cuda = plain, cuda
+
+    def __call__(self, cpu: bool, *args):
+        if traced():
+            return self.op(*args)
+        return (self.plain if cpu else self.cuda)(*args)
 
 
 # launches per kernel, counted where the entry point is called and nowhere else

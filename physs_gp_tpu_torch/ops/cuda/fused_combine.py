@@ -33,8 +33,10 @@ Smoothing combine (ej later suffix, ei earlier):
   stride are multiples of 16 bytes is staged 16 bytes at a time on the tiled
   route, any other one element at a time (`build.layout_aligned16`).
 - `fused_filter_plain` / `fused_smooth_plain` are the kernels' arithmetic in
-  batched tensor ops; the wrappers take them for CPU tensors only. For CUDA
-  tensors they launch the kernel or raise.
+  batched tensor ops, the CPU implementations of the custom ops
+  `torch.ops.physs_gp.fused_filter` / `fused_smooth` (`fused_filter_op`,
+  `fused_smooth_op`: a list of both elements' leaves in, the combined
+  element's leaves out). For CUDA tensors they launch the kernel or raise.
 - `use_fused_combine(first, second, dtype)` is the routing decision of the
   scans, from the shapes of the two operands' matrices: the reference's knob
   `PHYSS_FUSED_COMBINE=1`, read at call time, default off, sends every
@@ -47,6 +49,7 @@ The wrappers carry no gradient: `ops/parallel_kalman.py` wraps them in a
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import os
@@ -55,7 +58,7 @@ import torch
 
 from .batched_linalg import gj_solve_plain
 from .build import (
-    SMEM_LIMIT, WARP_D, check_smem, dtype_code, launch, layout_aligned16, on_cpu, row_pitch,
+    SMEM_LIMIT, WARP_D, KernelOp, check_smem, dtype_code, launch, layout_aligned16, on_cpu, row_pitch,
     row_stride, stream_of, threads_for,
 )
 
@@ -214,27 +217,50 @@ def _launch(kernel, entry, ins, outs, N, d, smoothing):
     )
 
 
+# The kernels as custom ops (`build.KernelOp`) on the flat list of both
+# elements' leaves, first element then second, and the output element's leaves
+_Filter = collections.namedtuple("_Filter", "A b C J eta")
+_Smooth = collections.namedtuple("_Smooth", "E g L")
+
+
+def _outputs(cls, like):
+    """New contiguous leaves of a `cls` element in the type of `like`
+    [N, d, d]: [N, d, d] matrices, [N, d] vectors."""
+    N, d, _ = like.shape
+    return cls(*(like.new_empty((N, d) if f in ("b", "eta", "g") else (N, d, d))
+                 for f in cls._fields))
+
+
+def _op(kernel, entry, cls, plain, smoothing):
+    n = len(cls._fields)
+
+    def cpu(ins):
+        return tuple(x.contiguous() for x in plain(cls(*ins[:n]), cls(*ins[n:])))
+
+    def cuda(ins):
+        out = _outputs(cls, ins[0])
+        N, d, _ = ins[0].shape
+        if N:
+            _launch(kernel, entry, ins, out, N, d, smoothing)
+        return tuple(out)
+
+    schema = f"(Tensor[] ins) -> ({', '.join(['Tensor'] * n)})"
+    return KernelOp(kernel, schema, cpu, cuda, lambda ins: tuple(_outputs(cls, ins[0])))
+
+
+fused_filter_op = _op("fused_filter", "physs_fused_filter", _Filter, fused_filter_plain, False)
+fused_smooth_op = _op("fused_smooth", "physs_fused_smooth", _Smooth, fused_smooth_plain, True)
+
+
 def fused_filtering_combine(ei, ej):
     """The filtering combine of two batches of elements (A, b, C, J, eta)."""
     mats, vecs = (ei.A, ei.C, ei.J, ej.A, ej.C, ej.J), (ei.b, ei.eta, ej.b, ej.eta)
-    if _check("fused_filtering_combine", False, mats, vecs):
-        return fused_filter_plain(ei, ej)
-    N, d, _ = ei.A.shape
-    new = ei.A.new_empty
-    out = type(ei)(A=new(N, d, d), b=new(N, d), C=new(N, d, d), J=new(N, d, d), eta=new(N, d))
-    if N:
-        _launch("fused_filter", "physs_fused_filter", (*ei, *ej), tuple(out), N, d, False)
-    return out
+    cpu = _check("fused_filtering_combine", False, mats, vecs)
+    return type(ei)(*fused_filter_op(cpu, [*ei, *ej]))
 
 
 def fused_smoothing_combine(ej, ei):
     """The smoothing combine of two batches of elements (E, g, L); ej is the
     later suffix, ei the earlier element."""
-    if _check("fused_smoothing_combine", True, (ej.E, ej.L, ei.E, ei.L), (ej.g, ei.g)):
-        return fused_smooth_plain(ej, ei)
-    N, d, _ = ej.E.shape
-    new = ej.E.new_empty
-    out = type(ej)(E=new(N, d, d), g=new(N, d), L=new(N, d, d))
-    if N:
-        _launch("fused_smooth", "physs_fused_smooth", (*ej, *ei), tuple(out), N, d, True)
-    return out
+    cpu = _check("fused_smoothing_combine", True, (ej.E, ej.L, ei.E, ei.L), (ej.g, ei.g))
+    return type(ej)(*fused_smooth_op(cpu, [*ej, *ei]))

@@ -2,7 +2,7 @@
 PyTorch port on a CUDA card.
 
     python3 scripts/port/profile_config5.py [--temporal] [--sqrt | --fused]
-        [--train [--float64]] [T] [chunk]
+        [--train [--float64]] [--through-ops] [T] [chunk]
 
 Builds `build_config5(T, chunk, float32)` (default T = 100 000, chunk
 25 000, as the benchmark runs it) or, with `--temporal`,
@@ -16,7 +16,12 @@ device time of the port's hand-written kernels against PyTorch's own, the
 launches of each hand-written kernel in the step (and, for the temporal
 model, the calls of the d = 2 flat combines), the kernels that take the
 most device time, every hand-written kernel of the port with its device
-time and calls, and the profiler's table by device time.
+time and calls, and the profiler's table by device time; then the wall
+times of three more steps, not traced.
+
+`--through-ops` sends every kernel call through the dispatcher
+(`torch.ops.physs_gp.*`), as a tracer's calls go, instead of straight to
+the launch code: the two differ by the dispatcher's host time.
 
 `--train` profiles one iteration of `trainers.vb_ng_adam_scan` (adam_lr
 0.05, ng_lr 0.5) after a warm-up iteration, as its body runs: the
@@ -54,7 +59,12 @@ def main():
     args = sys.argv[1:]
     temporal, sqrt, fused = "--temporal" in args, "--sqrt" in args, "--fused" in args
     train, f64 = "--train" in args, "--float64" in args
-    args = [a for a in args if a not in ("--temporal", "--sqrt", "--fused", "--train", "--float64")]
+    if "--through-ops" in args:
+        from physs_gp_tpu_torch.ops.cuda import build as kernel_build
+
+        kernel_build.traced = lambda: True
+    args = [a for a in args if a not in ("--temporal", "--sqrt", "--fused", "--train", "--float64",
+                                         "--through-ops")]
     if fused:
         os.environ["PHYSS_FUSED_COMBINE"] = "1"
     if temporal:
@@ -123,6 +133,13 @@ def main():
         print(f"[profile] port kernel {e.self_device_time_total / 1e3:9.2f} ms  "
               f"{e.count:7d} calls  {_PORT_KERNEL.match(e.key).group(1)}")
     print(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        natgrad_scan(model, 0.5, n_steps=1, nan_guard=False)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"[profile] {name} {form} step wall, not traced: {[round(w * 1e3, 1) for w in walls]} ms")
     return 0
 
 

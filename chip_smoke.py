@@ -8,7 +8,9 @@ path (the Allen-Cahn, pendulum and monotonic CVI models with their
 Monte-Carlo residuals, and `ode_gp`) and the scattered-sensor and
 vector-field paths (scattered and sparse spatio-temporal models, the
 Helmholtz flow, the magnetic field, the state-space LMC), and AOT serving
-(config-5 `predict_f` exported with `torch.export`, reloaded and served).
+(config-5 `predict_f` exported with `torch.export`, reloaded and served),
+and the batch GP family (BatchGP by Cholesky and CG, SVGP, the curl-free,
+Helmholtz and derivative recipes, the batch LMC).
 
     python3 chip_smoke.py
 
@@ -162,7 +164,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      call (rtol 1e-6, the same launches per kernel), with the export and
      load wall, nodes, bytes, p50 / p99 of EXPORT_CALLS loaded and live
      calls and the peak memory; the `kernels` line's `launches_by_path`
-     has the loaded call's launches under "export".
+     has the loaded call's launches under "export";
+ 15. batch anchors (`phase_batch_anchor`), float64, against
+     tests/data/batch_golden.npz (made by scripts/port/make_batch_golden.py
+     from the JAX package): `curl_free_gp` and `helmholtz_gp` at N = 40,
+     `deriv_gp` with NaNs and joint samples, CG `BatchGP` fed the JAX
+     probes, SVGP whitened and unwhitened, the monotonic batch-VI arm at
+     its quick size, a batch LMC with a constant mean; counters reset per
+     configuration, each taking the `chol` kernel's warp or block route on
+     its 2-D factors of n <= 80 (under "batch anchors f64" in
+     `launches_by_path`);
+ 16. the batch family at full size (`phase_batch_full`): the curl-free
+     experiment (float32) against its independent-RBF baseline, the
+     monotonic batch-VI arm (float64, 300 steps) against the JAX package's
+     float64 runs, `BatchGP` at n = 2048 / 4096 / 8192 by Cholesky and by
+     CG (lml and gradient wall, peak, CG steps, lml gap <= 3e-3), the SLQ's
+     `eigh` timed, a curl-free Gram at N = 4096 (build, lml and gradient).
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -581,6 +598,8 @@ def phase_kernels():
         _check_small_d(torch.Generator(device="cuda").manual_seed(7), dtype, report)
         _check_physics_shapes(torch.Generator(device="cuda").manual_seed(8), dtype, report)
         _check_scattered_shapes(torch.Generator(device="cuda").manual_seed(9), dtype, report)
+        if dtype == torch.float64:  # the batch family's factors are float64
+            _check_batch_shapes(torch.Generator(device="cuda").manual_seed(10), dtype, report)
     torch.cuda.synchronize()
     times = _time_kernels(gen)
     times["bmm"]["host_us_per_call"] = _time_dispatch(gen)
@@ -2444,6 +2463,27 @@ def _check_physics_shapes(gen, dtype, report):
     print(f"[kernels] physics shapes {str(dtype)[6:]}: routes (warp, block) {got}")
 
 
+def _check_batch_shapes(gen, dtype, report):
+    """The Cholesky kernel at the batch family's shapes: its 2-D factors of
+    n <= 80 run as a batch of one, [1, 10, 10] (SVGP's inducing Gram) and
+    [1, 24, 24] (the joint covariance of `deriv_gp`'s samples) on the warp
+    route, [1, 60, 60] (the monotonic arm's M·P) and [1, 80, 80] (the
+    curl-free and Helmholtz Grams at N = 40) on the block route. Each
+    launch's route is asserted."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    build.reset_launch_counts()
+    for n in BATCH_CHOL_N:
+        A = _spd(gen, 1, n, dtype)
+        report("chol", "factor", *_rel(bc.batch_cholesky(A), bc.cholesky_plain(A)), dtype,
+               f"[1,{n},{n}] (batch)")
+    got = {k: build.route_counts()["chol"][k] for k in ("warp", "block")}
+    if got != {"warp": 2, "block": 2}:
+        raise AssertionError(f"batch shapes: chol routes {got}, expected 2 warp and 2 block")
+    print(f"[kernels] batch shapes {str(dtype)[6:]}: chol routes {got}")
+
+
 def _time_physics(gen):
     """Kernel, plain and library time at the Allen-Cahn path's block-route
     shapes, float32: the LQ of [1, 64, 64] (kernel: device time back to
@@ -2999,6 +3039,131 @@ def phase_scattered_full():
     return counts, routes
 
 
+# ---------------------------------------------------------------------------
+# The batch (dense) GP family: BatchGP (Cholesky and CG), SVGP, the
+# curl-free / Helmholtz / derivative recipes, the batch LMC
+# ---------------------------------------------------------------------------
+
+BATCH_PATH = "batch anchors f64"
+BATCH_CHOL_N = (10, 24, 60, 80)  # the batch family's 2-D factors on the Cholesky kernel
+
+
+def _batch():
+    sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
+    import batch_outcome
+
+    return batch_outcome
+
+
+def phase_batch_anchor():
+    """Float64 anchors against tests/data/batch_golden.npz (made by
+    scripts/port/make_batch_golden.py from the JAX package on the CPU):
+    `curl_free_gp` and `helmholtz_gp` at N = 40, `deriv_gp` with NaNs and
+    joint samples, `BatchGP(solver="cg")` fed the JAX probes, SVGP whitened
+    and unwhitened with one natural-gradient step at lr 1, the monotonic
+    batch-VI arm (`deriv_vgp`, Z = 30, M·P = 60) after 5 steps at lr 0.5,
+    and a batch LMC with a constant mean: lml, gradients, ELBOs and
+    predictions rtol 1e-9, CG 1e-8. Counters are reset before each
+    configuration and read after it; each must take the Cholesky kernel's
+    routes of `batch_outcome.CHOL_ROUTES` (its factors of n <= 80: the warp
+    kernel at M = 10 and the joint covariance of 24, the block kernel at
+    60-80). Returns the summed (counts, routes) under BATCH_PATH."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    bo = _batch()
+    gold = np.load(bo.GOLDEN)
+    total = {k: 0 for k in SOURCES}
+    chol = {"warp": 0, "block": 0}
+    for cfg in bo.CONFIGS:
+        kernels.reset_launch_counts()
+        res = bo.anchor(gold, cfg, "cuda")
+        counts, routes = kernels.launch_counts(), kernels.route_counts()
+        for key, (got, want, tol) in res.items():
+            r = bo.relerr(got, want)
+            print(f"[anchor batch {cfg}] {key} max rel {r:.3e} (tol {tol:g})")
+            if not (np.all(np.isfinite(got)) and r <= tol):
+                raise AssertionError(f"anchor batch {cfg}: {key} disagrees with the JAX reference")
+        cr = routes.get("chol", {})
+        print(f"[anchor batch {cfg}] chol launches {counts['chol']}, routes {cr}; other launches "
+              f"{ {k: v for k, v in counts.items() if v and k != 'chol'} }")
+        if not all(cr.get(r) for r in bo.CHOL_ROUTES[cfg]):
+            raise AssertionError(f"anchor batch {cfg}: the chol kernel did not take its "
+                                 f"{bo.CHOL_ROUTES[cfg]} route")
+        for k, v in counts.items():
+            total[k] += v
+        for r in chol:
+            chol[r] += cr.get(r, 0)
+    print(f"[anchor batch] launches {total}; chol routes {chol}")
+    return {BATCH_PATH: total}, {BATCH_PATH: {"chol": chol}}
+
+
+def phase_batch_full():
+    """The batch family at full size. The curl-free experiment (120
+    training, 200 test points, float32) against its independent-RBF
+    baseline; the monotonic batch-VI arm (float64, Z = 50, M·P = 100, 300
+    natural-gradient steps at lr 0.5): no violation, the ELBO within 1e-4
+    and `rmse_gap_vgp` within 10 % of each JAX float64 run in the golden
+    file that has locked into its limit cycle (`batch_outcome.locked_runs`;
+    results/monotonic.json's run has not); `BatchGP` with RBF at n = 2048,
+    4096, 8192 (scripts/profile/bench_cg.py's model, float32): the lml and
+    the lml with its gradient by Cholesky and by CG (wall, peak, the CG
+    steps run), CG's lml within DENSE_GAP of Cholesky's; the SLQ's batched
+    `eigh` of [32, 48, 48] timed on the card; a curl-free Gram at N = 4096
+    ([8192, 8192]): its build's wall and peak, then the lml and its
+    gradient. Each run's launches are read, reset just before it; none of
+    these factors is small enough for the Cholesky kernel."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    bo = _batch()
+    counts, routes = {}, {}
+
+    def run(tag, fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        counts[tag], routes[tag] = kernels.launch_counts(), kernels.route_counts()
+        print(f"[full batch {tag}] chol launches {counts[tag]['chol']}, routes {routes[tag]}")
+        return out
+
+    cf = run("curl_free f32", lambda: bo.curl_free_outcome("cuda"))
+    print(f"[outcome curl_free] float32, 120 / 200 points: rmse {cf['rmse']:.5f} against the "
+          f"independent-RBF baseline's {cf['rmse_independent_gp']:.5f} (JAX CPU quick: "
+          f"{bo.CF_RESULTS}); nlpd {cf['nlpd']:.5f}; {cf['seconds']:.2f} s; ok {cf['ok']}")
+    mv = run("monotonic vgp f64", lambda: bo.monotonic_outcome("cuda"))
+    print(f"[outcome monotonic vgp] float64, M·P = {mv['M']}, {mv['steps']} steps: rmse_gap_vgp "
+          f"{mv['rmse_gap_vgp']:.5f}, ELBO {mv['elbo']:.5f}, violation rate "
+          f"{mv['deriv_violation_rate_vgp']}; the JAX package's float64 runs (q_mu's start moved by "
+          f"{bo.MV_PERTURB}): rmse_gap_vgp {mv['jax_rmse_gap_vgp']}, ELBO {mv['jax_elbo']}, locked "
+          f"{mv['jax_locked']} (the first is results/monotonic.json's "
+          f"{bo.MV_RESULTS['rmse_gap_vgp']:.5f}); "
+          f"{mv['seconds']:.2f} s ({1e3 * mv['seconds'] / mv['steps']:.2f} ms a step); ok {mv['ok']}")
+    if not (cf["ok"] and mv["ok"]):
+        raise AssertionError("outcome gate of the curl-free or the monotonic batch-VI arm failed")
+    rows = run("dense scale f32", lambda: bo.dense_scale("cuda"))
+    for row in rows:
+        print(f"[full batch dense] {json.dumps(row)}")
+        if not (row["cholesky_finite"] and row["cg_finite"] and row["lml_rel_gap"] <= bo.DENSE_GAP):
+            raise AssertionError(f"dense n = {row['n']}: non-finite, or CG's lml more than "
+                                 f"{bo.DENSE_GAP:g} from Cholesky's")
+    T = torch.randn(32, 48, 48, device="cuda")
+    T = T + T.transpose(-1, -2)
+    us = {}
+    for where, A in (("card", T), ("host", T.cpu())):
+        torch.linalg.eigh(A)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            torch.linalg.eigh(A)
+        torch.cuda.synchronize()
+        us[where] = (time.perf_counter() - t0) / 50 * 1e6
+    print(f"[full batch dense] SLQ tridiagonal eigh [32, 48, 48] float32, wall a call: card "
+          f"{us['card']:.1f} us, host CPU {us['host']:.1f} us")
+    gram = run("curl_free gram f32", lambda: bo.curl_free_gram("cuda"))
+    print(f"[full batch curl_free gram] {json.dumps(gram)}")
+    if not gram["finite"]:
+        raise AssertionError("curl-free Gram at N = 4096: a non-finite lml or gradient")
+    return counts, routes
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3035,10 +3200,15 @@ def main():
         t0 = time.perf_counter()
         phase()
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    batch_paths, batch_routes = phase_batch_anchor()
+    print(f"[phase_batch_anchor] {time.perf_counter() - t0:.1f} s")
     paths, routes = phase_slice_full()
     paths["export"] = phase_export_full()
+    paths.update(batch_paths)
+    routes.update(batch_routes)
     for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full, phase_physics_full,
-                  phase_scattered_full):
+                  phase_scattered_full, phase_batch_full):
         t0 = time.perf_counter()
         more_paths, more_routes = phase()
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -21,7 +21,13 @@ too: `.kernel.parts[1].k_time.lengthscales.raw` of a `StackedMarkov`, a
 `StackedHead`'s `(coeff, head)` part as `...parts[1][0]` (a number) or
 `...parts[1][0].raw` (a Param), a trainable `.kernel.Z.raw`, and a
 `MixedValueHead`'s `.observation.heads[0].W.raw` or `...W.z.raw`
-(`UnitLowerMixing`).
+(`UnitLowerMixing`); the batch models' leaves too: `BatchGP` and `SVGP`
+data (`.X`, `.Y`, `.Z`), q (`.q_mu.raw`, the packed `.q_sqrt.raw`), a
+`DerivativeKernel`'s `.kernel.base.lengthscales.raw` and fixed `.kernel.W`,
+a kernel sum's `.kernel.parts[1].base.variance.raw`, an `LMC`'s
+`.kernel.W.raw` and `.kernel.latents[0].lengthscales.raw`, a
+`PerOutputLikelihood`'s `.likelihood.liks[0].variance.raw` and static
+`.likelihood.liks[1].nu`, and a mean's `.mean.c.raw`.
 
 `load_stream_state(arrays, dtype, device)` carries a JAX `StreamState`
 (m, P, t_last, lml as numpy) into the port's.

@@ -8,7 +8,9 @@ balanced basis x_k = f^(k) / lam^k:
   nilpotent, so A(dt) = exp(-lam dt) sum_{k<d} N^k dt^k / k! exactly;
 - Q(dt) is the exact noise integral, evaluated termwise with the regularised
   incomplete gamma function (positive by construction for every dt);
-- Pinf solves the d x d Lyapunov equation.
+- Pinf solves the d x d Lyapunov equation;
+- `k_deriv_fn` gives the derivative covariances in closed form, exact at
+  coincident points where autodiff of the |τ| chain is not.
 """
 from __future__ import annotations
 
@@ -83,6 +85,59 @@ class Matern(StationaryKernel, MarkovKernel):
         H[0, 0] = 1.0
         Pinf = solve_pinf(F, L, Qc)
         return StateSpace(F=F, L=L, Qc=Qc, H=H, Pinf=Pinf, minf=torch.zeros(d, **kw))
+
+    def k_deriv_fn(self, a: tuple, b: tuple):
+        """Exact ∂^a_{x1} ∂^b_{x2} k in closed form. For τ > 0 write
+        k(τ) = σ² e^{-λτ} Q₀(λτ); then
+            k⁽ʲ⁾(τ) = σ² λʲ e^{-λτ} Q_j(λτ),   Q_{j+1} = Q_j′ − Q_j,
+        extended to τ ≤ 0 by evenness (odd j takes sign(τ), which is 0 at
+        τ = 0, where odd derivatives of an even function vanish), and
+        ∂^m_{x1} ∂^n_{x2} k(x1 − x2) = (−1)ⁿ k⁽ᵐ⁺ⁿ⁾(τ). Orders up to p (the
+        derivatives the Markov state carries); inputs must be 1-D."""
+        if not (a or b):
+            return None  # the value block: k_scalar is exact for any input dim
+        if any(i != 0 for i in (*a, *b)):
+            raise ValueError("Matern is 1-D (temporal); derivative dims must be 0")
+        m, n = len(a), len(b)
+        if max(m, n) > self.p:
+            raise ValueError(
+                f"Matern nu={self.p}+1/2 supports derivative orders <= {self.p}; "
+                f"got orders ({m}, {n})"
+            )
+        p, j = self.p, m + n
+        # Q_0 in ascending powers of u = lam |tau| (unit variance; the
+        # polynomial of _matern_corr)
+        c = [0.0] * (p + 1)
+        for i in range(p + 1):
+            c[p - i] = (
+                (math.factorial(p) / math.factorial(2 * p))
+                * (math.factorial(p + i) / (math.factorial(i) * math.factorial(p - i)))
+                * 2.0 ** (p - i)
+            )
+        for _ in range(j):  # Q <- Q' - Q (the degree stays <= p)
+            c = [((k + 1) * c[k + 1] if k < p else 0.0) - c[k] for k in range(p + 1)]
+        sgn = (-1.0) ** n
+        odd = j % 2 == 1
+
+        def fn(x1, x2):
+            lam = self._lam
+            x1 = torch.atleast_1d(x1).reshape(-1)
+            x2 = torch.atleast_1d(x2).reshape(-1)
+            if x1.shape[0] != 1 or x2.shape[0] != 1:
+                raise ValueError(
+                    f"Matern.k_deriv_fn is 1-D (temporal) but got inputs of "
+                    f"dim {x1.shape[0]}; route the Matern factor through "
+                    f"OnDims(matern, (t_dim,)) inside a ProductKernel"
+                )
+            tau = x1[0] - x2[0]
+            u = lam * torch.abs(tau)
+            poly = c[p]
+            for k in range(p - 1, -1, -1):  # Horner
+                poly = poly * u + c[k]
+            val = sgn * self.variance.value * lam**j * torch.exp(-u) * poly
+            return val * torch.sign(tau) if odd else val
+
+        return fn
 
     def _nilpotent(self, dtype):
         d = self.p + 1

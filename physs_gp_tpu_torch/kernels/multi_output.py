@@ -1,11 +1,15 @@
 """Multi-output mixing for the linear model of coregionalisation (PyTorch
-counterpart of the state-space part of `physs_gp_tpu/kernels/multi_output.py`).
+counterpart of `physs_gp_tpu/kernels/multi_output.py`).
 
 Outputs f = W g mix independent latent GPs g; the parameterisations differ
 only in how W is built, so they are mixing objects exposing `.value`
 [P, L], as a `Param` does. `UnitLowerMixing` is the unit-lower-triangular
-W (the reference's `LMC_LDL`). `CorrelationMixing` and the batch `LMC`
-kernel are not ported yet.
+W (the reference's `LMC_LDL`). The batch `LMC` kernel,
+
+    Cov(f_p(x), f_q(x')) = sum_l W_pl W_ql k_l(x, x'),
+
+gives data-major block Grams like `DerivativeKernel`. `CorrelationMixing`
+(`LMC.init_drd`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -13,9 +17,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.params import param
+from .base import Kernel, _as_2d
+from .derivative import data_major
+from ..utils.params import Param, param
 
-__all__ = ["UnitLowerMixing"]
+__all__ = ["UnitLowerMixing", "LMC"]
 
 
 class UnitLowerMixing(nn.Module):
@@ -42,3 +48,47 @@ class UnitLowerMixing(nn.Module):
         W = torch.eye(self.P, self.L, dtype=z.dtype, device=z.device)
         return W.index_put((torch.as_tensor(rows, device=z.device),
                             torch.as_tensor(cols, device=z.device)), z)
+
+
+class LMC(Kernel):
+    """Linear model of coregionalisation over independent latent kernels."""
+
+    def __init__(self, latents, W):
+        super().__init__()
+        self.latents = nn.ModuleList(latents)
+        self.W = W
+
+    @classmethod
+    def init(cls, latents, P: int, generator=None, dtype=None, device=None) -> "LMC":
+        """W [P, L] standard normal / sqrt(L), drawn from `generator` (a
+        `torch.Generator` on `device`; None draws from one seeded with 0)."""
+        L = len(latents)
+        if generator is None:
+            generator = torch.Generator(device=device or "cpu").manual_seed(0)
+        W0 = torch.randn(P, L, generator=generator, dtype=dtype, device=device) / np.sqrt(L)
+        return cls(latents, Param(W0))
+
+    @classmethod
+    def init_ldl(cls, latents, P: int, dtype=None, device=None) -> "LMC":
+        """Unit-lower-triangular mixing (the reference's `LMC_LDL`): plain
+        LMC with W = I while the strict-lower entries are zero."""
+        return cls(latents, UnitLowerMixing.init(P, len(latents), dtype=dtype, device=device))
+
+    @property
+    def n_outputs(self) -> int:
+        return self.W.value.shape[0]
+
+    def K_blocks(self, X1, X2):
+        """[P, P, N, M] mixed covariance blocks."""
+        W = self.W.value
+        Ks = torch.stack([k.K(X1, X2) for k in self.latents])  # [L, N, M]
+        return torch.einsum("pl,lnm,ql->pqnm", W, Ks, W)
+
+    def K(self, X1, X2):
+        return data_major(self.K_blocks(_as_2d(X1), _as_2d(X2)))
+
+    def K_diag(self, X):
+        X = _as_2d(X)
+        W = self.W.value
+        kd = torch.stack([k.K_diag(X) for k in self.latents])  # [L, N]
+        return torch.einsum("pl,ln->np", W * W, kd).reshape(-1)

@@ -27,7 +27,7 @@ from ..ops.quadrature import expect_gh, expect_gh_log
 from ..ops.sampling import standard_normal
 from ..utils.params import Param, positive_param
 from .gaussian import Likelihood
-from .nongaussian import expected_log_lik
+from .nongaussian import expected_log_lik, predictive_moments
 
 __all__ = ["CompositeLikelihood", "NonlinearResidual"]
 
@@ -170,17 +170,9 @@ class CompositeLikelihood(Likelihood):
         [T, p], column h through head h's conditional moments by
         Gauss-Hermite quadrature; the residual, a training device, is left
         out."""
-        means, vrs = [], []
-        for h, lik in enumerate(self.heads):
-            m, v = f_mean[..., h], f_var[..., h]
-            ey = expect_gh(lik.conditional_mean, m, v, gh_points)
-            ey2 = expect_gh(
-                lambda ff, lik=lik: lik.conditional_variance(ff) + lik.conditional_mean(ff) ** 2,
-                m, v, gh_points,
-            )
-            means.append(ey)
-            vrs.append(ey2 - ey * ey)
-        return torch.stack(means, -1), torch.stack(vrs, -1)
+        cols = [predictive_moments(lik, f_mean[..., h], f_var[..., h], gh_points)
+                for h, lik in enumerate(self.heads)]
+        return torch.stack([c[0] for c in cols], -1), torch.stack([c[1] for c in cols], -1)
 
     def predictive_density(self, y, f_mean, f_var, gh_points: int = 20):
         """Elementwise p(y*_th) = ∫ p(y | f) q(f) df per head; [T, p]."""

@@ -1,9 +1,11 @@
 """The port's models; the names the JAX package's `models` exports, as far
 as they are ported."""
 from .ssgp import GaussianMoments, StateSpaceGP
+from .batch_gp import BatchGP
+from .svgp import SVGP
 from .cvi_gp import CVIGP
 from .stgp import SpatioTemporalGP
 from .streaming import StreamingGP, StreamingCVI, StreamState, SegmentResult
 
-__all__ = ["GaussianMoments", "StateSpaceGP", "CVIGP", "SpatioTemporalGP", "StreamingGP",
+__all__ = ["GaussianMoments", "StateSpaceGP", "BatchGP", "SVGP", "CVIGP", "SpatioTemporalGP", "StreamingGP",
            "StreamingCVI", "StreamState", "SegmentResult"]

@@ -39,11 +39,11 @@ from torch import nn
 
 from ..approx.cvi import Sites, init_sites, natgrad_update
 from ..likelihoods.gaussian import BlockDiagonalGaussian
-from ..likelihoods.nongaussian import expected_log_lik
+from ..likelihoods.nongaussian import expected_log_lik, predictive_moments
 from ..ops.gaussian import mask_covariance
 from ..ops.lgssm import build_lgssm, project_cov, project_cov_factor, project_mean
 from ..ops.matrix import psd_solve_logdet
-from ..ops.quadrature import expect_gh, expect_gh_log
+from ..ops.quadrature import expect_gh_log
 from ..ops.runner import run_filter_smoother
 from .ssgp import GaussianMoments, StateSpaceGP
 
@@ -256,14 +256,7 @@ class CVIGP(nn.Module):
         composite likelihoods route column h through head h."""
         f = self.predict_f(t_new)
         lik = self.likelihood
-        if hasattr(lik, "predict_y_moments"):
-            return GaussianMoments(*lik.predict_y_moments(f.mean, f.var, gh_points))
-        ey = expect_gh(lik.conditional_mean, f.mean, f.var, gh_points)
-        ey2 = expect_gh(
-            lambda ff: lik.conditional_variance(ff) + lik.conditional_mean(ff) ** 2,
-            f.mean, f.var, gh_points,
-        )
-        return GaussianMoments(mean=ey, var=ey2 - ey**2)
+        return GaussianMoments(*predictive_moments(lik, f.mean, f.var, gh_points))
 
     @torch.no_grad()
     def nlpd(self, t_new, y_new, gh_points: int = 20):

@@ -1,8 +1,9 @@
 """Gaussian density algebra with missing-data masking (PyTorch).
 
-Counterpart of `physs_gp_tpu/ops/gaussian.py` (`mask_covariance`,
-`masked_mvn_logpdf`). Missing observations are masked inside fixed-shape
-algebra: masked rows/cols are zeroed and 1 is put on the masked diagonal.
+Counterpart of `physs_gp_tpu/ops/gaussian.py` (`mvn_logpdf`,
+`mask_covariance`, `masked_mvn_logpdf`, `gaussian_kl`). Missing observations
+are masked inside fixed-shape algebra: masked rows/cols are zeroed and 1 is
+put on the masked diagonal.
 """
 from __future__ import annotations
 
@@ -10,11 +11,20 @@ import math
 
 import torch
 
-from .matrix import psd_solve_logdet
+from .matrix import log_det_from_chol, psd_solve_logdet, safe_cholesky, solve_lower
 
-__all__ = ["mask_covariance", "masked_mvn_logpdf"]
+__all__ = ["mvn_logpdf", "mask_covariance", "masked_mvn_logpdf", "gaussian_kl"]
 
 _LOG2PI = math.log(2.0 * math.pi)
+
+
+def mvn_logpdf(y, mean, cov):
+    """log N(y | mean, cov); y, mean [..., n], cov [..., n, n]."""
+    n = y.shape[-1]
+    L = safe_cholesky(cov)
+    alpha = solve_lower(L, (y - mean)[..., None])[..., 0]
+    maha = torch.sum(alpha * alpha, -1)
+    return -0.5 * (maha + log_det_from_chol(L) + n * _LOG2PI)
 
 
 def mask_covariance(cov, obs_mask):
@@ -38,3 +48,14 @@ def masked_mvn_logpdf(y, mean, cov, obs_mask):
     maha = torch.sum(diff * alpha[..., 0], -1)
     n_obs = torch.sum(obs_mask, -1)
     return -0.5 * (maha + logdet + n_obs * _LOG2PI)
+
+
+def gaussian_kl(m_q, L_q, m_p, L_p):
+    """KL(N(m_q, L_q L_qᵀ) || N(m_p, L_p L_pᵀ)) from lower Cholesky factors."""
+    n = m_q.shape[-1]
+    M = solve_lower(L_p, L_q)
+    trace = torch.sum(M * M, (-1, -2))
+    diff = solve_lower(L_p, (m_p - m_q)[..., None])[..., 0]
+    maha = torch.sum(diff * diff, -1)
+    logdet = log_det_from_chol(L_p) - log_det_from_chol(L_q)
+    return 0.5 * (trace + maha - n + logdet)

@@ -33,6 +33,8 @@ __all__ = [
     "safe_cholesky_rel",
     "robust_cholesky",
     "cholesky_solve",
+    "solve_lower",
+    "solve_upper",
     "gen_solve",
     "bmm",
     "unit_last",
@@ -179,6 +181,30 @@ def robust_cholesky(A, rel: float | None = None, escalations=(1e2, 1e3, 1e4)):
             good = torch.isfinite(L).all(-1, keepdim=True).all(-2, keepdim=True)
             mult = torch.where(good, lv, mult)
     return _cholesky_or_nan(A + (rel * mult) * scale * eye)
+
+
+def solve_lower(L, B):
+    """L⁻¹ B for lower-triangular L [..., n, n], B [..., n, k]; closed form at n <= 2."""
+    n = L.shape[-1]
+    if n == 1:
+        return B / L[..., 0:1, 0:1]
+    if n == 2:
+        x0 = B[..., 0, :] / L[..., 0:1, 0]
+        x1 = (B[..., 1, :] - L[..., 1:2, 0] * x0) / L[..., 1:2, 1]
+        return torch.stack([x0, x1], -2)
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def solve_upper(U, B):
+    """U⁻¹ B for upper-triangular U [..., n, n], B [..., n, k]; closed form at n <= 2."""
+    n = U.shape[-1]
+    if n == 1:
+        return B / U[..., 0:1, 0:1]
+    if n == 2:
+        x1 = B[..., 1, :] / U[..., 1:2, 1]
+        x0 = (B[..., 0, :] - U[..., 0:1, 1] * x1) / U[..., 0:1, 0]
+        return torch.stack([x0, x1], -2)
+    return torch.linalg.solve_triangular(U, B, upper=True)
 
 
 def cholesky_solve(L, B):

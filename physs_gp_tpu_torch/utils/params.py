@@ -4,7 +4,9 @@ Counterpart of `physs_gp_tpu/utils/params.py`. A `Param` is an `nn.Module`
 holding the unconstrained value as an `nn.Parameter` named `raw`; `.value`
 applies the bijector's forward transform. `.fix()` turns gradients off
 (`requires_grad_(False)`), the counterpart of the JAX package's stop-gradient.
-`NegParam` is a view of a `Param` as its negation.
+`NegParam` is a view of a `Param` as its negation. `fill_triangular` packs
+lower triangles in `jnp.tril_indices`' row-major order, so packed leaves
+(`SVGP.q_sqrt`) carry across from the JAX package unchanged.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 from torch import nn
 
 __all__ = ["Identity", "Positive", "identity", "positive", "Param", "param", "positive_param",
-           "NegParam"]
+           "NegParam", "fill_triangular", "fill_triangular_inverse", "tril_param", "tril_value"]
 
 _SOFTPLUS_SHIFT = 1e-6  # lower bound keeping positive params away from 0
 
@@ -71,6 +73,33 @@ def param(value, dtype=None, device=None) -> Param:
 def positive_param(value, dtype=None, device=None, fixed: bool = False) -> Param:
     v = torch.as_tensor(value, dtype=dtype, device=device)
     return Param(positive.inverse(v), bijector=positive, fixed=fixed)
+
+
+def _tril_indices(n: int, device):
+    return torch.tril_indices(n, n, device=device).unbind(0)
+
+
+def fill_triangular(vec, n: int):
+    """Pack a [..., n(n+1)/2] vector into a lower-triangular [..., n, n], row by row."""
+    rows, cols = _tril_indices(n, vec.device)
+    out = vec.new_zeros(vec.shape[:-1] + (n, n))
+    out[..., rows, cols] = vec
+    return out
+
+
+def fill_triangular_inverse(mat):
+    """The packed [..., n(n+1)/2] lower triangle of [..., n, n]."""
+    rows, cols = _tril_indices(mat.shape[-1], mat.device)
+    return mat[..., rows, cols]
+
+
+def tril_param(mat) -> Param:
+    """Parameterise a (batch of) lower-triangular matrices by their packed vec."""
+    return Param(fill_triangular_inverse(torch.as_tensor(mat)))
+
+
+def tril_value(p: Param, n: int):
+    return fill_triangular(p.value, n)
 
 
 class NegParam(nn.Module):

@@ -1,5 +1,15 @@
-"""Zoo: physics-ML vector-field recipes in state-space form (PyTorch
-counterpart of the state-space half of `physs_gp_tpu/zoo/phi_ml.py`).
+"""Zoo: physics-ML vector-field recipes (PyTorch counterpart of
+`physs_gp_tpu/zoo/phi_ml.py`).
+
+Batch (dense) recipes, on derivative-operator kernels:
+
+- `curl_free_gp`: H = −∇φ, φ ~ GP, so K_H = ∇∇' k mixed by W = −I
+  (`curl_free_kernel`); curl H = 0 by construction;
+- `helmholtz_gp`: a 2-D field u = −∇φ + rot ψ as the sum of independent
+  curl-free and divergence-free GPs (`div_free_kernel_2d`: u = (∂y ψ,
+  −∂x ψ)); the posterior splits the field into its two parts.
+
+State-space recipes:
 
 - `helmholtz_st_gp` / `helmholtz_st_predict`: a 2-D flow over time as two
   independent latent ST GPs, φ (potential) and ψ (stream), stacked
@@ -23,11 +33,14 @@ import copy
 
 import torch
 
+from ..kernels.base import SumKernel
+from ..kernels.derivative import DerivativeKernel, grad_ops
 from ..kernels.markov import StackedMarkov
 from ..kernels.matern import Matern32
 from ..kernels.rbf import RBF
 from ..kernels.spatio_temporal import SpatioTemporalKernel
-from ..likelihoods.gaussian import IndependentGaussian, SharedVariance
+from ..likelihoods.gaussian import Gaussian, IndependentGaussian, SharedVariance
+from ..models.batch_gp import BatchGP
 from ..models.cvi_gp import CVIGP
 from ..models.ssgp import GaussianMoments, StateSpaceGP
 from ..ops.lgssm import project_mean, project_var
@@ -35,8 +48,60 @@ from ..transforms.operators import SpatialHead, StackedHead, StateObservation, s
 from ..utils.params import positive_param
 from ..utils.shapes import as_points
 
-__all__ = ["helmholtz_st_gp", "helmholtz_st_predict", "magnetic_field_gp",
+__all__ = ["curl_free_kernel", "div_free_kernel_2d", "curl_free_gp", "helmholtz_gp",
+           "helmholtz_st_gp", "helmholtz_st_predict", "magnetic_field_gp",
            "magnetic_field_predict"]
+
+
+def _like(module):
+    t = next(iter(module.parameters()))
+    return dict(dtype=t.dtype, device=t.device)
+
+
+def curl_free_kernel(base, ds: int) -> DerivativeKernel:
+    """K of H = −∇φ (the negated gradient field of a GP with kernel `base`)."""
+    return DerivativeKernel(base=base, ops=grad_ops(ds), W=-torch.eye(ds, **_like(base)))
+
+
+def div_free_kernel_2d(base) -> DerivativeKernel:
+    """K of u = (∂y ψ, −∂x ψ), the 2-D divergence-free field of ψ ~ GP(0, base)."""
+    W = torch.tensor([[0.0, 1.0], [-1.0, 0.0]], **_like(base))
+    return DerivativeKernel(base=base, ops=grad_ops(2), W=W)
+
+
+class _MultiOutputSum(SumKernel):
+    """Sum of multi-output kernels with a shared output count."""
+
+    @property
+    def n_outputs(self) -> int:
+        return self.parts[0].n_outputs
+
+
+def _rbf(ds, kw):
+    return RBF(lengthscales=positive_param(torch.ones(ds), **kw), variance=positive_param(1.0, **kw))
+
+
+def curl_free_gp(X, Y_field, base_kernel=None, noise: float = 1e-3, dtype=torch.float64,
+                 device="cuda") -> BatchGP:
+    """Exact GP over a curl-free vector field: X [N, ds] positions, Y_field
+    [N, ds] the observed components (NaN = missing)."""
+    kw = dict(dtype=dtype, device=device)
+    X = as_points(X, **kw)
+    kern = curl_free_kernel(base_kernel or _rbf(X.shape[1], kw), X.shape[1])
+    return BatchGP(X, Y_field, kern, Gaussian(positive_param(noise, **kw)), **kw)
+
+
+def helmholtz_gp(X, Y_field, base_curl=None, base_div=None, noise: float = 1e-3,
+                 dtype=torch.float64, device="cuda") -> BatchGP:
+    """2-D Helmholtz decomposition GP: u = curl-free + divergence-free
+    parts, each over its own base GP."""
+    kw = dict(dtype=dtype, device=device)
+    X = as_points(X, **kw)
+    if X.shape[1] != 2:
+        raise ValueError("helmholtz_gp is the 2-D recipe")
+    kern = _MultiOutputSum([curl_free_kernel(base_curl or _rbf(2, kw), 2),
+                            div_free_kernel_2d(base_div or _rbf(2, kw))])
+    return BatchGP(X, Y_field, kern, Gaussian(positive_param(noise, **kw)), **kw)
 
 
 def _st_kernel(k_time, k_space, Z, kw):

@@ -10,7 +10,10 @@ vector-field paths (scattered and sparse spatio-temporal models, the
 Helmholtz flow, the magnetic field, the state-space LMC), and AOT serving
 (config-5 `predict_f` exported with `torch.export`, reloaded and served),
 and the batch GP family (BatchGP by Cholesky and CG, SVGP, the curl-free,
-Helmholtz and derivative recipes, the batch LMC).
+Helmholtz and derivative recipes, the batch LMC), and the nonlinear-dynamics
+and volatility path (EKF / EKS and the iterated parallel EKS of
+`NonlinearSSGP`, the dynamics zoo, the dynamic-correlation model, the L-BFGS
+trainers).
 
     python3 chip_smoke.py
 
@@ -180,6 +183,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      float64 runs, `BatchGP` at n = 2048 / 4096 / 8192 by Cholesky and by
      CG (lml and gradient wall, peak, CG steps, lml gap <= 3e-3), the SLQ's
      `eigh` timed, a curl-free Gram at N = 4096 (build, lml and gradient).
+ 17. dynamics anchors (`phase_dynamics_anchor`), float64, against
+     tests/data/dynamics_golden.npz (made by
+     scripts/port/make_dynamics_golden.py from the JAX package): the
+     pendulum `NonlinearSSGP` (EKF / EKS, the damping gradient, the iterated
+     parallel EKS at d = 2), `lorenz_gp` at d = 3 by both methods (the
+     parallel passes also with PHYSS_FUSED_COMBINE=1), `lotka_volterra_gp`,
+     `latent_force_gp`, `euler_maruyama_sample_given`,
+     `correlation_cholesky`, `LMC.init_drd`, `HetGaussian`,
+     `dynamic_covariance_gp` on the JAX draws (rtol 1e-9), `LBFGSTrainer`
+     and `VB_NG_LBFGS` (rtol 1e-8); counters reset per configuration (under
+     "dynamics anchors f64" in `launches_by_path`);
+ 18. the dynamics path at length (`phase_dynamics_full`): the JAX tests'
+     outcome gates on their own data beside the JAX package's figures,
+     `lorenz_gp` at T = 20 000 (dt 0.0002) by the iterated parallel EKS in
+     float32 and float64 (first propagation and passes timed apart), the
+     dynamic-correlation model at P = 5 over T = 2520, `VB_NG_LBFGS` on
+     config-5 at T = 100 000 (float32, 2 epochs, line-search trials per
+     step); each run's launches, which must include `bmm` and `gj_solve` on
+     the d = 3, d = 20 and config-5 runs.
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -600,6 +622,7 @@ def phase_kernels():
         _check_scattered_shapes(torch.Generator(device="cuda").manual_seed(9), dtype, report)
         if dtype == torch.float64:  # the batch family's factors are float64
             _check_batch_shapes(torch.Generator(device="cuda").manual_seed(10), dtype, report)
+        _check_dynamics_shapes(torch.Generator(device="cuda").manual_seed(11), dtype, report)
     torch.cuda.synchronize()
     times = _time_kernels(gen)
     times["bmm"]["host_us_per_call"] = _time_dispatch(gen)
@@ -2484,6 +2507,58 @@ def _check_batch_shapes(gen, dtype, report):
     print(f"[kernels] batch shapes {str(dtype)[6:]}: chol routes {got}")
 
 
+# (N, d, p) of the dynamics path's scans: the Lorenz iterated smoother's
+# chunk at T = 20 000 (state d = 3, one observation) and the dynamic
+# correlation model at P = 5 over T = 2520 (d = 2Q = 20, p = 5)
+DYN_SHAPES = ((5000, 3, 1), (2520, 20, 5))
+
+
+def _check_dynamics_shapes(gen, dtype, report):
+    """The kernels at the dynamics path's shapes (DYN_SHAPES), each against
+    its plain version at TOL: the [d, d] products in all four transposes, the
+    filter elements' [p, d] products, the affine offsets' [1, d] x [d, d]^T;
+    the combine's inverse (stride-0 identity, r = d), the smoother's gain
+    solve (r = d), the filter elements' S^-1 [HP | v | H] (r = 2d + 1); the
+    solve with log-determinant of S and of a [d, d] system (r = 1); in
+    float64 the sequential EKS smoother's [1, 3, 3] Cholesky. Every launch
+    must take the warp kernel."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    build.reset_launch_counts()
+    for N, d, p in DYN_SHAPES:
+        tag = f"(dynamics d={d})"
+        cases = [((d, d), (d, d), ta, tb) for ta in (False, True) for tb in (False, True)]
+        cases += [((p, d), (d, d), False, False), ((p, d), (p, d), False, True),
+                  ((p, d), (p, d), True, False), ((1, d), (d, d), False, True)]
+        for a, b, ta, tb in cases:
+            A, B = _randn(gen, N, *a).to(dtype), _randn(gen, N, *b).to(dtype)
+            report("bmm", "bmm", *_rel(bl.batch_bmm(A, B, ta, tb), bl.bmm_plain(A, B, ta, tb)), dtype,
+                   f"[{N},{a[0]},{a[1]}]{'^T' * ta} x [{N},{b[0]},{b[1]}]{'^T' * tb} {tag}")
+        eye = torch.eye(d, dtype=dtype, device="cuda").expand(N, d, d)
+        for M, R, label in ((_icj(gen, N, d, dtype), eye, "stride-0 I"),
+                            (_spd(gen, N, d, dtype), _randn(gen, N, d, d).to(dtype), "dense"),
+                            (_spd(gen, N, p, dtype), _randn(gen, N, p, 2 * d + 1).to(dtype), "dense")):
+            report("gj_solve", "solve", *_rel(bl.batch_solve(M, R), bl.gj_solve_plain(M, R)), dtype,
+                   f"[{N},{M.shape[-1]},{M.shape[-1]}] r={R.shape[-1]} {label} {tag}")
+        for n in (p, d):
+            M, R = _spd(gen, N, n, dtype), _randn(gen, N, n, 1).to(dtype)
+            (X, ld), (Xp, ldp) = bl.batch_solve_logdet(M, R), bl.gj_solve_logdet_plain(M, R)
+            report("gj_solve_logdet", "solve", *_rel(X, Xp), dtype, f"[{N},{n},{n}] r=1 X {tag}")
+            report("gj_solve_logdet", "logdet", *_rel(ld, ldp), dtype, f"[{N},{n},{n}] r=1 logdet {tag}")
+    if dtype == torch.float64:
+        A = _spd(gen, 1, 3, dtype)
+        report("chol", "factor", *_rel(bc.batch_cholesky(A), bc.cholesky_plain(A)), dtype,
+               "[1,3,3] (dynamics EKS smoother)")
+    routes = build.route_counts()
+    if any(r.get("block") for r in routes.values()) or \
+            not all(routes.get(k, {}).get("warp") for k in ("gj_solve", "gj_solve_logdet")):
+        raise AssertionError(f"dynamics shapes: expected every launch on the warp kernels: {routes}")
+    print(f"[kernels] dynamics shapes {str(dtype)[6:]}: launches {build.launch_counts()}, "
+          f"all on the warp kernels")
+
+
 def _time_physics(gen):
     """Kernel, plain and library time at the Allen-Cahn path's block-route
     shapes, float32: the LQ of [1, 64, 64] (kernel: device time back to
@@ -3164,6 +3239,153 @@ def phase_batch_full():
     return counts, routes
 
 
+# ---------------------------------------------------------------------------
+# The nonlinear-dynamics and volatility path: EKF / EKS and the iterated
+# parallel EKS (NonlinearSSGP), the dynamics zoo, DynamicCovarianceGaussian,
+# HetGaussian, CorrelationMixing, the L-BFGS trainers
+# ---------------------------------------------------------------------------
+
+DYNAMICS_PATH = "dynamics anchors f64"
+# the runs that must reach the product and solve kernels (d = 3, 20, config-5)
+DYNAMICS_KERNEL_PATHS = ("lorenz ieks T=20000 f32", "lorenz ieks T=20000 f64",
+                         "dynamic covariance P=5 f64", "config5 vb_ng_lbfgs f32")
+
+
+def _dynamics():
+    sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
+    import dynamics_outcome
+
+    return dynamics_outcome
+
+
+def _hold_anchor(tag, res):
+    do = _dynamics()
+    for key, (got, want, tol) in res.items():
+        r = do.relerr(got, want)
+        print(f"[anchor dynamics {tag}] {key} max rel {r:.3e} (tol {tol:g})")
+        if not (np.all(np.isfinite(got)) and r <= tol):
+            raise AssertionError(f"anchor dynamics {tag}: {key} disagrees with the JAX reference")
+
+
+def phase_dynamics_anchor():
+    """Float64 anchors against tests/data/dynamics_golden.npz (made by
+    scripts/port/make_dynamics_golden.py from the JAX package on the CPU),
+    blocked scans of 8 blocks as there: the pendulum `NonlinearSSGP` at
+    T = 256 (EKF / EKS moments and lml, the EKF lml's gradient by the
+    damping, 8 iterated parallel EKS passes on the flat d = 2 combines
+    without grad mode: the CPU tests hold their gradient), `lorenz_gp`
+    at T = 256 (sequential, whose smoother factors each [3, 3] predicted
+    covariance on the `chol` kernel, and 8 parallel passes on `bmm` and the
+    solves; the parallel passes alone again with PHYSS_FUSED_COMBINE=1,
+    which must launch the fused combines), `lotka_volterra_gp` and
+    `latent_force_gp` (T = 128), `euler_maruyama_sample_given` on the
+    replayed JAX draws, `correlation_cholesky`, a `BatchGP` over
+    `LMC.init_drd`, `HetGaussian`'s ELLs, `dynamic_covariance_gp` (P = 2,
+    T = 64, 5 Gauss-Newton steps on the two JAX draw sets): rtol 1e-9;
+    `LBFGSTrainer` (10 iterations on `_model()`), `VB_NG_LBFGS` (3 epochs on
+    the Poisson CVIGP, 2 on config-5 at T = 256): rtol 1e-8. Counters are
+    reset before each configuration. Returns {DYNAMICS_PATH: the summed
+    launches}."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    do = _dynamics()
+    gold = np.load(do.GOLDEN)
+    total = {k: 0 for k in SOURCES}
+    # the pendulum in two parts, its iterated smoother without grad mode
+    for cfg in ("pend::ekf", "pend::ieks") + tuple(c for c in do.CONFIGS if c != "pend"):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = do.anchors(gold, "cuda", (cfg,))[cfg]
+        counts = kernels.launch_counts()
+        _hold_anchor(cfg, res)
+        print(f"[anchor dynamics {cfg}] {time.perf_counter() - t0:.2f} s, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if cfg == "lorenz" and not (counts["bmm"] and counts["gj_solve"] and counts["chol"]):
+            raise AssertionError(f"anchor dynamics lorenz: no bmm, gj_solve or chol launch: {counts}")
+        for k, v in counts.items():
+            total[k] += v
+    kernels.reset_launch_counts()
+    os.environ["PHYSS_FUSED_COMBINE"] = "1"
+    try:
+        res = do.anchors(gold, "cuda", ("lorenz::ieks",))["lorenz::ieks"]
+    finally:
+        del os.environ["PHYSS_FUSED_COMBINE"]
+    counts = kernels.launch_counts()
+    _hold_anchor("lorenz knob on", res)
+    print(f"[anchor dynamics lorenz knob on] launches { {k: v for k, v in counts.items() if v} }")
+    if not (counts["fused_filter"] and counts["fused_smooth"]):
+        raise AssertionError("anchor dynamics lorenz knob on: the fused combines did not run")
+    for k, v in counts.items():
+        total[k] += v
+    print(f"[anchor dynamics] launches {total}")
+    return {DYNAMICS_PATH: total}
+
+
+def phase_dynamics_full():
+    """The JAX tests' outcome gates on their own data, float64 (the recipes'
+    default), each figure beside the JAX package's on the same data
+    (golden file): Lotka-Volterra (T = 500) state RMSE < 0.2, Lorenz
+    (T = 2000) hidden y and z correlations > 0.95 by the sequential EKS and
+    by the iterated parallel EKS, the latent force (T = 400) correlation
+    > 0.95, the dynamic-correlation path (P = 2, T = 200, 150 steps, the
+    parallel scans) corr > 0.9 and RMSE < 0.25. Then at length: `lorenz_gp`
+    at T = 20 000 (dt 0.0002: over 40 time units the iterated smoother
+    diverges in both packages, ROADMAP queue 3 item 14; chunk 5000, 5
+    passes) in float32 and float64 (wall split into the first propagation
+    and the passes, peak, the largest change of the smoothed means between
+    the last two passes; the lml must be finite);
+    `dynamic_covariance_gp` at P = 5 (d = 20) over T = 2520, parallel, 20
+    steps (wall per step, peak; the ELBO must stay finite); `VB_NG_LBFGS` on
+    config-5 at T = 100 000 (chunk 25 000), float32, 2 epochs of its
+    `train` (wall per epoch, line-search trials, peak; finite, and the last loss
+    no higher than the first). Counters are reset just before each run and
+    read just after; the runs of DYNAMICS_KERNEL_PATHS must launch `bmm` and
+    `gj_solve`. Returns the runs' (counts, routes)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    do = _dynamics()
+    gold = np.load(do.GOLDEN)
+    counts, routes = {}, {}
+
+    def run(tag, fn):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[tag], routes[tag] = kernels.launch_counts(), kernels.route_counts()
+        print(f"[full dynamics {tag}] {wall:.2f} s, launches "
+              f"{ {k: v for k, v in counts[tag].items() if v} }, routes {routes[tag]}")
+        return out
+
+    for name in do.OUTCOMES:
+        res = run(f"outcome {name} f64", lambda: do.outcome("cuda", (name,))[name])
+        jax_figs = {k.split("::")[2]: float(gold[k]) for k in gold.files
+                    if k.startswith(f"out::{name}::")}
+        print(f"[outcome dynamics {name}] {json.dumps(res)}; the JAX package on the same data: "
+              f"{json.dumps(jax_figs)}")
+        if not res["ok"]:
+            raise AssertionError(f"outcome gate of {name} failed: {res}")
+    for dtype in (torch.float32, torch.float64):
+        tag = f"lorenz ieks T=20000 {str(dtype).split('.')[-1].replace('float', 'f')}"
+        res = run(tag, lambda: do.ieks_at_length("cuda", dtype))
+        print(f"[full dynamics {tag}] {json.dumps(res)}")
+        if not res["finite"]:
+            raise AssertionError(f"{tag}: the lml is not finite")
+    res = run("dynamic covariance P=5 f64", lambda: do.dynamic_covariance_wide("cuda"))
+    print(f"[full dynamics dynamic covariance P=5] {json.dumps(res)}")
+    if not res["finite"]:
+        raise AssertionError("dynamic covariance at P = 5: a non-finite ELBO")
+    res = run("config5 vb_ng_lbfgs f32", lambda: do.config5_vb_ng_lbfgs("cuda"))
+    print(f"[full dynamics config5 vb_ng_lbfgs] {json.dumps(res)}")
+    if not res["ok"]:
+        raise AssertionError(f"config-5 VB_NG_LBFGS: non-finite, or the loss rose: {res['losses']}")
+    for tag in DYNAMICS_KERNEL_PATHS:
+        if not (counts[tag]["bmm"] and counts[tag]["gj_solve"]):
+            raise AssertionError(f"{tag}: launched no bmm or no gj_solve: {counts[tag]}")
+    return counts, routes
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3203,12 +3425,16 @@ def main():
     t0 = time.perf_counter()
     batch_paths, batch_routes = phase_batch_anchor()
     print(f"[phase_batch_anchor] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dynamics_paths = phase_dynamics_anchor()
+    print(f"[phase_dynamics_anchor] {time.perf_counter() - t0:.1f} s")
     paths, routes = phase_slice_full()
     paths["export"] = phase_export_full()
     paths.update(batch_paths)
+    paths.update(dynamics_paths)
     routes.update(batch_routes)
     for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full, phase_physics_full,
-                  phase_scattered_full, phase_batch_full):
+                  phase_scattered_full, phase_batch_full, phase_dynamics_full):
         t0 = time.perf_counter()
         more_paths, more_routes = phase()
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -27,7 +27,10 @@ data (`.X`, `.Y`, `.Z`), q (`.q_mu.raw`, the packed `.q_sqrt.raw`), a
 a kernel sum's `.kernel.parts[1].base.variance.raw`, an `LMC`'s
 `.kernel.W.raw` and `.kernel.latents[0].lengthscales.raw`, a
 `PerOutputLikelihood`'s `.likelihood.liks[0].variance.raw` and static
-`.likelihood.liks[1].nu`, and a mean's `.mean.c.raw`.
+`.likelihood.liks[1].nu`, and a mean's `.mean.c.raw`; the volatility
+path's too: a `DynamicCovarianceGaussian`'s `.likelihood.variances[1].raw`
+and `.likelihood.y`, and a `CorrelationMixing`'s `.kernel.W.z.raw` and
+`.kernel.W.scales.raw` (`LMC.init_drd`).
 
 `load_stream_state(arrays, dtype, device)` carries a JAX `StreamState`
 (m, P, t_last, lml as numpy) into the port's.

@@ -9,7 +9,8 @@ W (the reference's `LMC_LDL`). The batch `LMC` kernel,
     Cov(f_p(x), f_q(x')) = sum_l W_pl W_ql k_l(x, x'),
 
 gives data-major block Grams like `DerivativeKernel`. `CorrelationMixing`
-(`LMC.init_drd`) is not ported yet.
+(`LMC.init_drd`, the reference's `LMC_DRD`) is W = diag(scales) L_corr(z),
+L_corr the correlation Cholesky of `likelihoods/dynamic_covariance`.
 """
 from __future__ import annotations
 
@@ -19,9 +20,10 @@ from torch import nn
 
 from .base import Kernel, _as_2d
 from .derivative import data_major
-from ..utils.params import Param, param
+from ..likelihoods.dynamic_covariance import correlation_cholesky
+from ..utils.params import Param, param, positive_param
 
-__all__ = ["UnitLowerMixing", "LMC"]
+__all__ = ["UnitLowerMixing", "CorrelationMixing", "LMC"]
 
 
 class UnitLowerMixing(nn.Module):
@@ -50,6 +52,30 @@ class UnitLowerMixing(nn.Module):
                             torch.as_tensor(cols, device=z.device)), z)
 
 
+class CorrelationMixing(nn.Module):
+    """W = diag(scales) L_corr(z): trainable positive per-output `scales`
+    [P] and a unit-diagonal correlation from the unconstrained `z` [Q],
+    squashed into (-1, 1) by the probit 2 Φ(z) - 1. W Wᵀ = diag(s) C diag(s)
+    (the reference's `LMC_DRD`)."""
+
+    def __init__(self, scales: Param, z: Param, P: int):
+        super().__init__()
+        self.scales = scales
+        self.z = z
+        self.P = P
+
+    @classmethod
+    def init(cls, P: int, scales=None, dtype=None, device=None) -> "CorrelationMixing":
+        s = torch.ones(P) if scales is None else torch.as_tensor(scales)
+        return cls(scales=positive_param(s, dtype=dtype, device=device),
+                   z=param(torch.zeros(P * (P - 1) // 2), dtype=dtype, device=device), P=P)
+
+    @property
+    def value(self):
+        zc = 2.0 * torch.special.ndtr(self.z.value) - 1.0
+        return self.scales.value[:, None] * correlation_cholesky(zc, self.P)
+
+
 class LMC(Kernel):
     """Linear model of coregionalisation over independent latent kernels."""
 
@@ -73,6 +99,13 @@ class LMC(Kernel):
         """Unit-lower-triangular mixing (the reference's `LMC_LDL`): plain
         LMC with W = I while the strict-lower entries are zero."""
         return cls(latents, UnitLowerMixing.init(P, len(latents), dtype=dtype, device=device))
+
+    @classmethod
+    def init_drd(cls, latents, scales=None, dtype=None, device=None) -> "LMC":
+        """diag(scales) @ correlation-Cholesky mixing (the reference's
+        `LMC_DRD`); as many latents as outputs (square W)."""
+        return cls(latents, CorrelationMixing.init(len(latents), scales=scales, dtype=dtype,
+                                                   device=device))
 
     @property
     def n_outputs(self) -> int:

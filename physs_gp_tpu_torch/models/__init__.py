@@ -6,6 +6,9 @@ from .svgp import SVGP
 from .cvi_gp import CVIGP
 from .stgp import SpatioTemporalGP
 from .streaming import StreamingGP, StreamingCVI, StreamState, SegmentResult
+from .ekf_gp import NonlinearSSGP
+from .wrappers import LatentPredictor, MultiObjectiveModel
 
 __all__ = ["GaussianMoments", "StateSpaceGP", "BatchGP", "SVGP", "CVIGP", "SpatioTemporalGP", "StreamingGP",
-           "StreamingCVI", "StreamState", "SegmentResult"]
+           "StreamingCVI", "StreamState", "SegmentResult", "NonlinearSSGP", "MultiObjectiveModel",
+           "LatentPredictor"]

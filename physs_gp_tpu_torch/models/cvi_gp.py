@@ -23,10 +23,12 @@ Monte-Carlo residual) supply the data ELL, its Gauss-Newton site gradients
 Monte-Carlo noise: `elbo`, `get_objective`, `natural_gradient_update` and
 `step_with_elbo` take `generator=`, a `torch.Generator` on the model's
 device, where the reference takes a PRNG key; one call draws the
-likelihood's [n_mc, T, p] standard normals once and every term of the call
-shares them. `generator=None` draws the same noise on every call (a fresh
-generator seeded with the residual's `seed`). `draws=` hands in the draws
-themselves (the JAX package's, in the tests). A prior mean is not ported
+likelihood's standard normals once (a residual's [n_mc, T, p]; the pair of
+sets of `DynamicCovarianceGaussian`, one for the ELL and one for its site
+gradients) and every term of the call takes its share. `generator=None`
+draws the same noise on every call (a fresh generator seeded with the
+likelihood's `seed`). `draws=` hands in the draws themselves (the JAX
+package's, in the tests). A prior mean is not ported
 yet: asking for one raises.
 """
 from __future__ import annotations
@@ -125,14 +127,17 @@ class CVIGP(nn.Module):
 
     # ---- ELL terms ----
     def mc_draws(self, generator=None):
-        """The likelihood's Monte-Carlo draws [n_mc, T, p] for one call, from
-        `generator` (None: the frozen seed), or None when the likelihood has
-        no Monte-Carlo term."""
+        """The likelihood's Monte-Carlo draws for one call, from `generator`
+        (None: the frozen seed), or None when the likelihood has no
+        Monte-Carlo term. A likelihood with a `draws` method supplies its own
+        (`DynamicCovarianceGaussian`: a pair of sets); otherwise its
+        `residual` draws [n_mc, T, p]."""
         check_generator(generator)
-        residual = getattr(self.likelihood, "residual", None)
-        if residual is None:
+        lik = self.likelihood
+        source = lik if hasattr(lik, "draws") else getattr(lik, "residual", None)
+        if source is None:
             return None
-        return residual.draws(self.sites.Y, generator)
+        return source.draws(self.sites.Y, generator)
 
     def _ell_data(self, m, S, draws=None):
         if self.observation is not None:

@@ -13,7 +13,9 @@ and the batch GP family (BatchGP by Cholesky and CG, SVGP, the curl-free,
 Helmholtz and derivative recipes, the batch LMC), and the nonlinear-dynamics
 and volatility path (EKF / EKS and the iterated parallel EKS of
 `NonlinearSSGP`, the dynamics zoo, the dynamic-correlation model, the L-BFGS
-trainers).
+trainers), and the Markov-kernel zoo with the prior mean (Sum / Product
+state spaces, `Periodic`, the Wiener family, means in the state-space
+models, flows, uncertain inputs, the misc and aggregated batch kernels).
 
     python3 chip_smoke.py
 
@@ -162,7 +164,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the card, reload it from the bytes and hold it to
      predict_T256_golden.npz (the three programs together launch all eight
      kernels); after phase 6 the float32 covariance model at EXPORT_T
-     steps (chunk 25 000, 3 natural-gradient steps) exports its
+     steps (chunk EXPORT_CHUNK, 3 natural-gradient steps) exports its
      `predict_f` at 1000 new times, reloads it and holds it to the live
      call (rtol 1e-6, the same launches per kernel), with the export and
      load wall, nodes, bytes, p50 / p99 of EXPORT_CALLS loaded and live
@@ -202,6 +204,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      config-5 at T = 100 000 (float32, 2 epochs, line-search trials per
      step); each run's launches, which must include `bmm` and `gj_solve` on
      the d = 3, d = 20 and config-5 runs.
+ 19. Markov anchors (`phase_markov_anchor`), float64, against
+     tests/data/markov_golden.npz (made by scripts/port/make_markov_golden.py
+     from the JAX package): a bare `Periodic`, `Matern32 + Periodic` (a Q
+     block that is exactly zero) and the d = 30 quasi-periodic model with a
+     `LinearMean` in covariance and square-root form at T = 256, the four
+     Wiener kinds, `StreamingGP` on `WienerVelocity` with a mean anchored at
+     t[0], a `ConstantMean`, 3 Poisson `CVIGP` steps with a mean, every
+     flow's `TransformedData`, 3 `UncertainInputLikelihood` CVI steps and
+     `BatchGP` on the misc and aggregated kernels (lml, ELBO and means rtol
+     1e-9, variances 1e-7); counters reset per configuration, all on the
+     warp routes (under "markov anchors f64" in `launches_by_path`); the
+     kernels phase checks every kernel at this path's shapes
+     (`_check_markov_shapes`);
+ 20. the Markov path at length (`phase_markov_full`): `Matern32(720) +
+     Periodic(24, J = 6) * Matern32(336)` (d = 30) with a `LinearMean` on
+     the log of 100 000 hourly values (2 % missing), chunk 25 000: lml + the
+     log-Jacobian correction, `predict_f` at 1000 new times (200 past the
+     data) and `to_data_space`, timed with the peak memory, in covariance
+     and square-root form, float32 and float64, and in covariance form with
+     PHYSS_FUSED_COMBINE=1; then 3 Poisson `CVIGP` steps with a
+     `ConstantMean` on counts of the same structure (float32); each run's
+     launches by kernel and route (warp or tiled only) under "markov ..." in
+     `launches_by_path`; the float64 forms' lml within rtol 1e-6 and each
+     float32 lml within 1e-2 of its float64 one.
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -261,11 +287,13 @@ FUSED = ("fused_filter", "fused_smooth")
 EXPORT_KERNELS = {"cov": ("bmm", "gj_solve", "gj_solve_logdet", "chol"),
                   "sqrt": ("bmm", "gj_solve", "lq", "chol", "chol_gram")}
 EXPORT_CALLS = 20  # loaded and live calls of the exported full-width predict_f
-# The exported full-width model: two chunks of the full run's 25 000 steps
-# (T + 1000 new times = 50 000). At T = 100 000 (five chunks, 34 065 nodes)
-# export took 315 s on an H100 machine's host, load 61 s: over the 240 s bar and,
-# with the anchors, over the export phases' 300 s budget.
-EXPORT_T = 49_000
+# The exported full-width model: two chunks (T + 1000 new times = 25 000
+# steps at chunk 12 500), so the program still carries a chunk boundary. At
+# T = 100 000 (five chunks of 25 000, 34 065 nodes) export took 315 s on an
+# H100 machine's host, load 61 s; at T = 49 000 (two chunks of 25 000,
+# 14 534 nodes) 192-315 s, load 27 s: the script's largest phase. A chunk of
+# 12 000 would pad the 25 000 steps to three chunks.
+EXPORT_T, EXPORT_CHUNK = 24_000, 12_500
 # the export anchors predict the 256 + 40 steps in one chunk of 32 blocks
 EXPORT_ANCHOR_CHUNK, EXPORT_ANCHOR_BLOCKS = 320, "32"
 # the full-width run whose count stands under `launches` in the summary
@@ -623,6 +651,7 @@ def phase_kernels():
         if dtype == torch.float64:  # the batch family's factors are float64
             _check_batch_shapes(torch.Generator(device="cuda").manual_seed(10), dtype, report)
         _check_dynamics_shapes(torch.Generator(device="cuda").manual_seed(11), dtype, report)
+        _check_markov_shapes(torch.Generator(device="cuda").manual_seed(12), dtype, report)
     torch.cuda.synchronize()
     times = _time_kernels(gen)
     times["bmm"]["host_us_per_call"] = _time_dispatch(gen)
@@ -1521,7 +1550,7 @@ def phase_export_anchor(models):
 
 def phase_export_full():
     """The float32 covariance model of the full-width run at EXPORT_T steps
-    (chunk 25 000, 256 blocks, after 3 natural-gradient steps), `predict_f`
+    (chunk EXPORT_CHUNK, 256 blocks, after 3 natural-gradient steps), `predict_f`
     at the full run's 1000 new times exported on the card and reloaded: the
     loaded program against the live call: max abs difference (the same
     kernels in the same order: fails above rtol 1e-6), launches per kernel
@@ -1531,7 +1560,7 @@ def phase_export_full():
     from physs_gp_tpu_torch.ops import cuda as kernels
 
     t_start = time.perf_counter()
-    model, _, _ = _run_slice(EXPORT_T, 25_000, torch.float32, 3, nan_guard=False, sqrt=False)
+    model, _, _ = _run_slice(EXPORT_T, EXPORT_CHUNK, torch.float32, 3, nan_guard=False, sqrt=False)
     ts = torch.as_tensor(np.sort(np.random.default_rng(22).uniform(0, 100, 1000)),
                          dtype=torch.float32, device="cuda")
     kernels.reset_launch_counts()
@@ -1539,7 +1568,7 @@ def phase_export_full():
     torch.cuda.synchronize()
     live_counts = kernels.launch_counts()
     serve, t_export, t_load, nbytes, nodes = _exported(model, ts)
-    print(f"[export full] config-5 cov f32 T={EXPORT_T} predict_f at {ts.shape[0]} new "
+    print(f"[export full] config-5 cov f32 T={EXPORT_T} chunk={EXPORT_CHUNK} predict_f at {ts.shape[0]} new "
           f"times: export {t_export:.1f} s (trace and save), {nodes} nodes, {nbytes} bytes "
           f"({nbytes / 2**30:.3f} GiB), load {t_load:.1f} s")
     mean, var, counts, routes, peak = _served(serve, ts)
@@ -3386,6 +3415,154 @@ def phase_dynamics_full():
     return counts, routes
 
 
+# ---------------------------------------------------------------------------
+# The Markov-kernel zoo and the prior mean: Sum / Product state spaces,
+# Periodic, the Wiener family, means in the state-space models, flows,
+# uncertain inputs, the misc and aggregated batch kernels
+# ---------------------------------------------------------------------------
+
+MARKOV_PATH = "markov anchors f64"
+# the kernels each form of the d = 30 model launches
+MARKOV_KERNELS = {"cov": ("bmm", "gj_solve", "gj_solve_logdet"),
+                  "sqrt": ("lq", "chol_gram", "chol", "bmm", "gj_solve"),
+                  "fused": ("fused_filter", "fused_smooth")}
+MARKOV_LML_RTOL = 1e-6  # the two float64 forms, as the temporal phase holds its forms
+MARKOV_F32_GAP = 1e-2  # float32 against float64, the repo's float32 rule
+
+
+def _markov():
+    sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
+    import markov_outcome
+
+    return markov_outcome
+
+
+def _check_markov_shapes(gen, dtype, report):
+    """The kernels at the trend + quasi-periodic path's shapes
+    (`markov_outcome.kernel_cases`: d = 30, p = 1; the scans' batches 128 /
+    256 / 512 as strided views, chunk and series widths; the square-root
+    pre-arrays [30, 60]; the noise factors of the model's Q and of the
+    bare-Periodic sum's Q, whose Periodic block is exactly zero, through
+    `chol`), each against its plain version at TOL. Every launch must take
+    the warp kernels."""
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    mo = _markov()
+    build.reset_launch_counts()
+    for name, kind, got, plain, label in mo.kernel_cases(gen, dtype):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {label} (markov): non-finite result")
+        report(name, kind, *_rel(got, plain), dtype, f"{label} (markov)")
+    routes = build.route_counts()
+    if any(r["block"] for r in routes.values()):
+        raise AssertionError(f"markov shapes: a block kernel ran: {routes}")
+    counts = build.launch_counts()
+    if not all(counts[k] for k in set(MARKOV_KERNELS["cov"] + MARKOV_KERNELS["sqrt"])):
+        raise AssertionError(f"markov shapes: a kernel of the path was not checked: {counts}")
+    print(f"[kernels] markov shapes {str(dtype)[6:]}: launches {counts}, all on the warp kernels")
+
+
+def phase_markov_anchor():
+    """Float64 anchors against tests/data/markov_golden.npz (made by
+    scripts/port/make_markov_golden.py from the JAX package on the CPU) on
+    the blocked scan schedule of 8 blocks: a bare `Periodic`, `Matern32 +
+    Periodic` (a zero Q block) and the d = 30 quasi-periodic model with a
+    `LinearMean` (its leaves loaded by key path) in covariance and
+    square-root form at T = 256 (lml, smoothed and predicted moments, new
+    times before, inside and after the data), the four Wiener kinds,
+    `StreamingGP` on `WienerVelocity` with a mean, a `ConstantMean`, 3
+    Poisson `CVIGP` steps with a mean, every flow, 3 uncertain-input CVI
+    steps, `BatchGP` on the misc and aggregated kernels: lml, ELBO and
+    means rtol 1e-9, variances 1e-7. Counters are reset before each
+    configuration; returns {MARKOV_PATH: the summed launches}."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    mo = _markov()
+    gold = np.load(mo.GOLDEN)
+    total = {k: 0 for k in SOURCES}
+    for cfg in mo.CONFIGS:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = mo.anchors(gold, "cuda", (cfg,))[cfg]
+        counts, routes = kernels.launch_counts(), kernels.route_counts()
+        worst = max(res, key=lambda k: mo.relerr(*res[k][:2]) / res[k][2])
+        for key, (got, want, tol) in res.items():
+            r = mo.relerr(got, want)
+            if not (np.all(np.isfinite(got) | np.isnan(want)) and r <= tol):
+                raise AssertionError(f"anchor markov {cfg}: {key} disagrees with the JAX reference "
+                                     f"(rel {r:.3e}, tol {tol:g})")
+        print(f"[anchor markov {cfg}] {len(res)} outputs within tolerance, worst {worst} rel "
+              f"{mo.relerr(*res[worst][:2]):.3e} (tol {res[worst][2]:g}); "
+              f"{time.perf_counter() - t0:.2f} s, launches { {k: v for k, v in counts.items() if v} }")
+        if any(r["block"] for r in routes.values()):
+            raise AssertionError(f"anchor markov {cfg}: a block kernel ran: {routes}")
+        for k, v in counts.items():
+            total[k] += v
+    print(f"[anchor markov] launches {total}")
+    return {MARKOV_PATH: total}
+
+
+def phase_markov_full():
+    """The trend + quasi-periodic model at full length
+    (`markov_outcome.full_run`: T = 100 000 hours, 2 % missing, d = 30, a
+    `LinearMean`, fitted on the log of the data, chunk 25 000): lml + the
+    log-Jacobian correction, `predict_f` at 1000 new times (200 past the
+    data) and `to_data_space`, timed, with the peak memory, in covariance
+    and square-root form, float32 and float64, and the covariance form
+    again with PHYSS_FUSED_COMBINE=1 (float32); then a Poisson `CVIGP` with
+    a `ConstantMean` on counts of the same structure, 3 natural-gradient
+    steps, float32, covariance form. Counters are reset just before each
+    run and read just after; every kernel of the form must launch, each on
+    its warp or tiled route. Gates: the float64 forms' lml within rtol
+    MARKOV_LML_RTOL, each float32 lml within MARKOV_F32_GAP of its float64
+    one. Returns the runs' (counts, routes)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    mo = _markov()
+    counts, routes, lml = {}, {}, {}
+    runs = [("cov", torch.float32, False), ("cov", torch.float64, False), ("sqrt", torch.float32, False),
+            ("sqrt", torch.float64, False), ("cov", torch.float32, True)]
+    for form, dtype, fused in runs:
+        tag = f"markov {'cov fused' if fused else form} {str(dtype)[6:].replace('float', 'f')}"
+        torch.cuda.empty_cache()
+        if fused:
+            os.environ["PHYSS_FUSED_COMBINE"] = "1"
+        try:
+            kernels.reset_launch_counts()
+            res = mo.full_run("cuda", dtype, form == "sqrt")
+            counts[tag], routes[tag] = kernels.launch_counts(), kernels.route_counts()
+        finally:
+            os.environ.pop("PHYSS_FUSED_COMBINE", None)
+        print(f"[full {tag}] {json.dumps(res)}")
+        if not (res["finite"] and res["state_dim"] == 30 and res["pred_shape"] == [1000, 1]):
+            raise AssertionError(f"{tag}: non-finite or misshapen result: {res}")
+        _path_check(f"full {tag}", counts[tag], routes[tag],
+                    MARKOV_KERNELS["fused"] if fused else MARKOV_KERNELS[form])
+        lml[tag] = res["lml"]
+    gap = abs(lml["markov cov f64"] - lml["markov sqrt f64"]) / abs(lml["markov cov f64"])
+    print(f"[full markov] float64 lml covariance {lml['markov cov f64']!r}, square-root "
+          f"{lml['markov sqrt f64']!r}: rel gap {gap:.3e} (tol {MARKOV_LML_RTOL:g})")
+    if not gap <= MARKOV_LML_RTOL:
+        raise AssertionError("full markov: the float64 forms disagree on the lml")
+    for tag32, tag64 in (("markov cov f32", "markov cov f64"), ("markov cov fused f32", "markov cov f64"),
+                         ("markov sqrt f32", "markov sqrt f64")):
+        gap = abs(lml[tag32] - lml[tag64]) / abs(lml[tag64])
+        print(f"[full markov] {tag32} lml {lml[tag32]!r} against {tag64}: rel gap {gap:.3e} "
+              f"(bound {MARKOV_F32_GAP:g})")
+        if not gap <= MARKOV_F32_GAP:
+            raise AssertionError(f"full markov: {tag32} is more than {MARKOV_F32_GAP} from float64")
+    tag = "markov cvi poisson f32"
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    res = mo.cvi_full("cuda")
+    counts[tag], routes[tag] = kernels.launch_counts(), kernels.route_counts()
+    print(f"[full {tag}] {json.dumps(res)}")
+    if not res["finite"]:
+        raise AssertionError(f"{tag}: a non-finite ELBO")
+    _path_check(f"full {tag}", counts[tag], routes[tag], MARKOV_KERNELS["cov"])
+    return counts, routes
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3428,13 +3605,17 @@ def main():
     t0 = time.perf_counter()
     dynamics_paths = phase_dynamics_anchor()
     print(f"[phase_dynamics_anchor] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    markov_paths = phase_markov_anchor()
+    print(f"[phase_markov_anchor] {time.perf_counter() - t0:.1f} s")
     paths, routes = phase_slice_full()
     paths["export"] = phase_export_full()
     paths.update(batch_paths)
     paths.update(dynamics_paths)
+    paths.update(markov_paths)
     routes.update(batch_routes)
     for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full, phase_physics_full,
-                  phase_scattered_full, phase_batch_full, phase_dynamics_full):
+                  phase_scattered_full, phase_batch_full, phase_dynamics_full, phase_markov_full):
         t0 = time.perf_counter()
         more_paths, more_routes = phase()
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

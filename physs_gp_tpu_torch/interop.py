@@ -30,7 +30,16 @@ a kernel sum's `.kernel.parts[1].base.variance.raw`, an `LMC`'s
 `.likelihood.liks[1].nu`, and a mean's `.mean.c.raw`; the volatility
 path's too: a `DynamicCovarianceGaussian`'s `.likelihood.variances[1].raw`
 and `.likelihood.y`, and a `CorrelationMixing`'s `.kernel.W.z.raw` and
-`.kernel.W.scales.raw` (`LMC.init_drd`).
+`.kernel.W.scales.raw` (`LMC.init_drd`); the Markov zoo's too: the parts of
+nested sums and products (`.kernel.parts[1].parts[0].period.raw`,
+`...lengthscales.raw`, `...variance.raw`; `+` and `*` flatten as the JAX
+package's do, so the indices agree), the Wiener family's `.variance.raw`
+and `.P0.raw`, a prior mean's `.mean.c.raw` (`ConstantMean`) or
+`.mean.w.raw` / `.mean.b.raw` (`LinearMean`), an uncertain-input
+likelihood's `.likelihood.input_var.raw`, and the misc kernels'
+(`.kernel.alpha.raw`, `.kernel.means.raw` of a `SpectralMixture`,
+`.kernel.layers[0][0].raw` of a `DeepKernel`). Static numbers
+(`n_harmonics`, `q`, `hessian`) are constructor arguments.
 
 `load_stream_state(arrays, dtype, device)` carries a JAX `StreamState`
 (m, P, t_last, lml as numpy) into the port's.

@@ -4,8 +4,8 @@ A mean maps inputs [N, D] -> [N]; `BatchGP` subtracts it from the
 observations before (zero-mean) inference and adds it back on prediction.
 `deriv(X, order)` differentiates the mean with `torch.func.grad`, for
 derivative heads. `head_mean_values` aligns a mean with a state-space
-model's observation heads (the state-space models and CVI do not take a
-mean yet: `StateSpaceGP` and `CVIGP` raise `NotImplementedError`).
+model's observation heads: `StateSpaceGP`, `CVIGP`, `StreamingGP` and
+`StreamingCVI` run on the deviation from it.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ from torch import nn
 from ..utils.params import Param, param
 from ..utils.shapes import as_points
 
-__all__ = ["Mean", "ZeroMean", "ConstantMean", "LinearMean", "FunctionMean", "head_mean_values"]
+__all__ = ["Mean", "ZeroMean", "ConstantMean", "LinearMean", "FunctionMean", "head_mean_values",
+           "mean_module"]
 
 
 class Mean(nn.Module):
@@ -67,6 +68,13 @@ class FunctionMean(Mean):
 
     def forward(self, X):
         return torch.func.vmap(self.fn)(as_points(X))
+
+
+def mean_module(mean):
+    """A model's `mean` attribute: a list of means (one per head or output)
+    as an `nn.ModuleList`, so their parameters register; one mean or None
+    as given."""
+    return nn.ModuleList(mean) if isinstance(mean, (list, tuple)) else mean
 
 
 def _one_head_mean(mean, head, t):

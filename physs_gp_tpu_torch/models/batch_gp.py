@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from ..likelihoods.gaussian import IndependentGaussian
+from ..means.mean import mean_module
 from ..ops.cg import cg_solve, rademacher, slq_logdet_given
 from ..ops.gaussian import mask_covariance
 from ..ops.matrix import log_det_from_chol, safe_cholesky, safe_cholesky_rel, solve_lower
@@ -61,7 +62,7 @@ class BatchGP(DenseModel):
         self.register_buffer("Y", torch.as_tensor(Y, dtype=dtype, device=device))
         self.kernel = kernel
         self.likelihood = likelihood
-        self.mean = nn.ModuleList(mean) if isinstance(mean, (list, tuple)) else mean
+        self.mean = mean_module(mean)
         if solver not in ("cholesky", "cg"):
             raise ValueError(f"unknown solver {solver!r}")
         self.solver = solver

@@ -28,8 +28,12 @@ sets of `DynamicCovarianceGaussian`, one for the ELL and one for its site
 gradients) and every term of the call takes its share. `generator=None`
 draws the same noise on every call (a fresh generator seeded with the
 likelihood's `seed`). `draws=` hands in the draws themselves (the JAX
-package's, in the tests). A prior mean is not ported
-yet: asking for one raises.
+package's, in the tests).
+
+A prior `mean` μ (`means.mean`, at the heads by `head_mean_values`): the
+zero-mean surrogate carries the deviation f₀ and the data likelihood sees
+f₀ + μ; `posterior`, `predict_f` (hence `predict_y` and `nlpd`) add μ. As in
+the reference, `surrogate_model()` and so `sample_f` carry no mean.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from torch import nn
 from ..approx.cvi import Sites, init_sites, natgrad_update
 from ..likelihoods.gaussian import BlockDiagonalGaussian
 from ..likelihoods.nongaussian import expected_log_lik, predictive_moments
+from ..means.mean import head_mean_values, mean_module
 from ..ops.gaussian import mask_covariance
 from ..ops.lgssm import build_lgssm, project_cov, project_cov_factor, project_mean
 from ..ops.matrix import psd_solve_logdet
@@ -79,14 +84,13 @@ class CVIGP(nn.Module):
                  mean=None, parallel: bool = False, sqrt: bool = False, chunk_size=None,
                  init_state=None):
         super().__init__()
-        if mean is not None:
-            raise NotImplementedError("a prior mean is not ported yet")
         self.register_buffer("t", t)
         self.register_buffer("Y", Y)
         self.kernel = kernel
         self.likelihood = likelihood
         self.sites = sites
         self.observation = observation
+        self.mean = mean_module(mean)
         self.parallel = parallel
         self.sqrt = sqrt
         self.chunk_size = chunk_size
@@ -139,7 +143,18 @@ class CVIGP(nn.Module):
             return None
         return source.draws(self.sites.Y, generator)
 
+    def _mu(self, t=None):
+        """The prior mean μ [T, p] at the heads (at the training times, or
+        at `t`), or None for a zero mean."""
+        if self.mean is None:
+            return None
+        return head_mean_values(self.mean, self.t if t is None else t.reshape(-1),
+                                observation=self.observation, p=self.Y.shape[1])
+
     def _ell_data(self, m, S, draws=None):
+        mu = self._mu()
+        if mu is not None:
+            m = m + mu
         if self.observation is not None:
             corr = self.observation.var_correction(self.kernel)
             if corr is not None:
@@ -227,6 +242,9 @@ class CVIGP(nn.Module):
     @torch.no_grad()
     def posterior(self) -> GaussianMoments:
         _, m, S = self._surrogate_pass()
+        mu = self._mu()
+        if mu is not None:
+            m = m + mu
         return GaussianMoments(mean=m, var=torch.diagonal(S, dim1=-2, dim2=-1))
 
     def surrogate_model(self) -> StateSpaceGP:
@@ -251,8 +269,12 @@ class CVIGP(nn.Module):
 
     @_no_grad
     def predict_f(self, t_new) -> GaussianMoments:
-        """q(f) at new times through the surrogate's NaN-augmented grid."""
-        return self.surrogate_model().predict_f(t_new)
+        """q(f) at new times through the surrogate's NaN-augmented grid,
+        plus the prior mean there."""
+        out = self.surrogate_model().predict_f(t_new)
+        if self.mean is not None:
+            out = GaussianMoments(mean=out.mean + self._mu(t_new), var=out.var)
+        return out
 
     @_no_grad
     def predict_y(self, t_new, gh_points: int = 20) -> GaussianMoments:

@@ -7,7 +7,9 @@ and smooths, and unsorts. `parallel=True` runs the parallel scans,
 `sqrt=True` the square-root filters, `chunk_size` the chunked scans; the
 runner pads the augmented grid to a multiple of the chunk. `sample_f` draws
 joint posterior sample paths by Matheron pathwise conditioning
-(`ops/sampling.py`). A prior mean is not ported yet.
+(`ops/sampling.py`). A prior `mean` (one `means.mean.Mean`, or one per
+head) shifts the heads by μ = `head_mean_values`: inference runs on Y - μ,
+and the posterior, predictions and samples add μ back.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from ..ops.lgssm import build_lgssm, project_mean, project_var
 from ..ops.matrix import diag_from_XDXT
 from ..ops.runner import run_filter, run_filter_smoother
 from ..ops.sampling import matheron_state_samples_given, standard_normal
+from ..means.mean import head_mean_values, mean_module
 
 __all__ = ["StateSpaceGP", "StateSpaceGPView", "GaussianMoments"]
 
@@ -41,16 +44,28 @@ class StateSpaceGP(nn.Module):
     def __init__(self, t, Y, kernel, likelihood, observation=None, mean=None,
                  parallel: bool = False, sqrt: bool = False, chunk_size=None):
         super().__init__()
-        if mean is not None:
-            raise NotImplementedError("a prior mean is not ported yet")
         self.register_buffer("t", t)
         self.register_buffer("Y", Y)
         self.kernel = kernel
         self.likelihood = likelihood
         self.observation = observation
+        self.mean = mean_module(mean)
         self.parallel = parallel
         self.sqrt = sqrt
         self.chunk_size = chunk_size
+
+    def _mu(self, t=None):
+        """The prior-mean matrix μ [T, p] at the heads (at the training
+        times, or at `t`), or None for a zero mean."""
+        if self.mean is None:
+            return None
+        return head_mean_values(self.mean, self.t if t is None else t,
+                                observation=self.observation, p=self.Y.shape[1])
+
+    def _centred(self):
+        """Y - μ: the observations the filters see."""
+        mu = self._mu()
+        return self.Y if mu is None else self.Y - mu
 
     def _run(self, ssm, R, Y):
         f, s = run_filter_smoother(ssm, R, Y, parallel=self.parallel, sqrt=self.sqrt,
@@ -87,7 +102,7 @@ class StateSpaceGP(nn.Module):
         T, p = self.Y.shape
         R = self._noise()
         t_all = torch.cat([self.t, t_new])
-        Y_all = torch.cat([self.Y, self.Y.new_full((t_new.shape[0], p), float("nan"))])
+        Y_all = torch.cat([self._centred(), self.Y.new_full((t_new.shape[0], p), float("nan"))])
         eye = torch.eye(p, dtype=R.dtype, device=R.device)
         R_all = torch.cat([R, eye.expand(t_new.shape[0], p, p)])
         order = torch.argsort(t_all, stable=True)
@@ -95,7 +110,7 @@ class StateSpaceGP(nn.Module):
 
     def log_marginal_likelihood(self):
         ssm, R = self._filter_inputs()
-        f, _ = run_filter(ssm, R, self.Y, parallel=self.parallel, sqrt=self.sqrt,
+        f, _ = run_filter(ssm, R, self._centred(), parallel=self.parallel, sqrt=self.sqrt,
                           chunk_size=self.chunk_size)
         return f.lml
 
@@ -104,16 +119,20 @@ class StateSpaceGP(nn.Module):
 
     def filter_smooth(self, Y=None):
         ssm, R = self._filter_inputs()
-        return self._run(ssm, R, self.Y if Y is None else Y)
+        return self._run(ssm, R, self._centred() if Y is None else Y)
 
     def posterior(self) -> GaussianMoments:
         """Smoothed marginals at the training times: [T, p] mean and var."""
         ssm, _, s = self.filter_smooth()
+        mean = project_mean(ssm.H, s.ms)
+        mu = self._mu()
+        if mu is not None:
+            mean = mean + mu
         var = project_var(ssm.H, s.Ps)
         corr = self._corr()
         if corr is not None:
             var = var + corr
-        return GaussianMoments(mean=project_mean(ssm.H, s.ms), var=var)
+        return GaussianMoments(mean=mean, var=var)
 
     def posterior_blocks(self):
         """The smoothed state posterior (m [T, d], P [T, d, d]) and the lml."""
@@ -124,13 +143,16 @@ class StateSpaceGP(nn.Module):
         """Posterior at new times: the grid augmented with NaN observations
         (identity noise there), sorted stably, filtered and smoothed, and
         unsorted."""
-        t, Y, R, inv = self._augmented(t_new.reshape(-1), "predict_f")
+        t_new = t_new.reshape(-1)
+        t, Y, R, inv = self._augmented(t_new, "predict_f")
         T = self.Y.shape[0]
         corr = self._corr()
         view = StateSpaceGPView(t=t, Y=Y, R=R, base=self)
         ssm, _, s = view.filter_smooth()
         mean = (s.ms @ ssm.H.T)[inv][T:]
         var = diag_from_XDXT(ssm.H, s.Ps)[inv][T:]
+        if self.mean is not None:
+            mean = mean + self._mu(t=t_new)
         if corr is not None:
             var = var + corr
         return GaussianMoments(mean=mean, var=var)
@@ -142,18 +164,21 @@ class StateSpaceGP(nn.Module):
         return f
 
     def _sample_inputs(self, t_new):
-        """(ssm, R, Y, unsort) of the sampling pass: the training grid, or
+        """(ssm, R, Y, unsort, μ) of the sampling pass: the training grid, or
         the grid augmented at `t_new` (`_augmented`), whose `unsort` maps the
-        samples back and keeps the new rows."""
+        samples back and keeps the new rows; μ is the prior mean at the
+        output rows (None for a zero mean)."""
         if t_new is None:
             ssm, R = self._filter_inputs()
-            return ssm, R, self.Y, None
-        t, Y, R, inv = self._augmented(t_new.reshape(-1), "sample_f at new times")
+            return ssm, R, self._centred(), None, self._mu()
+        t_new = t_new.reshape(-1)
+        t, Y, R, inv = self._augmented(t_new, "sample_f at new times")
         T = self.Y.shape[0]
-        return _lgssm(self.kernel, self.observation, t), R, Y, lambda f: f[:, inv][:, T:]
+        mu = None if self.mean is None else self._mu(t=t_new)
+        return _lgssm(self.kernel, self.observation, t), R, Y, lambda f: f[:, inv][:, T:], mu
 
     def _sample(self, inputs, eps_x, eps_y, eps_corr):
-        ssm, R, Y, unsort = inputs
+        ssm, R, Y, unsort, mu = inputs
         xs = matheron_state_samples_given(
             ssm, R, Y, eps_x, eps_y, parallel=self.parallel, sqrt=self.sqrt,
             chunk_size=self.chunk_size,
@@ -161,6 +186,8 @@ class StateSpaceGP(nn.Module):
         f = xs @ ssm.H.T if ssm.H.dim() == 2 else torch.einsum("tpd,std->stp", ssm.H, xs)
         if unsort is not None:
             f = unsort(f)
+        if mu is not None:
+            f = f + mu[None]
         corr = self._corr()
         if corr is not None:
             # the off-site conditional residual, drawn independently per row:
@@ -186,7 +213,7 @@ class StateSpaceGP(nn.Module):
         eps_corr come from `generator`, a `torch.Generator` on the model's
         device."""
         inputs = self._sample_inputs(t_new)
-        ssm, _, Y, _ = inputs
+        ssm, _, Y, _, _ = inputs
         n_all, p = Y.shape
         n_out = n_all if t_new is None else n_all - self.Y.shape[0]
         eps_x = standard_normal(generator, (n_all, n_samples, ssm.A.shape[-1]), Y)

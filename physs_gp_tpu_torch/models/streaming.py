@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..approx.cvi import Sites
+from ..means.mean import head_mean_values, mean_module
 from ..ops.lgssm import build_lgssm, project_mean, project_var
 from ..ops.runner import run_filter
 from .cvi_gp import CVIGP, check_generator
@@ -101,16 +102,18 @@ def _carry_ssm(kernel, observation, state, tc):
     return ssm._replace(m0=state.m, P0=state.P)
 
 
-def _no_mean(mean):
-    if mean is not None:
-        raise NotImplementedError("a prior mean is not ported yet")
+def _head_mean(model, t, p):
+    """The prior mean [B, p] at the heads at times t, or None."""
+    if model.mean is None:
+        return None
+    return head_mean_values(model.mean, t, observation=model.observation, p=p)
 
 
 class StreamingGP(nn.Module):
     """Online wrapper around the state-space GP inference core.
 
     The configuration of `StateSpaceGP` (kernel, likelihood, physics heads,
-    filter-variant flags) but no stored data: observations arrive through
+    prior mean, filter-variant flags) but no stored data: observations arrive through
     `update`, forecasts come from `forecast`. `StreamingGP.from_model(ssgp)`
     assimilates an existing model's training data and returns the carried
     state, ready to serve.
@@ -125,10 +128,10 @@ class StreamingGP(nn.Module):
                  parallel: bool = False, sqrt: bool = False, chunk_size=None,
                  strict_times: bool = True):
         super().__init__()
-        _no_mean(mean)
         self.kernel = kernel
         self.likelihood = likelihood
         self.observation = observation
+        self.mean = mean_module(mean)
         self.parallel = parallel
         self.sqrt = sqrt
         self.chunk_size = chunk_size
@@ -139,19 +142,22 @@ class StreamingGP(nn.Module):
         """Wrap a `StateSpaceGP` and assimilate its training data; returns
         (streaming_gp, state) with the filtered moments at `model.t[-1]`."""
         s = cls(kernel=model.kernel, likelihood=model.likelihood,
-                observation=model.observation, parallel=model.parallel,
+                observation=model.observation, mean=model.mean, parallel=model.parallel,
                 sqrt=model.sqrt, chunk_size=model.chunk_size)
         state = s.init_state(t0=model.t[0])
         state, _ = s.update(state, model.t, model.Y)
         return s, state
 
     def init_state(self, t0=0.0) -> StreamState:
-        """Fresh state: the stationary prior anchored at time t0 (for
-        non-stationary Markov kernels pass the true series start)."""
+        """Fresh state: the stationary prior anchored at time t0. The anchor
+        does not matter to a stationary kernel (A P∞ Aᵀ + Q = P∞ for any dt);
+        a Wiener-family prior is defined at t0 (its P0), so pass the series'
+        true start."""
         return _fresh_state(self.kernel, t0)
 
     def _segment_inputs(self, state, t, Y):
-        """LGSSM over [t_last, t...] with a masked dummy row at t_last."""
+        """LGSSM over [t_last, t...] with a masked dummy row at t_last, and
+        the segment's rows centred on the prior mean μ (returned, or None)."""
         t, tc = _times(state, t)
         B = t.shape[0]
         ssm = _carry_ssm(self.kernel, self.observation, state, tc)
@@ -172,9 +178,12 @@ class StreamingGP(nn.Module):
                 corr = corr.expand(p)
                 R = R + torch.diag(corr)[None]
         Yc = torch.as_tensor(Y, dtype=ssm.m0.dtype, device=ssm.m0.device).expand(B, p)
+        mu = _head_mean(self, t, p)
+        if mu is not None:
+            Yc = Yc - mu
         # the dummy row: all-missing at t_last (a no-op update, lml 0)
         Yc = torch.cat([Yc.new_full((1, p), float("nan")), Yc])
-        return ssm, R, Yc, corr, tc
+        return ssm, R, Yc, mu, corr, tc
 
     def update(self, state: StreamState, t, Y):
         """Assimilate a segment of observations at or after t_last.
@@ -183,12 +192,14 @@ class StreamingGP(nn.Module):
         Y: [B, p], NaN = missing (a fixed-size serving loop pads with NaN
         rows). Returns the advanced state and the segment's filtered moments
         and lml increment."""
-        ssm, R, Yc, corr, tc = self._segment_inputs(state, t, Y)
+        ssm, R, Yc, mu, corr, tc = self._segment_inputs(state, t, Y)
         f = run_filter(ssm, R, Yc, parallel=self.parallel, sqrt=self.sqrt,
                        chunk_size=self.chunk_size)[0]
         ms, Ps = f.ms[1:], f.Ps[1:]
         f_mean = project_mean(ssm.H, ms)
         f_var = project_var(ssm.H, Ps)
+        if mu is not None:
+            f_mean = f_mean + mu
         if corr is not None:
             f_var = f_var + corr
         lml_inc = f.lml
@@ -241,10 +252,10 @@ class StreamingCVI(nn.Module):
                  n_iters: int = 8, lr: float = 0.5, hessian: str = "exact",
                  strict_times: bool = True):
         super().__init__()
-        _no_mean(mean)
         self.kernel = kernel
         self.likelihood = likelihood
         self.observation = observation
+        self.mean = mean_module(mean)
         self.parallel = parallel
         self.sqrt = sqrt
         self.chunk_size = chunk_size
@@ -299,7 +310,7 @@ class StreamingCVI(nn.Module):
         Yc = torch.cat([Y.new_full((1, p), float("nan")), Y.expand(B, p)])
         cvi = CVIGP.init(
             tc, Yc, self.kernel, self._segment_likelihood(B), observation=self.observation,
-            parallel=self.parallel, sqrt=self.sqrt, chunk_size=self.chunk_size,
+            mean=self.mean, parallel=self.parallel, sqrt=self.sqrt, chunk_size=self.chunk_size,
             init_state=(state.m, state.P),
         )
         # the carry row at t_last stays site-free
@@ -338,6 +349,9 @@ class StreamingCVI(nn.Module):
                        chunk_size=self.chunk_size)[0]
         mean = project_mean(ssm.H, f.ms[1:])
         var = project_var(ssm.H, f.Ps[1:])
+        mu = _head_mean(self, t, p)
+        if mu is not None:
+            mean = mean + mu
         if self.observation is not None:
             corr = self.observation.var_correction(self.kernel)
             if corr is not None:

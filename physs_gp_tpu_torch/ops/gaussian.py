@@ -1,7 +1,8 @@
 """Gaussian density algebra with missing-data masking (PyTorch).
 
 Counterpart of `physs_gp_tpu/ops/gaussian.py` (`mvn_logpdf`,
-`mask_covariance`, `masked_mvn_logpdf`, `gaussian_kl`). Missing observations
+`mask_covariance`, `masked_mvn_logpdf`, `gaussian_kl`,
+`gaussian_expected_logpdf_diag`, `symmetrize_cov`). Missing observations
 are masked inside fixed-shape algebra: masked rows/cols are zeroed and 1 is
 put on the masked diagonal.
 """
@@ -11,9 +12,10 @@ import math
 
 import torch
 
-from .matrix import log_det_from_chol, psd_solve_logdet, safe_cholesky, solve_lower
+from .matrix import log_det_from_chol, psd_solve_logdet, safe_cholesky, solve_lower, symmetrize
 
-__all__ = ["mvn_logpdf", "mask_covariance", "masked_mvn_logpdf", "gaussian_kl"]
+__all__ = ["mvn_logpdf", "mask_covariance", "masked_mvn_logpdf", "gaussian_kl",
+           "gaussian_expected_logpdf_diag", "symmetrize_cov"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -59,3 +61,12 @@ def gaussian_kl(m_q, L_q, m_p, L_p):
     maha = torch.sum(diff * diff, -1)
     logdet = log_det_from_chol(L_p) - log_det_from_chol(L_q)
     return 0.5 * (trace + maha - n + logdet)
+
+
+def gaussian_expected_logpdf_diag(y, m, v, noise_var):
+    """E_{f ~ N(m, v)}[log N(y | f, noise_var)] elementwise, in closed form."""
+    return -0.5 * (_LOG2PI + torch.log(noise_var) + ((y - m) ** 2 + v) / noise_var)
+
+
+def symmetrize_cov(P):
+    return symmetrize(P)

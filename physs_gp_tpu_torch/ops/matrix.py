@@ -46,6 +46,10 @@ __all__ = [
     "block_diag",
     "diag_from_XDXT",
     "log_det_from_chol",
+    "to_block_diag_batched",
+    "get_block_diagonal",
+    "kron_mv",
+    "project_psd",
 ]
 
 # Counterpart of `highest_precision`: every float32 product on the card runs
@@ -444,3 +448,34 @@ def block_diag(*blocks):
 def diag_from_XDXT(X, D):
     """diag(X D Xᵀ) without forming the product."""
     return torch.einsum("...ij,...jk,...ik->...i", X, D, X)
+
+
+def to_block_diag_batched(blocks):
+    """[B, k, k] stacked blocks -> the [B·k, B·k] block-diagonal matrix."""
+    B, k, _ = blocks.shape
+    out = blocks.new_zeros(B, k, B, k)
+    idx = torch.arange(B, device=blocks.device)
+    out[idx, :, idx, :] = blocks
+    return out.reshape(B * k, B * k)
+
+
+def get_block_diagonal(A, block_size: int):
+    """[..., B·k, B·k] -> its [..., B, k, k] diagonal blocks."""
+    B = A.shape[-1] // block_size
+    A4 = A.reshape(A.shape[:-2] + (B, block_size, B, block_size))
+    return torch.einsum("...ikil->...ikl", A4)
+
+
+def kron_mv(A, B, x):
+    """(A ⊗ B) x as B X Aᵀ without forming the Kronecker product; A [m, m],
+    B [p, p], x [..., m·p] in `kron(A, B)`'s index order i·p + j."""
+    m, p = A.shape[-1], B.shape[-1]
+    X = x.reshape(x.shape[:-1] + (m, p))
+    return torch.einsum("ab,...bc,dc->...ad", A, X, B).reshape(x.shape)
+
+
+def project_psd(A, min_eig: float = 0.0):
+    """The eigenvalue-clipped PSD projection of sym(A)."""
+    w, V = torch.linalg.eigh(symmetrize(A))
+    w = torch.clamp(w, min=min_eig)
+    return torch.einsum("...ij,...j,...kj->...ik", V, w, V)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["Identity", "Positive", "identity", "positive", "Param", "param", "positive_param",
+__all__ = ["Identity", "Positive", "Sigmoid", "identity", "positive", "Param", "param", "positive_param",
            "NegParam", "fill_triangular", "fill_triangular_inverse", "tril_param", "tril_value"]
 
 _SOFTPLUS_SHIFT = 1e-6  # lower bound keeping positive params away from 0
@@ -39,6 +39,20 @@ class Positive:
         # softplus^-1(y) = log(expm1(y)) in its numerically stable form
         y = torch.as_tensor(y) - self.shift
         return y + torch.log(-torch.expm1(-y))
+
+
+class Sigmoid:
+    """y in (lo, hi)."""
+
+    def __init__(self, lo: float = 0.0, hi: float = 1.0):
+        self.lo, self.hi = lo, hi
+
+    def forward(self, x):
+        return self.lo + (self.hi - self.lo) * torch.sigmoid(x)
+
+    def inverse(self, y):
+        p = (torch.as_tensor(y) - self.lo) / (self.hi - self.lo)
+        return torch.log(p) - torch.log1p(-p)
 
 
 identity = Identity()

@@ -3,7 +3,7 @@ prediction, or one Adam step's objective forward and backward) of the port
 by kernel and operand shape.
 
     python3 scripts/port/launch_census.py
-        [--model temporal|config5|allen_cahn|scattered|helmholtz] [--sqrt] [--T 100000]
+        [--model temporal|config5|allen_cahn|scattered|helmholtz|markov] [--sqrt] [--T 100000]
         [--chunk 50000] [--blocks 1024] [--predict 1000] [--train]
         [--device cpu|cuda] [--dtype float32|float64]
 
@@ -18,6 +18,13 @@ inducing sites: it has no CVI step, so the parts counted are one
 `log_marginal_likelihood()`, one `posterior()` and one
 `scattered_st_predict` at the held-out 20 % of the rows (chip_smoke.py runs
 it at `--T 100000 --chunk 25000 --blocks 256`).
+
+`--model markov` is the trend + quasi-periodic model of
+`markov_outcome.full_model` (d = 30, a `LinearMean`, parallel scans; chip_smoke.py
+runs it at `--T 100000 --chunk 25000 --blocks 256`): one
+`log_marginal_likelihood()`, one `predict_f` at `--predict` new times (1000
+if not given), and one natural-gradient step of the Poisson `CVIGP` on its
+counts (covariance form; `--sqrt` changes the first two only).
 
 `--model helmholtz` is the Helmholtz experiment at its full size (T = 64,
 Ns = 25, state D = 100, sequential as the experiment runs it; `--sqrt`
@@ -93,6 +100,22 @@ def census(args):
                 run()
                 out[part] = dict(calls)
         return out
+    if args.model == "markov":
+        import markov_outcome as mo
+
+        model, _ = mo.full_model(dtype, args.device, args.sqrt, T=args.T, chunk=args.chunk)
+        t_new = torch.as_tensor(mo.new_times(args.T, args.predict or mo.FULL["n_new"]), dtype=dtype,
+                                device=args.device)
+        out = {}
+        with torch.no_grad():
+            for part, run in (("lml", model.log_marginal_likelihood),
+                              ("predict_f", lambda: model.predict_f(t_new)),
+                              ("cvi step", lambda: mo.cvi_full(args.device, dtype, T=args.T,
+                                                               chunk=args.chunk, steps=1))):
+                calls.clear()
+                run()
+                out[part] = dict(calls)
+        return out
     if args.model == "helmholtz":
         import vector_field_outcome as vf
 
@@ -137,7 +160,8 @@ def census(args):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model", default="temporal", choices=["temporal", "config5", "allen_cahn", "scattered", "helmholtz"])
+    p.add_argument("--model", default="temporal", choices=["temporal", "config5", "allen_cahn", "scattered", "helmholtz",
+                                                        "markov"])
     p.add_argument("--sqrt", action="store_true")
     p.add_argument("--T", type=int, default=100_000)
     p.add_argument("--chunk", type=int, default=50_000)

@@ -1,7 +1,7 @@
 """Profile one config-5 or temporal CVI step (or training iteration) of the
 PyTorch port on a CUDA card.
 
-    python3 scripts/port/profile_config5.py [--temporal] [--sqrt | --fused]
+    python3 scripts/port/profile_config5.py [--temporal | --markov] [--sqrt | --fused]
         [--train [--float64]] [--through-ops] [T] [chunk]
 
 Builds `build_config5(T, chunk, float32)` (default T = 100 000, chunk
@@ -9,7 +9,10 @@ Builds `build_config5(T, chunk, float32)` (default T = 100 000, chunk
 `build_temporal(T, chunk, float32)` (default T = 100 000, chunk 50 000 and
 PHYSS_SCAN_BLOCKS=1024, as `bench.py` runs the JAX package's);
 `--sqrt` for the square-root form, `--fused` for the covariance form with
-`PHYSS_FUSED_COMBINE=1`. It takes one warm-up step, then traces one step
+`PHYSS_FUSED_COMBINE=1`. With `--markov` the step is the trend +
+quasi-periodic model's `log_marginal_likelihood()` and `predict_f` at 1000
+new times (`scripts/port/markov_outcome.full_model`, d = 30, float32,
+default T = 100 000, chunk 25 000). It takes one warm-up step, then traces one step
 with `torch.profiler`. Prints the card, the step's wall time and peak
 memory, the device-busy share (summed kernel time over wall time), the
 device time of the port's hand-written kernels against PyTorch's own, the
@@ -58,13 +61,14 @@ def main():
 
     args = sys.argv[1:]
     temporal, sqrt, fused = "--temporal" in args, "--sqrt" in args, "--fused" in args
+    markov = "--markov" in args
     train, f64 = "--train" in args, "--float64" in args
     if "--through-ops" in args:
         from physs_gp_tpu_torch.ops.cuda import build as kernel_build
 
         kernel_build.traced = lambda: True
-    args = [a for a in args if a not in ("--temporal", "--sqrt", "--fused", "--train", "--float64",
-                                         "--through-ops")]
+    args = [a for a in args if a not in ("--temporal", "--markov", "--sqrt", "--fused", "--train",
+                                         "--float64", "--through-ops")]
     if fused:
         os.environ["PHYSS_FUSED_COMBINE"] = "1"
     if temporal:
@@ -92,8 +96,22 @@ def main():
                              f"{'temporal' if temporal else 'config-5'} "
                              f"{'square-root' if sqrt else 'covariance, fused' if fused else 'covariance'} "
                              f"T={T} chunk={chunk} {str(dtype)[6:]}")
-    model = build(T, chunk, dtype=torch.float32, sqrt=sqrt)
-    natgrad_scan(model, 0.5, n_steps=1, nan_guard=False)  # warm-up (builds kernels)
+    if markov:
+        sys.path.insert(0, os.path.join(repo, "scripts", "port"))
+        import markov_outcome as mo
+
+        model, _ = mo.full_model(torch.float32, "cuda", sqrt, T=T, chunk=chunk)
+        t_new = torch.as_tensor(mo.new_times(T), dtype=torch.float32, device="cuda")
+
+        @torch.no_grad()
+        def step():
+            return model.log_marginal_likelihood(), model.predict_f(t_new)
+    else:
+        model = build(T, chunk, dtype=torch.float32, sqrt=sqrt)
+
+        def step():
+            return natgrad_scan(model, 0.5, n_steps=1, nan_guard=False)
+    step()  # warm-up (builds kernels)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     flat.clear()
@@ -101,7 +119,7 @@ def main():
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        natgrad_scan(model, 0.5, n_steps=1, nan_guard=False)
+        step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
@@ -113,7 +131,7 @@ def main():
     ours = [e for e in kernels if _PORT_KERNEL.match(e.key)]
     ours_us = sum(e.self_device_time_total for e in ours)
     form = "square-root" if sqrt else "covariance, fused combines" if fused else "covariance"
-    name = "temporal" if temporal else "config-5"
+    name = "markov lml + predict_f" if markov else "temporal" if temporal else "config-5"
     print(f"[profile] {name} {form} T={T} chunk={chunk} blocks "
           f"{os.environ.get('PHYSS_SCAN_BLOCKS', '256')} f32 step wall {wall * 1e3:.1f} ms, "
           f"peak {peak:.2f} GiB, device busy {dev_us / 1e3:.1f} ms "
@@ -136,7 +154,7 @@ def main():
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
-        natgrad_scan(model, 0.5, n_steps=1, nan_guard=False)
+        step()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     print(f"[profile] {name} {form} step wall, not traced: {[round(w * 1e3, 1) for w in walls]} ms")

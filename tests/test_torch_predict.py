@@ -263,10 +263,20 @@ def test_what_is_not_ported_raises():
                  lambda: model.natural_gradient_update(0.5, generator=0)):
         with pytest.raises(TypeError):
             call()
-    with pytest.raises(NotImplementedError):
-        CVIGP.init(model.t, model.Y, model.kernel, model.likelihood, mean=object())
-    with pytest.raises(NotImplementedError):
-        StateSpaceGP(model.t, model.Y, model.kernel, Gaussian(), mean=object())
+    # the prior mean is ported: a constant mean c is the zero-mean model on Y - c
+    from physs_gp_tpu_torch.means.mean import ConstantMean
+
+    c = ConstantMean(dtype=torch.float64)
+    with torch.no_grad():
+        c.c.raw.fill_(0.7)
+    cvi = CVIGP.init(model.t, model.Y, model.kernel, model.likelihood, mean=c)
+    assert torch.equal(cvi.predict_f(model.t[:3]).mean,
+                       CVIGP.init(model.t, model.Y, model.kernel,
+                                  model.likelihood).predict_f(model.t[:3]).mean + 0.7)
+    Y = torch.nan_to_num(model.Y)
+    lml = StateSpaceGP(model.t, Y, model.kernel, Gaussian(), mean=c).log_marginal_likelihood()
+    assert torch.equal(lml, StateSpaceGP(model.t, Y - 0.7, model.kernel,
+                                         Gaussian()).log_marginal_likelihood())
 
 
 def test_port_entry_points_run_on_the_card_by_default():

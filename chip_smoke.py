@@ -15,7 +15,9 @@ and volatility path (EKF / EKS and the iterated parallel EKS of
 `NonlinearSSGP`, the dynamics zoo, the dynamic-correlation model, the L-BFGS
 trainers), and the Markov-kernel zoo with the prior mean (Sum / Product
 state spaces, `Periodic`, the Wiener family, means in the state-space
-models, flows, uncertain inputs, the misc and aggregated batch kernels).
+models, flows, uncertain inputs, the misc and aggregated batch kernels), and
+the last batch-style models (`VecchiaGP` with its neighbour sets on the
+card, `GPRN`, `LatentVariableGP`).
 
     python3 chip_smoke.py
 
@@ -159,11 +161,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      phase also times the host cost of one `bmm` call at [256, 32, 32]
      through the dispatcher (`torch.ops.physs_gp.bmm`) against the launch
      code called directly and the eager wrapper; after the float64 anchors,
-     their fitted T = 256 models (covariance with the fused knob off and
-     on, square-root) export `predict_f` at the golden's 40 new times on
-     the card, reload it from the bytes and hold it to
-     predict_T256_golden.npz (the three programs together launch all eight
-     kernels); after phase 6 the float32 covariance model at EXPORT_T
+     their fitted T = 256 models (covariance with the fused knob on,
+     square-root) export `predict_f` at the golden's 40 new times on the
+     card, reload it from the bytes and hold it to predict_T256_golden.npz
+     (the two programs together launch all eight kernels); after phase 6 the float32 covariance model at EXPORT_T
      steps (chunk EXPORT_CHUNK, 3 natural-gradient steps) exports its
      `predict_f` at 1000 new times, reloads it and holds it to the live
      call (rtol 1e-6, the same launches per kernel), with the export and
@@ -228,6 +229,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      launches by kernel and route (warp or tiled only) under "markov ..." in
      `launches_by_path`; the float64 forms' lml within rtol 1e-6 and each
      float32 lml within 1e-2 of its float64 one.
+ 21. Vecchia / GPRN / LatentVariableGP anchors (`phase_vecchia_gprn_anchor`),
+     float64, against tests/data/vecchia_golden.npz (made by
+     scripts/port/make_vecchia_golden.py from the JAX package): `VecchiaGP`
+     at N = 200, m = 12 (lml, gradient, predictions, nlpd; with missing
+     rows and a `ConstantMean`), `GPRN` in each mixing on the JAX draws,
+     `LatentVariableGP` in both modes (rtol 1e-9, variances 1e-7); counters
+     reset per configuration (under "vecchia anchors f64" in
+     `launches_by_path`); the kernels phase checks and times `gj_solve` at
+     Vecchia's [100 000, 16, 16], r = 2 (warp route) and `chol` at GPRN's
+     [1, 64, 64] (block route), in float32 and float64 (`at_vecchia`);
+ 22. the slice at full size (`phase_vecchia_gprn_full`): the card's
+     neighbour sets against the CPU's at N = 5 000; `VecchiaGP` at
+     N = 100 000 on [0, 10]^2, m = 16 (ordering and neighbour sets on the
+     card, lml, gradient, 20 Adam steps, predictions at 1 000 points, in
+     float32 and float64, the float32 lml within 1e-3 of float64's, every
+     `gj_solve` on the warp route); the gap to the exact lml at N = 8 192
+     falling as m grows; `GPRN` at N = 20 000, P = L = 3, M = 64 in each
+     mixing and type (`chol` on its block route) and its sign-dependent
+     fit; `LatentVariableGP` at N = 4 096 in both modes and its two-branch
+     separation.
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -287,13 +308,14 @@ FUSED = ("fused_filter", "fused_smooth")
 EXPORT_KERNELS = {"cov": ("bmm", "gj_solve", "gj_solve_logdet", "chol"),
                   "sqrt": ("bmm", "gj_solve", "lq", "chol", "chol_gram")}
 EXPORT_CALLS = 20  # loaded and live calls of the exported full-width predict_f
-# The exported full-width model: two chunks (T + 1000 new times = 25 000
-# steps at chunk 12 500), so the program still carries a chunk boundary. At
+# The exported full-width model: two chunks (T + 1000 new times = 13 000
+# steps at chunk 6 500), so the program still carries a chunk boundary. At
 # T = 100 000 (five chunks of 25 000, 34 065 nodes) export took 315 s on an
 # H100 machine's host, load 61 s; at T = 49 000 (two chunks of 25 000,
-# 14 534 nodes) 192-315 s, load 27 s: the script's largest phase. A chunk of
-# 12 000 would pad the 25 000 steps to three chunks.
-EXPORT_T, EXPORT_CHUNK = 24_000, 12_500
+# 14 534 nodes) 192-315 s, load 27 s; at T = 24 000 (two chunks of 12 500,
+# 9046 nodes) 121-222 s for the whole phase on two hosts: still the script's
+# largest phase, and the one whose host time spreads most.
+EXPORT_T, EXPORT_CHUNK = 12_000, 6_500
 # the export anchors predict the 256 + 40 steps in one chunk of 32 blocks
 EXPORT_ANCHOR_CHUNK, EXPORT_ANCHOR_BLOCKS = 320, "32"
 # the full-width run whose count stands under `launches` in the summary
@@ -652,6 +674,7 @@ def phase_kernels():
             _check_batch_shapes(torch.Generator(device="cuda").manual_seed(10), dtype, report)
         _check_dynamics_shapes(torch.Generator(device="cuda").manual_seed(11), dtype, report)
         _check_markov_shapes(torch.Generator(device="cuda").manual_seed(12), dtype, report)
+        _check_vecchia_shapes(torch.Generator(device="cuda").manual_seed(13), dtype, report)
     torch.cuda.synchronize()
     times = _time_kernels(gen)
     times["bmm"]["host_us_per_call"] = _time_dispatch(gen)
@@ -662,6 +685,8 @@ def phase_kernels():
         times[name]["at_temporal"] = rows
     for name, rows in _time_physics(gen).items():
         times[name]["at_physics"] = rows
+    for name, rows in _time_vecchia(gen).items():
+        times[name]["at_vecchia"] = rows
     return worst, times
 
 
@@ -1512,10 +1537,13 @@ def _served(serve, ts):
 
 def phase_export_anchor(models):
     """The float64 T = 256 config-5 models of the anchors (covariance with
-    the fused knob off and on, square-root), each `predict_f` at the
-    golden's 40 new times exported and reloaded on the card, the loaded
-    program held to tests/data/predict_T256_golden.npz at the live anchors'
-    tolerance; together the three programs launch all eight kernels. The
+    the fused knob on, square-root), each `predict_f` at the golden's 40
+    new times exported and reloaded on the card, the loaded program held to
+    tests/data/predict_T256_golden.npz at the live anchors' tolerance;
+    together the two programs launch all eight kernels. (The knob-off
+    covariance program is not exported: its kernels are among these, and
+    `phase_export_full` holds a loaded knob-off program to the live call at
+    full width.) The
     export predicts in one chunk with EXPORT_ANCHOR_BLOCKS blocks (the live
     anchors: chunk 64, 8 blocks): the same function, with fewer scan levels
     to trace."""
@@ -1545,7 +1573,7 @@ def phase_export_anchor(models):
         launched |= set(ran)
     if launched != set(SOURCES):
         raise AssertionError(f"export anchors: {sorted(set(SOURCES) - launched)} never launched")
-    print(f"[export anchor] the three programs launched all eight kernels: {sorted(launched)}")
+    print(f"[export anchor] the two programs launched all eight kernels: {sorted(launched)}")
 
 
 def phase_export_full():
@@ -3563,6 +3591,251 @@ def phase_markov_full():
     return counts, routes
 
 
+VECCHIA_PATH = "vecchia anchors f64"
+VECCHIA_SOLVE = (100_000, 16, 2)  # Vecchia's conditionals at N = 100 000, m = 16: [N, m, m], r = 2
+GPRN_CHOL = 64  # GPRN's inducing Grams at M = 64: the block route of `chol`
+
+
+def _vecchia():
+    sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
+    import vecchia_outcome
+
+    return vecchia_outcome
+
+
+def _vecchia_operands(gen, dtype):
+    """Vecchia's [N, m, m] conditioning covariances (RBF-like SPD blocks
+    plus noise), masked as `mask_covariance` masks them (row i keeps its
+    first min(i, m) neighbours, the rest padded to the identity), and the
+    [N, m, 2] right-hand sides with zeros in the padding."""
+    from physs_gp_tpu_torch.ops.gaussian import mask_covariance
+
+    n, m, r = VECCHIA_SOLVE
+    A = _randn(gen, n, m, 2 * m)
+    C = A @ A.transpose(-1, -2) / (2 * m) + 0.01 * torch.eye(m, dtype=torch.float64, device="cuda")
+    idx = torch.arange(n, device="cuda")
+    w = (torch.arange(m, device="cuda")[None, :] < idx[:, None]).to(torch.float64)
+    B = _randn(gen, n, m, r) * w[..., None]
+    return mask_covariance(C, w).to(dtype), B.to(dtype)
+
+
+def _check_vecchia_shapes(gen, dtype, report):
+    """The solve at Vecchia's full shape [100 000, 16, 16] with r = 2 (the
+    first 16 rows padded to the identity, the first wholly), on the warp
+    route, and the Cholesky of GPRN's [1, 64, 64] inducing Gram, on the
+    block route, each against its plain version. Each launch's route is
+    asserted."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    build.reset_launch_counts()
+    C, B = _vecchia_operands(gen, dtype)
+    report("gj_solve", "solve", *_rel(bl.batch_solve(C, B), bl.gj_solve_plain(C, B)), dtype,
+           f"{list(C.shape)} r={B.shape[-1]} (vecchia, identity-padded rows)")
+    K = _spd(gen, 1, GPRN_CHOL, dtype)
+    report("chol", "factor", *_rel(bc.batch_cholesky(K), bc.cholesky_plain(K)), dtype,
+           f"[1,{GPRN_CHOL},{GPRN_CHOL}] (gprn)")
+    routes = build.route_counts()
+    got = (routes["gj_solve"]["warp"], routes["gj_solve"]["block"], routes["chol"]["warp"],
+           routes["chol"]["block"])
+    if got != (1, 0, 0, 1):
+        raise AssertionError(f"vecchia / gprn shapes: routes {routes}")
+    print(f"[kernels] vecchia / gprn shapes {str(dtype)[6:]}: gj_solve on the warp route, chol on the "
+          f"block route")
+
+
+def _time_vecchia(gen):
+    """Kernel, plain and library time at the slice's shapes, float32 and
+    float64: the solve at [100 000, 16, 16] with r = 2 against
+    `torch.linalg.solve` (CUDA events over a run of calls); the Cholesky of
+    [1, 64, 64] (kernel: device time back to back) against
+    `torch.linalg.cholesky` (events, as the host sends the calls). The
+    bound is the larger of bytes over the memory rate and flops over the
+    type's rate. Returns {kernel: [row]}."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+
+    out = {}
+    n, m, r = VECCHIA_SOLVE
+    M = GPRN_CHOL
+    for dtype in (torch.float32, torch.float64):
+        C, B = _vecchia_operands(gen, dtype)
+        K = _spd(gen, 1, M, dtype)
+        size = C.element_size()
+        rate = FP32_FLOPS_PER_S if dtype == torch.float32 else FP64_FLOPS_PER_S
+        host = "as the host sends them"
+        timed = [  # kernel, shape, call, plain, library, label, clock, bytes, flops
+            ("gj_solve", f"[{n},{m},{m}] r={r}", lambda: bl.batch_solve(C, B),
+             lambda: bl.gj_solve_plain(C, B), lambda: torch.linalg.solve(C, B), "torch.linalg.solve",
+             _time, _nbytes(C, B) + size * n * m * r, n * (2 * m ** 3 // 3 + 2 * m * m * r)),
+            # the Cholesky reads only the lower triangle: M (M + 1) / 2 words
+            ("chol", f"[1,{M},{M}]", lambda: bc.batch_cholesky(K), lambda: bc.cholesky_plain(K),
+             lambda: torch.linalg.cholesky(K), f"torch.linalg.cholesky, {host}", _time_device,
+             size * M * (M + 1) // 2 + size * M * M, M ** 3 // 3),
+        ]
+        for name, shape, kern, plain, lib, lib_label, clock, nbytes, flops in timed:
+            kern(), plain(), lib()
+            torch.cuda.synchronize()
+            p1, k1, l1 = _time(plain), clock(kern), _time(lib)
+            l2, k2, p2 = _time(lib), clock(kern), _time(plain)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+            row = {"shape": shape, "dtype": str(dtype)[6:], "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                   "library_ms": (l1 + l2) / 2, "library": lib_label, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "timing": "device_back_to_back" if clock is _time_device else "events"}
+            out.setdefault(name, []).append(row)
+            print(f"[kernels] time {name} {shape} {row['dtype']} (vecchia / gprn): kernel {row['ms']:.4f} ms "
+                  f"({row['timing']}), plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+                  f"({lib_label}), bound {row['bound_ms']:.5f} ms ({row['bound_by']}: "
+                  f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP)")
+        del C, B
+    return out
+
+
+def _hold_vecchia(tag, res, vo):
+    worst = max(res, key=lambda k: vo.relerr(*res[k][:2]) / res[k][2])
+    for key, (got, want, tol) in res.items():
+        r = vo.relerr(got, want)
+        if not (np.all(np.isfinite(got)) and r <= tol):
+            raise AssertionError(f"{tag}: {key} disagrees with the JAX reference (rel {r:.3e}, tol {tol:g})")
+    return worst, vo.relerr(*res[worst][:2]), res[worst][2]
+
+
+def phase_vecchia_gprn_anchor():
+    """Float64 anchors against tests/data/vecchia_golden.npz (made by
+    scripts/port/make_vecchia_golden.py from the JAX package on the CPU):
+    `VecchiaGP` at N = 200, m = 12 (lml, gradient by raw, `predict_f` with
+    and without `m_predict`, `predict_y`, `nlpd`), again with every 5th y
+    missing and a `ConstantMean`; `GPRN` in each mixing on the JAX draws
+    (ELBO, KL, gradient, `predict_f`); `LatentVariableGP` in both modes
+    (objective, gradient, `predict_f` with and without W_new): lml, ELBO,
+    objective, gradients and means rtol 1e-9, variances 1e-7. Counters are
+    reset before each configuration; the Vecchia ones must launch
+    `gj_solve`, the GPRN ones `chol`. Returns {VECCHIA_PATH: the summed
+    launches}."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    vo = _vecchia()
+    gold = np.load(vo.GOLDEN)
+    total = {k: 0 for k in SOURCES}
+    for cfg in vo.CONFIGS:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = vo.anchors(gold, "cuda", (cfg,))[cfg]
+        counts = kernels.launch_counts()
+        key, rel, tol = _hold_vecchia(f"anchor {cfg}", res, vo)
+        print(f"[anchor {cfg}] {len(res)} outputs within tolerance, worst {key} rel {rel:.3e} (tol {tol:g}); "
+              f"{time.perf_counter() - t0:.2f} s, launches { {k: v for k, v in counts.items() if v} }")
+        need = "gj_solve" if cfg.startswith("vec") else "chol" if cfg.startswith("gprn") else None
+        if need and not counts[need]:
+            raise AssertionError(f"anchor {cfg}: {need} was never launched")
+        for k, v in counts.items():
+            total[k] += v
+    print(f"[anchor vecchia / gprn / lvgp] launches {total}")
+    return {VECCHIA_PATH: total}
+
+
+def phase_vecchia_gprn_full():
+    """The slice at full size (`scripts/port/vecchia_outcome.py`):
+
+    - the card's maximin neighbour sets at N = 5 000 against the CPU's;
+    - `VecchiaGP` at N = 100 000 on [0, 10]^2, m = 16, RBF, Gaussian noise:
+      the ordering and the neighbour sets on the card, timed apart; then in
+      float32 and float64 (the float32 model a copy of the float64 one) the
+      lml, the gradient of the objective, 20 Adam steps and `predict_f` /
+      `predict_y` / `nlpd` at 1 000 new points, each timed, with the peak
+      memory; counters reset just before each type's run and read just
+      after: `gj_solve` must launch, on the warp route only; the float32
+      lml within V_F32_GAP of float64's;
+    - at N = 8 192 the Vecchia lml for m = 5, 12, 16, 30 against the exact
+      `BatchGP` lml: the gap must fall as m grows; the m = 16 gap is
+      printed beside the JAX test's 2 % bound;
+    - `GPRN` at N = 20 000, P = L = 3, M = 64, n_mc = 16, each mixing in
+      float32 and float64: ELBO and gradient, 50 Adam steps with a
+      generator, `predict_f` at 1 000 points; `chol` must launch, on the
+      block route; then the sign-dependent fit (float64, must pass);
+    - `LatentVariableGP` at N = 4 096 in both modes (float64): objective and
+      gradient, 50 Adam steps; then the two-branch separation (must pass).
+
+    Returns the runs' (counts, routes)."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    vo = _vecchia()
+    counts, routes = {}, {}
+    t0 = time.perf_counter()
+    same = vo.neighbours_agree("cuda")
+    print(f"[full vecchia] neighbour sets at N = {vo.V_NB_CHECK_N}, m = {vo.FULL_V['m']}: the card's "
+          f"{'equal' if same else 'DIFFER FROM'} the CPU's ({time.perf_counter() - t0:.2f} s)")
+    if not same:
+        raise AssertionError("full vecchia: the card's neighbour sets differ from the CPU's")
+    N = vo.FULL_V["N"]
+    torch.cuda.empty_cache()
+    model, t_order, t_nbrs, test = vo.vecchia_build("cuda")
+    print(f"[full vecchia N={N}] maximin ordering {t_order:.2f} s, neighbour sets (m = {vo.FULL_V['m']}) "
+          f"{t_nbrs:.2f} s on the card")
+    lml = {}
+    for dtype, m in ((torch.float32, vo.vecchia_f32(model)), (torch.float64, model)):
+        tag = f"vecchia N={N} {str(dtype)[6:].replace('float', 'f')}"
+        kernels.reset_launch_counts()
+        res = vo.vecchia_run(m, "cuda", test)
+        counts[tag], routes[tag] = kernels.launch_counts(), kernels.route_counts()
+        print(f"[full {tag}] {json.dumps(res)}")
+        print(f"[full {tag}] launches: { {k: v for k, v in counts[tag].items() if v} }, routes "
+              f"{ {k: v for k, v in routes[tag].items() if v['warp'] or v['block']} }")
+        if not (res["finite"] and res["pred_shape"] == [vo.FULL_V["n_new"], 1]):
+            raise AssertionError(f"{tag}: non-finite or misshapen result")
+        if not counts[tag]["gj_solve"] or any(r["block"] for r in routes[tag].values()):
+            raise AssertionError(f"{tag}: gj_solve did not run, or a block kernel ran: {routes[tag]}")
+        lml[dtype] = res["lml"]
+        del m
+    del model
+    gap = abs(lml[torch.float32] - lml[torch.float64]) / abs(lml[torch.float64])
+    print(f"[full vecchia] float32 lml {lml[torch.float32]!r} against float64 {lml[torch.float64]!r}: "
+          f"rel gap {gap:.3e} (bound {vo.V_F32_GAP:g})")
+    if not gap <= vo.V_F32_GAP:
+        raise AssertionError("full vecchia: the float32 lml is too far from float64's")
+    torch.cuda.empty_cache()
+    ex = vo.vecchia_vs_exact("cuda")
+    print(f"[full vecchia] N = {vo.V_EXACT['N']} against the exact lml {ex['exact']!r}: rel gap by m "
+          f"{ex['rel_gap']}; m = 16 {'within' if ex['rel_gap'][16] <= ex['bound_at_16'] else 'outside'} "
+          f"the JAX test's {ex['bound_at_16']:g}; falls as m grows: {ex['monotone']}")
+    if not ex["monotone"]:
+        raise AssertionError("full vecchia: the gap to the exact lml does not fall as m grows")
+    for mixing in vo.MIXINGS:
+        for dtype in (torch.float32, torch.float64):
+            tag = f"gprn {mixing} {str(dtype)[6:].replace('float', 'f')}"
+            torch.cuda.empty_cache()
+            kernels.reset_launch_counts()
+            res = vo.gprn_full("cuda", dtype, mixing)
+            counts[tag], routes[tag] = kernels.launch_counts(), kernels.route_counts()
+            chol = routes[tag].get("chol", {"warp": 0, "block": 0})
+            print(f"[full {tag}] {json.dumps(res)}; launches "
+                  f"{ {k: v for k, v in counts[tag].items() if v} }, chol routes {chol}")
+            if not (res["finite"] and res["pred_shape"] == [vo.FULL_G["n_new"], vo.FULL_G["P"]]):
+                raise AssertionError(f"{tag}: non-finite or misshapen result")
+            if not chol["block"]:
+                raise AssertionError(f"{tag}: chol did not take its block route")
+    res = vo.gprn_fit("cuda")
+    print(f"[full gprn fit] {json.dumps(res)} (tests/test_svgp_lmc.py:143)")
+    if not res["ok"]:
+        raise AssertionError("full gprn: the sign-dependent fit failed")
+    for mode in vo.MODES:
+        tag = f"lvgp {mode} f64"
+        torch.cuda.empty_cache()
+        kernels.reset_launch_counts()
+        res = vo.lvgp_full("cuda", torch.float64, mode)
+        counts[tag], routes[tag] = kernels.launch_counts(), kernels.route_counts()
+        print(f"[full {tag}] {json.dumps(res)}; launches { {k: v for k, v in counts[tag].items() if v} }")
+        if not res["finite"]:
+            raise AssertionError(f"{tag}: a non-finite result")
+    res = vo.lvgp_separation("cuda", np.load(vo.GOLDEN))
+    print(f"[full lvgp separation] {json.dumps(res)} (tests/test_input_transforms.py:78)")
+    if not res["ok"]:
+        raise AssertionError("full lvgp: the latents did not separate the branches")
+    return counts, routes
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3576,8 +3849,8 @@ def main():
     worst, times = phase_kernels()
     for name, rows in phase_backward().items():
         times[name]["at_backward"] = rows
-    anchored = {("cov", False): phase_slice_anchor(sqrt=False),
-                ("cov", True): phase_slice_anchor(sqrt=False, fused=True),
+    phase_slice_anchor(sqrt=False)
+    anchored = {("cov", True): phase_slice_anchor(sqrt=False, fused=True),
                 ("sqrt", False): phase_slice_anchor(sqrt=True)}
     phase_slice_anchor(sqrt=True, fused=True)
     t0 = time.perf_counter()
@@ -3608,14 +3881,19 @@ def main():
     t0 = time.perf_counter()
     markov_paths = phase_markov_anchor()
     print(f"[phase_markov_anchor] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vecchia_paths = phase_vecchia_gprn_anchor()
+    print(f"[phase_vecchia_gprn_anchor] {time.perf_counter() - t0:.1f} s")
     paths, routes = phase_slice_full()
     paths["export"] = phase_export_full()
     paths.update(batch_paths)
     paths.update(dynamics_paths)
     paths.update(markov_paths)
+    paths.update(vecchia_paths)
     routes.update(batch_routes)
     for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full, phase_physics_full,
-                  phase_scattered_full, phase_batch_full, phase_dynamics_full, phase_markov_full):
+                  phase_scattered_full, phase_batch_full, phase_dynamics_full, phase_markov_full,
+                  phase_vecchia_gprn_full):
         t0 = time.perf_counter()
         more_paths, more_routes = phase()
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")

@@ -38,7 +38,11 @@ and `.P0.raw`, a prior mean's `.mean.c.raw` (`ConstantMean`) or
 `.mean.w.raw` / `.mean.b.raw` (`LinearMean`), an uncertain-input
 likelihood's `.likelihood.input_var.raw`, and the misc kernels'
 (`.kernel.alpha.raw`, `.kernel.means.raw` of a `SpectralMixture`,
-`.kernel.layers[0][0].raw` of a `DeepKernel`). Static numbers
+`.kernel.layers[0][0].raw` of a `DeepKernel`); the last batch models'
+too: `VecchiaGP`'s `.kernel.*`, `.likelihood.*` and `.mean.c.raw`,
+`GPRN`'s `.q_mu.raw`, the packed `.q_sqrt.raw`, `.noise.raw`,
+`.drd_scales.raw`, `.kernel_w.*` and `.kernel_g.*`, `LatentVariableGP`'s
+`.base.kernel.*`, `.base.likelihood.*` and `.W.raw`. Static numbers
 (`n_harmonics`, `q`, `hessian`) are constructor arguments.
 
 `load_stream_state(arrays, dtype, device)` carries a JAX `StreamState`

@@ -89,10 +89,12 @@ class SpatioTemporalKernel(Kernel):
             return self.k_space.K(s_new, self.sites)
         if hasattr(s_op, "kind") and hasattr(self.k_space, "K_op"):
             return self.k_space.K_op(s_new, self.sites, s_op.kind)
-        raise NotImplementedError(
-            "spatial operators without a closed-form `kind` (autodiff rows) "
-            "are not ported yet"
-        )
+        # no closed form: the operator by nested autodiff, one (s*, z) pair
+        # at a time
+        k = self.k_space.k_scalar
+        return torch.func.vmap(
+            lambda s: torch.func.vmap(lambda z: s_op(k, s, z))(self.sites)
+        )(s_new)
 
     def conditional_var_correction(self, s_new, s_op=None, t_order: int = 0):
         """Var(∂_t^o f) ((L L' k)(s, s) - (L k_sz) Kzz^-1 (L k_zs)): residual

@@ -8,7 +8,10 @@ from .stgp import SpatioTemporalGP
 from .streaming import StreamingGP, StreamingCVI, StreamState, SegmentResult
 from .ekf_gp import NonlinearSSGP
 from .wrappers import LatentPredictor, MultiObjectiveModel
+from .vecchia import VecchiaGP
+from .gprn import GPRN
+from .lvgp import LatentVariableGP
 
 __all__ = ["GaussianMoments", "StateSpaceGP", "BatchGP", "SVGP", "CVIGP", "SpatioTemporalGP", "StreamingGP",
            "StreamingCVI", "StreamState", "SegmentResult", "NonlinearSSGP", "MultiObjectiveModel",
-           "LatentPredictor"]
+           "LatentPredictor", "VecchiaGP", "GPRN", "LatentVariableGP"]

@@ -5,8 +5,9 @@ state holds (f, f', ..., f^(p)) up to scale, so any linear temporal operator
 is a constant row over the state: the temporal heads (`ValueHead`,
 `DerivativeHead`, `LinearOperatorHead`) give one row (`.row`), the spatial
 heads a block of rows (`.rows`). Spatial operators act through the Kronecker
-spatial conditional w = (L_s k_s)(s, Z) Kzz^-1 and carry a `.kind` tag that
-routes to the kernel's closed form (`RBF.K_op`). `ScatteredSpatialHead`
+spatial conditional w = (L_s k_s)(s, Z) Kzz^-1; a `.kind` tag routes to the
+kernel's closed form (`RBF.K_op`), and without one (or without `K_op`) the
+operator is applied by nested autodiff. `ScatteredSpatialHead`
 reads per-time-step points and gives a time-varying block [T, Ng, d];
 `StackedHead` and `MixedValueHead` read a `StackedMarkov` state (fixed
 physics mixings and the state-space LMC).
@@ -16,6 +17,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..kernels.base import SumKernel
+from ..kernels.markov import to_ss
 from ..kernels.matern import Matern
 
 __all__ = [
@@ -39,20 +42,27 @@ __all__ = [
 
 
 def derivative_row(kernel, order: int):
-    """Row vector w with f^(order)(t) = w @ state(t) (Matérn kernels; the
-    Sum combinator and other Markov kernels are not ported yet)."""
-    if not isinstance(kernel, Matern):
-        raise NotImplementedError(f"derivative_row of {type(kernel).__name__}")
-    d = kernel.p + 1
+    """Row vector w with f^(order)(t) = w @ state(t). Composes over sums (the
+    parts' rows side by side); a Matérn state is balanced, any other Markov
+    kernel's is taken as the canonical (f, f', ...) up to its state size."""
+    if isinstance(kernel, SumKernel):
+        return torch.cat([derivative_row(k, order) for k in kernel.parts])
+    if isinstance(kernel, Matern):
+        d = kernel.p + 1
+        if order >= d:
+            raise ValueError(
+                f"Matérn(p={kernel.p}) state holds derivatives up to order "
+                f"{kernel.p}; requested {order}. Use a smoother kernel."
+            )
+        # balanced state: f^(k) = lam^k * x_k
+        raw = kernel.lengthscales.raw
+        onehot = (torch.arange(d, device=raw.device) == order).to(raw.dtype)
+        return onehot * kernel._lam.to(raw.dtype) ** order
+    ss = to_ss(kernel)
+    d = ss.state_dim
     if order >= d:
-        raise ValueError(
-            f"Matérn(p={kernel.p}) state holds derivatives up to order "
-            f"{kernel.p}; requested {order}. Use a smoother kernel."
-        )
-    # balanced state: f^(k) = lam^k * x_k
-    raw = kernel.lengthscales.raw
-    onehot = (torch.arange(d, device=raw.device) == order).to(raw.dtype)
-    return onehot * kernel._lam.to(raw.dtype) ** order
+        raise ValueError(f"state dim {d} has no order-{order} derivative")
+    return (torch.arange(d, device=ss.F.device) == order).to(ss.F.dtype)
 
 
 class ValueHead(nn.Module):

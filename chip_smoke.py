@@ -17,7 +17,9 @@ trainers), and the Markov-kernel zoo with the prior mean (Sum / Product
 state spaces, `Periodic`, the Wiener family, means in the state-space
 models, flows, uncertain inputs, the misc and aggregated batch kernels), and
 the last batch-style models (`VecchiaGP` with its neighbour sets on the
-card, `GPRN`, `LatentVariableGP`).
+card, `GPRN`, `LatentVariableGP`), and time-axis sharding (the filter and
+smoother split over a `torch.distributed` DeviceMesh, on ranks that share
+the card).
 
     python3 chip_smoke.py
 
@@ -58,7 +60,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      `gen_solve`, `_cholesky_any(assume_psd=True)`, `tria`, `tria_sum`,
      both fused combines) at the scans' batches and at full width, with
      contiguous, expanded and transposed cotangents, against the same call
-     on CPU copies; then the kernel calls only the backward makes, timed;
+     with every wrapper on its plain version, on the same card tensors
+     (every batch member); then the kernel calls only the backward makes,
+     timed;
   4. anchors against the JAX reference, float64, T = 256, 3 steps: the
      covariance slice, unfused and with PHYSS_FUSED_COMBINE=1, against
      tests/data/config5_T256_golden.npz and the square-root slice against
@@ -249,6 +253,33 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      mixing and type (`chol` on its block route) and its sign-dependent
      fit; `LatentVariableGP` at N = 4 096 in both modes and its two-branch
      separation.
+ 23. sharding anchors (`phase_sharded_anchor`), float64: spawned ranks
+     (`parallel/ranks.py`) share cuda:0, n = 1 under NCCL and n = 2 and 4
+     under gloo, the three spawns side by side; on every rank the config-5
+     covariance and square-root slices and the temporal slice in both forms
+     (T = 256, chunk 64, 8 blocks, 3 steps) through the ("t",) mesh equal
+     the same rank's unsharded run (lml and ELBOs rtol 1e-9, sites and
+     posterior moments 1e-7) and the golden files above; then the dryrun's
+     checks (`parallel/dryrun.py`: lml value and gradient, a Poisson CVI
+     step, 3 `natgrad_scan` steps, a config-5 step, at n = 4 the composite
+     dp x t value and gradient on a 2 x 2 mesh) against their unsharded
+     runs (rtol 1e-8);
+ 24. sharding at full width (`phase_sharded_full`, after phase 6, whose
+     ELBOs it compares with): config-5 at T = 100 000, chunk 25 000, on 4
+     gloo ranks that share the card, a 25 000-step segment each, in
+     covariance, fused and square-root form, float32 and float64: the
+     surrogate lml (the sharded filter) and its gradient, the float64 ones
+     against this process's unsharded ones (the square-root float64
+     gradient at T = 50 000: at 100 000 it does not fit on the card), then
+     2 natural-gradient steps against phase 6's ELBOs (float64 rtol 1e-9;
+     float32 step 1 within 1e-2 of float64, the float32 gaps to phase 6's
+     printed); per rank the walls, the peak memory, and for the gradient
+     and the steps apart (counted from after the model is built) the
+     exchanges' calls, bytes and time (totals, results gathered to full T,
+     gradients) and the launches by kernel and route (under "sharded ...
+     rank k lml + gradient" and "... steps" in `launches_by_path`), and the
+     card's memory in use by all processes. No speed-up figure: the ranks
+     share one card.
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -308,16 +339,19 @@ FUSED = ("fused_filter", "fused_smooth")
 EXPORT_KERNELS = {"cov": ("bmm", "gj_solve", "gj_solve_logdet", "chol"),
                   "sqrt": ("bmm", "gj_solve", "lq", "chol", "chol_gram")}
 EXPORT_CALLS = 20  # loaded and live calls of the exported full-width predict_f
-# The exported full-width model: two chunks (T + 1000 new times = 13 000
-# steps at chunk 6 500), so the program still carries a chunk boundary. At
+# The exported full-width model: two chunks (T + 1000 new times = 7 000
+# steps at chunk 3 500), so the program still carries a chunk boundary. At
 # T = 100 000 (five chunks of 25 000, 34 065 nodes) export took 315 s on an
 # H100 machine's host, load 61 s; at T = 49 000 (two chunks of 25 000,
 # 14 534 nodes) 192-315 s, load 27 s; at T = 24 000 (two chunks of 12 500,
-# 9046 nodes) 121-222 s for the whole phase on two hosts: still the script's
-# largest phase, and the one whose host time spreads most.
-EXPORT_T, EXPORT_CHUNK = 12_000, 6_500
-# the export anchors predict the 256 + 40 steps in one chunk of 32 blocks
-EXPORT_ANCHOR_CHUNK, EXPORT_ANCHOR_BLOCKS = 320, "32"
+# 9046 nodes) 121-222 s for the whole phase on two hosts; at T = 12 000
+# (two chunks of 6 500, 6470 nodes) 92-116 s: still among the script's
+# largest phases, and the one whose host time spreads most.
+EXPORT_T, EXPORT_CHUNK = 6_000, 3_500
+# the export anchors predict the 256 + 40 steps in one chunk of 64 blocks
+# (5 sequential steps and 6 levels of block totals to trace; with 32 blocks
+# 10 and 5, 2357 and 3905 nodes, 78-94 s for the phase)
+EXPORT_ANCHOR_CHUNK, EXPORT_ANCHOR_BLOCKS = 320, "64"
 # the full-width run whose count stands under `launches` in the summary
 LAUNCHES_PATH = {name: "cov fused f32" if name in FUSED else "sqrt f32" for name in SOURCES}
 
@@ -1435,6 +1469,7 @@ def _full(sqrt, path_kernels, fused=False):
         if not finite:
             raise AssertionError(f"{tag}: non-finite ELBO or sites in {dtype}")
         out[dtype] = elbos
+        SLICE_ELBOS[("sqrt" if sqrt else "fused" if fused else "cov", str(dtype)[6:])] = elbos
         if dtype == torch.float32 and not fused:
             t_new = torch.as_tensor(np.sort(np.random.default_rng(22).uniform(0, 100, 1000)),
                                     dtype=dtype, device="cuda")
@@ -2001,15 +2036,35 @@ def _ct(gen, out, layout):
     return _randn(gen, *out.shape).to(out.dtype)
 
 
+@contextlib.contextmanager
+def _plain_on_card():
+    """Every kernel wrapper takes its plain version, on whatever device its
+    operands lie (the plain versions are PyTorch operations, device-agnostic),
+    and fails if a kernel launches: the check-side reference of
+    `phase_backward`, which runs on the card's own tensors."""
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    call = build.KernelOp.__call__
+    before = dict(build.launch_counts())
+    build.KernelOp.__call__ = lambda self, cpu, *args: self.plain(*args)
+    try:
+        yield
+    finally:
+        build.KernelOp.__call__ = call
+    if build.launch_counts() != before:
+        raise AssertionError("a kernel launched under _plain_on_card")
+
+
 def phase_backward():
     """The backward of every kernel wrapper on the training path, on the
-    card against the same call on CPU copies (which take the plain
-    versions), float64 then float32 at the TOL table's values: `bmm` with
-    every (ta, tb), `psd_solve`, `psd_solve_logdet` (the solve on [ct | I],
-    r + d columns), `gen_solve` (the solve on Aᵀ), `_cholesky_any(...,
-    assume_psd=True)`, `tria`, `tria_sum` and both fused combines, at the
-    scans' batches ([256], [512]; [1024], [2048] at d = 2) and at full
-    width, with cotangents contiguous, expanded (stride 0) and transposed.
+    card against the same call with every wrapper on its plain version
+    (`_plain_on_card`, on the same card tensors), float64 then float32 at
+    the TOL table's values: `bmm` with every (ta, tb), `psd_solve`,
+    `psd_solve_logdet` (the solve on [ct | I], r + d columns), `gen_solve`
+    (the solve on Aᵀ), `_cholesky_any(..., assume_psd=True)`, `tria`,
+    `tria_sum` and both fused combines, at the scans' batches ([256], [512];
+    [1024], [2048] at d = 2) and at full width, with cotangents contiguous,
+    expanded (stride 0) and transposed; every batch member is compared.
     Every kernel must launch in these checks, none on a block route.
     Returns `_time_backward`'s rows."""
     from physs_gp_tpu_torch.ops import matrix as mx
@@ -2037,11 +2092,12 @@ def phase_backward():
         routes = build.route_counts()
         if any(r["block"] for r in routes.values()):
             raise AssertionError(f"backward {name} {label}: a block kernel ran: {routes}")
-        gp, _ = grads(fn, [x.cpu() for x in xs], lambda outs: [c.cpu() for c in cts])
+        with _plain_on_card():
+            gp, _ = grads(fn, xs, lambda outs: cts)
         for i, (a, b) in enumerate(zip(g, gp)):
             if not torch.isfinite(a).all():
                 raise AssertionError(f"backward {name} {label}: non-finite gradient")
-            rel, ab = _rel(a.cpu(), b)
+            rel, ab = _rel(a, b)
             ok = rel <= TOL[dtype][kind]
             print(f"[backward] {name} {label} ct {layout} d(input {i}) {str(dtype)[6:]}: max_abs_err "
                   f"{ab:.3e} rel {rel:.3e} (tol {TOL[dtype][kind]:g}) {'ok' if ok else 'FAIL'}")
@@ -3836,6 +3892,313 @@ def phase_vecchia_gprn_full():
     return counts, routes
 
 
+# ---------------------------------------------------------------------------
+# Time-axis sharding (`parallel/sharded.py`): spawned ranks on one card
+# ---------------------------------------------------------------------------
+
+SHARDED_ANCHORS = (("config5 cov", False, False), ("config5 sqrt", False, True),
+                   ("temporal cov", True, False), ("temporal sqrt", True, True))
+SHARDED_ANCHOR_NS = (1, 2, 4)  # n = 1 runs under NCCL, more ranks under gloo
+# (form, type, T of the lml gradient) of the full-width runs, each of which
+# also takes SHARDED_FULL_STEPS natural-gradient steps at T = 100 000. The
+# square-root float64 gradient at T = 100 000 does not fit on one NVIDIA H100
+# 80GB HBM3 at n = 4 or n = 2 (every rank holds the global inputs and the
+# gathered results; the unsharded one peaks at 62.4 GiB there): it runs at
+# T = 50 000.
+SHARDED_FULL = tuple((form, dtype, 50_000 if (form, dtype) == ("sqrt", "float64") else 100_000)
+                     for form in ("cov", "fused", "sqrt") for dtype in ("float32", "float64"))
+SHARDED_FULL_N, SHARDED_FULL_STEPS = 4, 2
+SHARDED_TIMEOUT_S = 420.0
+# ELBOs of phase_slice_full's float32 and float64 runs at T = 100 000, by form
+SLICE_ELBOS = {}
+
+
+def _surrogate_lml_grad(model):
+    """The surrogate lml and its gradient with respect to the kernel's
+    trainable raws (numpy)."""
+    from physs_gp_tpu_torch.utils.training import trainable_parameters
+
+    sur = model.surrogate_model()
+    lml = sur.log_marginal_likelihood()
+    grads = torch.autograd.grad(lml, trainable_parameters(sur))
+    return float(lml.detach()), torch.cat([g.reshape(-1) for g in grads]).cpu().numpy()
+
+
+def _sharded_anchor_rank(rank, n):
+    """One rank of phase_sharded_anchor: each anchor model (float64, T = 256,
+    chunk 64, 8 blocks, 3 natural-gradient steps) through the ("t",) mesh of
+    n ranks and without it; then the dryrun's checks (`parallel/dryrun`)."""
+    import physs_gp_tpu_torch.ops.matrix  # noqa: F401  (TF32 off)
+    from physs_gp_tpu_torch.parallel.dryrun import dryrun_rank
+    from physs_gp_tpu_torch.parallel.ranks import make_mesh
+    from physs_gp_tpu_torch.trainers.scan import natgrad_scan
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
+
+    os.environ["PHYSS_SCAN_BLOCKS"] = "8"
+    mesh = make_mesh((n,), ("t",), "cuda")
+    out, t0 = {}, time.perf_counter()
+    for name, temporal, sqrt in SHARDED_ANCHORS:
+        for tag, m in (("sharded", mesh), ("single", None)):
+            model = (build_temporal if temporal else build_config5)(256, 64, dtype=torch.float64,
+                                                                    sqrt=sqrt, device="cuda")
+            model.mesh = m
+            model, elbos = natgrad_scan(model, 0.5, n_steps=3, nan_guard=True)
+            post = model.posterior()
+            with torch.no_grad():
+                lml = float(model.surrogate_model().log_marginal_likelihood())
+            out[(name, tag)] = {
+                "elbos": elbos.cpu().numpy(), "lml": lml, "site_Y": model.sites.Y.cpu().numpy(),
+                "site_V_diag": torch.diagonal(model.sites.V, dim1=-2, dim2=-1).cpu().numpy(),
+                "post_mean": post.mean.cpu().numpy(), "post_var": post.var.cpu().numpy()}
+    out["dryrun"] = dryrun_rank(rank, n, "cuda")
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def phase_sharded_anchor():
+    """Time-axis sharding on the card against the same process's unsharded
+    run and the JAX golden files, float64: n = 1 (NCCL), 2 and 4 ranks
+    (gloo) share cuda:0, the three spawns side by side. On every rank, each
+    anchor model's lml and ELBOs (rtol 1e-9), posterior means, variances
+    and sites (1e-7) equal its unsharded run's, and the ELBOs, sites and
+    posterior moments the golden files' (1e-9, 1e-7); the dryrun's checks
+    (value and gradient of `f.lml + s.ms[-1].sum()`, a Poisson CVI step,
+    3 `natgrad_scan` steps, a config-5 step, at n = 4 the composite dp x t
+    value and gradient on a 2 x 2 mesh) equal their unsharded runs to rtol
+    1e-8."""
+    from physs_gp_tpu_torch.parallel.dryrun import RTOL
+    from physs_gp_tpu_torch.parallel.ranks import start_ranks
+
+    golden = {"config5 cov": (np.load(GOLDEN), ""), "config5 sqrt": (np.load(GOLDEN_SQRT), ""),
+              "temporal cov": (np.load(GOLDEN_TEMPORAL), "cov_"),
+              "temporal sqrt": (np.load(GOLDEN_TEMPORAL), "sqrt_")}
+    torch.cuda.empty_cache()
+    spawns = {n: start_ranks(_sharded_anchor_rank, n, device="cuda",
+                             timeout=SHARDED_TIMEOUT_S) for n in SHARDED_ANCHOR_NS}
+    worst = {}
+    for n, ranks in spawns.items():
+        for rank, out in enumerate(ranks.wait()):
+            tag = f"sharded anchor n={n} rank {rank}"
+            for name, _, _ in SHARDED_ANCHORS:
+                got, ref = out[(name, "sharded")], out[(name, "single")]
+                gold, pre = golden[name]
+                checks = {"lml": (got["lml"], ref["lml"], 1e-9),
+                          "ELBOs": (got["elbos"], ref["elbos"], 1e-9),
+                          "golden ELBOs": (got["elbos"], gold[pre + "elbos"], 1e-9)}
+                for key in ("site_Y", "site_V_diag", "post_mean", "post_var"):
+                    checks[key] = (got[key], ref[key], 1e-7)
+                    checks["golden " + key] = (got[key], gold[pre + key], 1e-7)
+                for key, (val, want, tol) in checks.items():
+                    r = _rel_np(val, np.asarray(want))
+                    worst[(name, key)] = max(worst.get((name, key), 0.0), r)
+                    if not r <= tol:
+                        raise AssertionError(f"{tag}: {name} {key} rel {r:.3e} (tol {tol:g})")
+            for key, (val, want) in out["dryrun"].items():
+                r = _rel_np(val, np.asarray(want))
+                worst[("dryrun", key)] = max(worst.get(("dryrun", key), 0.0), r)
+                if not (np.all(np.isfinite(val)) and np.allclose(val, want, rtol=RTOL,
+                                                                 atol=0)):
+                    raise AssertionError(f"{tag}: dryrun {key} {val} against unsharded {want}")
+            print(f"[{tag}] every check passed; rank wall {out['wall']:.1f} s")
+    for (name, key), r in worst.items():
+        print(f"[sharded anchor] {name} {key}: worst rel over ranks and n {r:.3e}")
+
+
+@contextlib.contextmanager
+def _card_memory_sampler(every_s=0.5):
+    """A list that fills with the card's memory in use (bytes, every
+    process's) every `every_s` seconds while the block runs."""
+    import threading
+
+    used, stop = [0], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            free, total = torch.cuda.mem_get_info()
+            used.append(total - free)
+            stop.wait(every_s)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield used
+    finally:
+        stop.set()
+        thread.join()
+
+
+def _sharded_full_rank(rank, n, runs):
+    """One rank of phase_sharded_full, for each (form, type, T of the
+    gradient): the surrogate lml of config-5 (chunk 25 000) and its gradient
+    through the ("t",) mesh of n ranks, then SHARDED_FULL_STEPS
+    natural-gradient steps at T = 100 000. The launch counters and the
+    exchange statistics are reset after each model is built, just before
+    the gradient and just before the steps, and read just after each."""
+    import physs_gp_tpu_torch.ops.matrix  # noqa: F401  (TF32 off)
+    from physs_gp_tpu_torch.ops import cuda as kernels
+    from physs_gp_tpu_torch.parallel import sharded
+    from physs_gp_tpu_torch.parallel.ranks import make_mesh
+    from physs_gp_tpu_torch.trainers.scan import natgrad_scan
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5
+
+    mesh = make_mesh((n,), ("t",), "cuda")
+
+    def built(T, dtype, form):
+        model = build_config5(T, 25_000, dtype=dtype, sqrt=form == "sqrt", device="cuda")
+        model.mesh = mesh
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        sharded.reset_exchange_stats()
+        return model
+
+    def counted():
+        return {"exchange": sharded.exchange_stats(), "launches": kernels.launch_counts(),
+                "routes": kernels.route_counts()}
+
+    out = {}
+    for form, dtype_name, grad_T in runs:
+        if form == "fused":
+            os.environ["PHYSS_FUSED_COMBINE"] = "1"
+        dtype = getattr(torch, dtype_name)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = built(grad_T, dtype, form)
+        t0 = time.perf_counter()
+        lml, grad = _surrogate_lml_grad(model)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grad_counts = counted()
+        grad_peak = torch.cuda.max_memory_allocated() / 2**30
+        if grad_T != 100_000:
+            del model
+            torch.cuda.empty_cache()
+            model = build_config5(100_000, 25_000, dtype=dtype, sqrt=form == "sqrt", device="cuda")
+            model.mesh = mesh
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        sharded.reset_exchange_stats()
+        t2 = time.perf_counter()
+        model, elbos = natgrad_scan(model, 0.5, n_steps=SHARDED_FULL_STEPS, nan_guard=False)
+        elbos = elbos.cpu().numpy()
+        t3 = time.perf_counter()
+        out[(form, dtype_name)] = {
+            "lml": lml, "grad": grad, "grad_T": grad_T, "elbos": elbos, "grad_wall_s": t1 - t0,
+            "steps_wall_s": t3 - t2, "grad_peak_gib": grad_peak,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "runs": {"lml + gradient": grad_counts, "steps": counted()},
+            "finite": bool(np.all(np.isfinite(elbos)) and np.all(np.isfinite(grad))
+                           and torch.isfinite(model.sites.V).all())}
+        os.environ.pop("PHYSS_FUSED_COMBINE", None)
+        del model
+    return out
+
+
+def phase_sharded_full():
+    """Config-5 (chunk 25 000) on 4 ranks that share the card (gloo), in
+    covariance, fused and square-root form, float32 and float64: the
+    surrogate lml and its gradient (at T = 100 000, each rank a 25 000-step
+    segment; the square-root float64 one at T = 50 000, SHARDED_FULL), then
+    SHARDED_FULL_STEPS natural-gradient steps at T = 100 000. In float64 the
+    lml and gradient equal this process's unsharded ones and the ELBOs
+    phase_slice_full's (rtol 1e-9); in float32 step 1's ELBO is within 1e-2
+    of the float64 one (step 0 reported, as in phase_slice_full) and the
+    ELBOs' gaps to phase_slice_full's are printed. Prints per rank the
+    walls, the exchanges' calls, bytes and time (the totals apart from the
+    gather of the results to full T and from the gradients'), the peak
+    memory and the launches by kernel and route, and the card's memory in
+    use by all processes. These are no speed-up figures: the ranks share
+    one card. Returns the runs' launches by path and their routes."""
+    import gc
+
+    from physs_gp_tpu_torch.ops import cuda as kernels
+    from physs_gp_tpu_torch.parallel.ranks import start_ranks
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5
+
+    single = {}
+    for form, dtype_name, grad_T in SHARDED_FULL:
+        if dtype_name != "float64":
+            continue
+        if form == "fused":
+            os.environ["PHYSS_FUSED_COMBINE"] = "1"
+        torch.cuda.empty_cache()
+        model = build_config5(grad_T, 25_000, dtype=torch.float64, sqrt=form == "sqrt", device="cuda")
+        t0 = time.perf_counter()
+        single[form] = _surrogate_lml_grad(model)
+        print(f"[sharded full] unsharded {form} float64 lml + gradient at T = {grad_T}: "
+              f"{time.perf_counter() - t0:.3f} s")
+        os.environ.pop("PHYSS_FUSED_COMBINE", None)
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[sharded full] before the ranks: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"GiB, the card {(total - free) / 2**30:.2f} GiB in use")
+    t0 = time.perf_counter()
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # the ranks' allocators
+    try:
+        with _card_memory_sampler() as used:
+            ranks = start_ranks(_sharded_full_rank, SHARDED_FULL_N, args=(SHARDED_FULL,),
+                              device="cuda", timeout=SHARDED_TIMEOUT_S).wait()
+    finally:
+        del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    print(f"[sharded full] {SHARDED_FULL_N} ranks on one card: {time.perf_counter() - t0:.1f} s "
+          f"(no speed-up figure: the ranks share one card); the card's memory in use at most "
+          f"{max(used) / 2**30:.2f} GiB of {total / 2**30:.2f} (all processes, sampled every 0.5 s)")
+    counts, routes = {}, {}
+    kernels_of = {"cov": ("bmm", "gj_solve", "gj_solve_logdet"),
+                  "fused": ("bmm", "gj_solve", "gj_solve_logdet") + FUSED,
+                  "sqrt": tuple(k for k in SOURCES if k not in FUSED)}
+    for rank, out in enumerate(ranks):
+        for (form, dtype_name), res in out.items():
+            tag = f"sharded {form} {dtype_name.replace('float', 'f')} rank {rank}"
+            print(f"[{tag}] lml + gradient at T = {res['grad_T']} {res['grad_wall_s']:.3f} s (peak "
+                  f"{res['grad_peak_gib']:.2f} GiB), {SHARDED_FULL_STEPS} steps at T = 100000 "
+                  f"{res['steps_wall_s']:.3f} s, peak {res['peak_gib']:.2f} GiB")
+            launched = dict.fromkeys(SOURCES, 0)
+            for run, got in res["runs"].items():
+                ex = got["exchange"]
+                print(f"[{tag}] {run}: exchanges "
+                      + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e6:.3f} MB {v['seconds']:.4f} s"
+                                  for k, v in sorted(ex.items())))
+                counts[f"{tag} {run}"], routes[f"{tag} {run}"] = got["launches"], got["routes"]
+                print(f"[{tag}] {run}: launches { {k: v for k, v in got['launches'].items() if v} }, "
+                      f"routes { {k: v for k, v in got['routes'].items() if v.get('warp') or v.get('block')} }")
+                for k, v in got["launches"].items():
+                    launched[k] += v
+            if not res["finite"]:
+                raise AssertionError(f"{tag}: non-finite ELBO, gradient or sites")
+            if not all(launched[k] for k in kernels_of[form]):
+                raise AssertionError(f"{tag}: a kernel of the form was never launched")
+            if form != "fused" and any(launched[k] for k in FUSED):
+                raise AssertionError(f"{tag}: a fused combine ran with its knob unset")
+            ref = SLICE_ELBOS[(form, dtype_name)][:SHARDED_FULL_STEPS]
+            r_elbo = np.abs(res["elbos"] - ref) / np.abs(ref)
+            line = f"[{tag}] ELBOs rel {r_elbo.tolist()} against phase_slice_full's"
+            if dtype_name == "float64":
+                lml1, grad1 = single[form]
+                r_lml, r_grad = abs(res["lml"] - lml1) / abs(lml1), _rel_np(res["grad"], grad1)
+                print(f"{line}; lml rel {r_lml:.3e}, gradient rel {r_grad:.3e} against unsharded")
+                if not max(r_lml, r_grad, r_elbo.max()) <= 1e-9:
+                    raise AssertionError(f"{tag}: the sharded float64 run differs from the unsharded one")
+            else:
+                print(f"{line} (float32, reported)")
+        for form in ("cov", "fused", "sqrt"):
+            e32, e64 = out[(form, "float32")]["elbos"], out[(form, "float64")]["elbos"]
+            gap = np.abs(e32 - e64) / np.abs(e64)
+            print(f"[sharded {form} rank {rank}] float32 vs float64 ELBO rel gap {gap.tolist()} "
+                  "(bound 1e-2 on step 1; step 0 reported)")
+            if not gap[1:].max() <= 1e-2:
+                raise AssertionError(f"sharded {form} rank {rank}: float32 and float64 ELBOs disagree")
+    return counts, routes
+
+def _timed(phase, *args):
+    """phase(*args), its wall printed as "[name] s"."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3844,30 +4207,36 @@ def main():
     sys.path.insert(0, REPO)
     import physs_gp_tpu_torch.ops.matrix  # noqa: F401  (sets TF32 off)
 
-    phase_device()
-    phase_build()
-    worst, times = phase_kernels()
-    for name, rows in phase_backward().items():
+    _timed(phase_device)
+    _timed(phase_build)
+    worst, times = _timed(phase_kernels)
+    for name, rows in _timed(phase_backward).items():
         times[name]["at_backward"] = rows
+    t0 = time.perf_counter()
     phase_slice_anchor(sqrt=False)
     anchored = {("cov", True): phase_slice_anchor(sqrt=False, fused=True),
                 ("sqrt", False): phase_slice_anchor(sqrt=True)}
     phase_slice_anchor(sqrt=True, fused=True)
+    print(f"[phase_slice_anchor] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_export_anchor(anchored)
     del anchored
     print(f"[phase_export_anchor] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     for form in ("c5_cov", "c5_sqrt", "t_cov", "t_sqrt"):
         phase_train_anchor(form)
     phase_train_anchor("c5_cov", fused=True)
-    phase_oracle()
+    print(f"[phase_train_anchor] {time.perf_counter() - t0:.1f} s")
+    _timed(phase_oracle)
+    t0 = time.perf_counter()
     knob_off = phase_temporal_anchor(False)
     phase_temporal_anchor(True)
     if not np.array_equal(phase_temporal_anchor(False, fused=True), knob_off):
         raise AssertionError("anchor temporal: PHYSS_FUSED_COMBINE=1 changed the d = 2 ELBOs")
     print("[anchor temporal cov knob on] ELBOs equal, bit for bit, to the knob-off run")
-    phase_temporal_oracle()
-    phase_serving_anchor()
+    print(f"[phase_temporal_anchor] {time.perf_counter() - t0:.1f} s")
+    _timed(phase_temporal_oracle)
+    _timed(phase_serving_anchor)
     for phase in (phase_physics_anchor, phase_vector_field_anchor):
         t0 = time.perf_counter()
         phase()
@@ -3884,8 +4253,12 @@ def main():
     t0 = time.perf_counter()
     vecchia_paths = phase_vecchia_gprn_anchor()
     print(f"[phase_vecchia_gprn_anchor] {time.perf_counter() - t0:.1f} s")
-    paths, routes = phase_slice_full()
-    paths["export"] = phase_export_full()
+    _timed(phase_sharded_anchor)
+    paths, routes = _timed(phase_slice_full)
+    sharded_paths, sharded_routes = _timed(phase_sharded_full)
+    paths.update(sharded_paths)
+    routes.update(sharded_routes)
+    paths["export"] = _timed(phase_export_full)
     paths.update(batch_paths)
     paths.update(dynamics_paths)
     paths.update(markov_paths)
@@ -3899,7 +4272,7 @@ def main():
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
         paths.update(more_paths)
         routes.update(more_routes)
-    paths.update(phase_train_full())
+    paths.update(_timed(phase_train_full))
     # `launches` of the fused combines from the fused covariance run, of the
     # others from the square-root run; `launches_by_path` has every run's,
     # `launches_by_kernel` the split between the warp- and block-per-matrix

@@ -5,3 +5,4 @@ Mirrors the JAX package's layout and names (`ops/matrix.py` <->
 ...). The hand-written Hopper kernels live in `csrc/` and are built with
 `nvcc` at first use. This package imports torch and never jax.
 """
+from . import parallel  # noqa: F401  (time-axis sharding over a DeviceMesh)

@@ -12,7 +12,12 @@ place and return the model. Prediction runs on the surrogate as a
 `StateSpaceGP` (`surrogate_model`): `predict_f` on its NaN-augmented grid,
 `predict_y` by Gauss-Hermite moment matching, `nlpd` by log-domain
 Gauss-Hermite quadrature, `sample_f` by Matheron pathwise conditioning on
-the surrogate. `init_state` = (m0, P0) replaces the stationary prior of the
+the surrogate. `mesh` (a `torch.distributed` DeviceMesh) shards the time
+axis of the surrogate pass over its dimension `mesh_axis`
+(`parallel/sharded.py`), and `surrogate_model()` carries it, so
+`step_with_elbo`, `natgrad_scan`, predictions and `sample_f` run sharded;
+every rank calls the model with the same data and keeps the same sites.
+`init_state` = (m0, P0) replaces the stationary prior of the
 filter (online CVI carries the previous segment's filtered state in it,
 `models/streaming.py`); as in the reference, `surrogate_model()` does not
 pass it on, so `predict_f` and `sample_f` start from the stationary prior.
@@ -82,7 +87,7 @@ def check_generator(generator) -> None:
 class CVIGP(nn.Module):
     def __init__(self, t, Y, kernel, likelihood, sites: Sites, observation=None,
                  mean=None, parallel: bool = False, sqrt: bool = False, chunk_size=None,
-                 init_state=None):
+                 init_state=None, mesh=None, mesh_axis: str = "t"):
         super().__init__()
         self.register_buffer("t", t)
         self.register_buffer("Y", Y)
@@ -95,10 +100,13 @@ class CVIGP(nn.Module):
         self.sqrt = sqrt
         self.chunk_size = chunk_size
         self.init_state = init_state
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
 
     @classmethod
     def init(cls, t, Y, kernel, likelihood, observation=None, mean=None, parallel=False,
-             sqrt=False, chunk_size=None, site_var: float = 1.0, init_state=None):
+             sqrt=False, chunk_size=None, site_var: float = 1.0, init_state=None, mesh=None,
+             mesh_axis: str = "t"):
         active = (
             likelihood.site_active_mask(Y)
             if hasattr(likelihood, "site_active_mask")
@@ -108,7 +116,7 @@ class CVIGP(nn.Module):
             t=t.reshape(-1), Y=Y, kernel=kernel, likelihood=likelihood,
             sites=init_sites(Y, site_var, active=active), observation=observation,
             mean=mean, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
-            init_state=init_state,
+            init_state=init_state, mesh=mesh, mesh_axis=mesh_axis,
         )
 
     # ---- surrogate filtering ----
@@ -122,7 +130,8 @@ class CVIGP(nn.Module):
             ssm = ssm._replace(m0=self.init_state[0], P0=self.init_state[1])
         f, s = run_filter_smoother(
             ssm, self.sites.V, self.sites.Y, parallel=self.parallel,
-            sqrt=self.sqrt, chunk_size=self.chunk_size,
+            sqrt=self.sqrt, chunk_size=self.chunk_size, mesh=self.mesh,
+            mesh_axis=self.mesh_axis,
         )
         # the square-root smoother ships the covariance factors: (H L)(H L)ᵀ
         # stays PSD in float32 where H P Hᵀ goes indefinite
@@ -254,6 +263,7 @@ class CVIGP(nn.Module):
             t=self.t, Y=self.sites.Y, kernel=self.kernel,
             likelihood=BlockDiagonalGaussian(V=self.sites.V), observation=self.observation,
             parallel=self.parallel, sqrt=self.sqrt, chunk_size=self.chunk_size,
+            mesh=self.mesh, mesh_axis=self.mesh_axis,
         )
 
     @torch.no_grad()

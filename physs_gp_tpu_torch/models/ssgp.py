@@ -5,7 +5,11 @@ one Kalman-filter pass, the posterior a filter + RTS smoother pass, and
 prediction augments the time grid with NaN observations, sorts it, filters
 and smooths, and unsorts. `parallel=True` runs the parallel scans,
 `sqrt=True` the square-root filters, `chunk_size` the chunked scans; the
-runner pads the augmented grid to a multiple of the chunk. `sample_f` draws
+runner pads the augmented grid to a multiple of the chunk. `mesh` (a
+`torch.distributed` DeviceMesh) shards the time axis over its dimension
+`mesh_axis` (`parallel/sharded.py`): the lml then runs the sharded filter,
+the posterior, predictions and samples the sharded filter + smoother; every
+rank calls the model with the same data. `sample_f` draws
 joint posterior sample paths by Matheron pathwise conditioning
 (`ops/sampling.py`). A prior `mean` (one `means.mean.Mean`, or one per
 head) shifts the heads by μ = `head_mean_values`: inference runs on Y - μ,
@@ -42,7 +46,8 @@ def _lgssm(kernel, observation, t):
 
 class StateSpaceGP(nn.Module):
     def __init__(self, t, Y, kernel, likelihood, observation=None, mean=None,
-                 parallel: bool = False, sqrt: bool = False, chunk_size=None):
+                 parallel: bool = False, sqrt: bool = False, chunk_size=None,
+                 mesh=None, mesh_axis: str = "t"):
         super().__init__()
         self.register_buffer("t", t)
         self.register_buffer("Y", Y)
@@ -53,6 +58,8 @@ class StateSpaceGP(nn.Module):
         self.parallel = parallel
         self.sqrt = sqrt
         self.chunk_size = chunk_size
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
 
     def _mu(self, t=None):
         """The prior-mean matrix μ [T, p] at the heads (at the training
@@ -69,7 +76,8 @@ class StateSpaceGP(nn.Module):
 
     def _run(self, ssm, R, Y):
         f, s = run_filter_smoother(ssm, R, Y, parallel=self.parallel, sqrt=self.sqrt,
-                                   chunk_size=self.chunk_size)
+                                   chunk_size=self.chunk_size, mesh=self.mesh,
+                                   mesh_axis=self.mesh_axis)
         return ssm, f, s
 
     def _corr(self):
@@ -111,7 +119,7 @@ class StateSpaceGP(nn.Module):
     def log_marginal_likelihood(self):
         ssm, R = self._filter_inputs()
         f, _ = run_filter(ssm, R, self._centred(), parallel=self.parallel, sqrt=self.sqrt,
-                          chunk_size=self.chunk_size)
+                          chunk_size=self.chunk_size, mesh=self.mesh, mesh_axis=self.mesh_axis)
         return f.lml
 
     def get_objective(self):
@@ -181,7 +189,7 @@ class StateSpaceGP(nn.Module):
         ssm, R, Y, unsort, mu = inputs
         xs = matheron_state_samples_given(
             ssm, R, Y, eps_x, eps_y, parallel=self.parallel, sqrt=self.sqrt,
-            chunk_size=self.chunk_size,
+            chunk_size=self.chunk_size, mesh=self.mesh, mesh_axis=self.mesh_axis,
         )  # [S, T*, d]
         f = xs @ ssm.H.T if ssm.H.dim() == 2 else torch.einsum("tpd,std->stp", ssm.H, xs)
         if unsort is not None:

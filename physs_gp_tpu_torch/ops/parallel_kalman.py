@@ -41,6 +41,8 @@ __all__ = [
     "parallel_kalman_filter",
     "parallel_rts_smoother",
     "blocked_inclusive_scan",
+    "blocked_pass",
+    "blocked_distribute",
 ]
 
 
@@ -282,32 +284,52 @@ def blocked_inclusive_scan(op, elems, ident, final_op=None, init=None):
     pass. `final_op(prefix, intra)` is an optional reduced combine for the
     distribute pass that emits only the fields consumers use. Returns
     `(out, total)`: the inclusive prefixes (through `final_op` when given)
-    and the full combine of init and all n elements.
+    and the full combine of init and all n elements. The two stages are
+    `blocked_pass` and `blocked_distribute`.
     """
+    return blocked_distribute(op, blocked_pass(op, elems, ident), ident, final_op, init)
+
+
+class BlockedPass(NamedTuple):
+    """The first stage of the blocked scan: the in-block prefixes `intra`
+    [L, B, ...], the Sklansky scan of the block totals `tot_scan` [B, ...]
+    (without any init), and n."""
+    intra: object
+    tot_scan: object
+    n: int
+
+
+def blocked_pass(op, elems, ident) -> BlockedPass:
+    """Pad, block, the sequential pass over L and the Sklansky scan over the
+    block totals; `tot_scan[-1]` is the combine of all n elements."""
     n_blocks = _scan_blocks()
     n = _leaf(elems).shape[0]
     L = -(-n // n_blocks)
     pad = L * n_blocks - n
-
-    def bcast(x, batch):
-        return x.expand(batch + tuple(x.shape))
-
     if pad:
-        elems = _map(lambda x, i: torch.cat([x, bcast(i, (pad,))]), elems, ident)
+        elems = _map(lambda x, i: torch.cat([x, _bcast(i, (pad,))]), elems, ident)
     # [n_blocks * L, ...] -> [L, n_blocks, ...] (strided views, no copy)
     blocked = _map(
         lambda x: x.reshape((n_blocks, L) + tuple(x.shape[1:])).transpose(0, 1),
         elems,
     )
-    carry = _map(lambda x: bcast(x, (n_blocks,)), ident)
+    carry = _map(lambda x: _bcast(x, (n_blocks,)), ident)
     steps = []
     for l in range(L):
         carry = op(carry, _map(lambda x: x[l], blocked))
         steps.append(carry)
     intra = _map(lambda *xs: torch.stack(xs), *steps)  # [L, B, ...]
-    tot_scan = _sklansky_scan(op, steps[-1])
+    return BlockedPass(intra=intra, tot_scan=_sklansky_scan(op, steps[-1]), n=n)
+
+
+def blocked_distribute(op, state: BlockedPass, ident, final_op=None, init=None):
+    """The second stage: fold `init` into the block-totals scan and combine
+    every block's exclusive prefix with its in-block prefixes at full
+    width. Returns `(out, total)` as `blocked_inclusive_scan`."""
+    tot_scan = state.tot_scan
+    L, n_blocks = _leaf(state.intra).shape[:2]
     if init is not None:
-        tot_scan = op(_map(lambda x: bcast(x, (n_blocks,)), init), tot_scan)
+        tot_scan = op(_map(lambda x: _bcast(x, (n_blocks,)), init), tot_scan)
         first = _map(lambda x: x[None], init)
     else:
         first = _map(lambda x: x[None], ident)
@@ -315,11 +337,15 @@ def blocked_inclusive_scan(op, elems, ident, final_op=None, init=None):
     prefix = _map(lambda f, ts: torch.cat([f, ts[:-1]]), first, tot_scan)
     flat_intra = _map(
         lambda x: x.transpose(0, 1).reshape((n_blocks * L,) + tuple(x.shape[2:])),
-        intra,
+        state.intra,
     )
     flat_prefix = _map(lambda x: x.repeat_interleave(L, dim=0), prefix)
     out = (final_op or op)(flat_prefix, flat_intra)
-    return _map(lambda x: x[:n], out), total
+    return _map(lambda x: x[:state.n], out), total
+
+
+def _bcast(x, batch):
+    return x.expand(batch + tuple(x.shape))
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,12 @@ Counterpart of `physs_gp_tpu/ops/runner.py`: {sequential (`parallel=False`),
 parallel} x {covariance, square-root (`sqrt=True`)}. Square-root variants
 take and return triangular factors inside; the runner converts at the
 boundary, so models always see covariance Ps (and, from the square-root
-smoothers, the factors in `Ls`). The time-sharded multi-device pass is not
-ported yet and raises `NotImplementedError`.
+smoothers, the factors in `Ls`). `mesh=` (a `torch.distributed`
+`DeviceMesh`) sends the pass through the time-sharded multi-device scans of
+`parallel/sharded.py`, with T padded to the mesh and chunk grid.
+`run_filter(mesh=)` runs the sharded filter alone: the reference's lml
+reads the filter's results of its sharded filter + smoother pass, and
+`jax.jit` drops the smoother from that program; eager PyTorch would not.
 """
 from __future__ import annotations
 
@@ -19,12 +23,19 @@ from .matrix import safe_cholesky_rel
 __all__ = ["run_filter_smoother", "run_filter"]
 
 
-def _pad_amount(T: int, chunk_size) -> int:
-    """Steps to append so that T is a multiple of chunk_size (single device;
-    the sharded variant of the reference is not ported)."""
-    if chunk_size is None or T <= chunk_size:
+def _pad_amount(T: int, chunk_size, n_shards: int = 1) -> int:
+    """Steps to append so that T divides into n_shards equal segments, each
+    a multiple of chunk_size (chunking applies within a segment)."""
+    unit = n_shards * (chunk_size or 1)
+    if n_shards == 1 and (chunk_size is None or T <= chunk_size):
         return 0
-    return (-T) % chunk_size
+    if n_shards > 1 and chunk_size is not None:
+        # judge the no-op on the padded segment length ceil(T / n): with
+        # T = 1001, 8 shards, chunk 125 the floor test would pick unit = 8
+        # and leave a 126-step segment that does not divide by the chunk
+        if -(-T // n_shards) <= chunk_size:
+            unit = n_shards  # chunking is a no-op within each segment
+    return (-T) % unit
 
 
 def _pad_inputs(ssm, R, Y, pad: int):
@@ -48,11 +59,6 @@ def _unpad(res, T: int):
     return type(res)(
         *[x[:T] if x is not None and x.dim() > 0 else x for x in res]
     )
-
-
-def _check_supported(mesh):
-    if mesh is not None:
-        raise NotImplementedError("time-axis sharding is not ported yet")
 
 
 def _square(F: FilterResult) -> FilterResult:
@@ -96,8 +102,14 @@ def _run_filter_raw(ssm, R, Y, *, parallel, sqrt, chunk_size):
     return f, (None, f)
 
 
-def run_filter(ssm, R, Y, *, parallel=False, sqrt=False, chunk_size=None):
-    """One filtering pass; returns (FilterResult, aux) with covariance Ps."""
+def run_filter(ssm, R, Y, *, parallel=False, sqrt=False, chunk_size=None, mesh=None,
+               mesh_axis: str = "t"):
+    """One filtering pass; returns (FilterResult, aux) with covariance Ps.
+    `mesh`: the time-sharded filter over the mesh dimension `mesh_axis`
+    (aux None)."""
+    if mesh is not None:
+        return _run_sharded(ssm, R, Y, sqrt=sqrt, chunk_size=chunk_size, mesh=mesh,
+                            mesh_axis=mesh_axis, smooth=False)[0], None
     T = Y.shape[0]
     pad = _pad_amount(T, chunk_size if parallel else None)
     if pad:
@@ -107,9 +119,16 @@ def run_filter(ssm, R, Y, *, parallel=False, sqrt=False, chunk_size=None):
 
 
 def run_filter_smoother(ssm, R, Y, *, parallel=False, sqrt=False,
-                        chunk_size=None, mesh=None):
-    """Filter + smoother; both results carry covariance Ps."""
-    _check_supported(mesh)
+                        chunk_size=None, mesh=None, mesh_axis: str = "t"):
+    """Filter + smoother; both results carry covariance Ps.
+
+    `mesh`: a `DeviceMesh` routes the pass through the time-sharded scans
+    over its dimension `mesh_axis` (`parallel/sharded.py`); `parallel` is
+    implied. Every rank of the mesh calls it with the same global inputs
+    and gets the results over the full T."""
+    if mesh is not None:
+        return _run_sharded(ssm, R, Y, sqrt=sqrt, chunk_size=chunk_size, mesh=mesh,
+                            mesh_axis=mesh_axis, smooth=True)
     T = Y.shape[0]
     pad = _pad_amount(T, chunk_size if parallel else None)
     if pad:
@@ -129,3 +148,24 @@ def run_filter_smoother(ssm, R, Y, *, parallel=False, sqrt=False,
     else:
         s = kalman.rts_smoother(ssm.A, ssm.Q, f_raw)
     return _unpad(f_cov, T), _unpad(s, T)
+
+
+def _run_sharded(ssm, R, Y, *, sqrt, chunk_size, mesh, mesh_axis, smooth):
+    """The time-sharded pass (the filter alone unless `smooth`), T padded to
+    the mesh and chunk grid; the square-root form factors Q, the
+    mask-decoupled R and P0 as `_run_filter_raw` does."""
+    from ..parallel import sharded
+
+    T = Y.shape[0]
+    pad = _pad_amount(T, chunk_size, n_shards=sharded.axis_size(mesh, mesh_axis))
+    if pad:
+        ssm, R, Y = _pad_inputs(ssm, R, Y, pad)
+    if sqrt:
+        f, s = sharded.sharded_sqrt_filter_smoother(
+            ssm.A, safe_cholesky_rel(ssm.Q), ssm.H, safe_cholesky_rel(_mask_decoupled_R(R, Y)), Y,
+            ssm.m0, safe_cholesky_rel(ssm.P0), mesh=mesh, axis=mesh_axis, chunk_size=chunk_size,
+            smooth=smooth)
+    else:
+        f, s = sharded.sharded_filter_smoother(ssm.A, ssm.Q, ssm.H, R, Y, ssm.m0, ssm.P0, mesh=mesh,
+                                               axis=mesh_axis, chunk_size=chunk_size, smooth=smooth)
+    return _unpad(f, T), None if s is None else _unpad(s, T)

@@ -123,7 +123,8 @@ def _project(H, xs):
 
 
 def matheron_state_samples_given(ssm, R, Y, eps_x, eps_y, parallel: bool = True,
-                                 sqrt: bool = False, chunk_size=None):
+                                 sqrt: bool = False, chunk_size=None, mesh=None,
+                                 mesh_axis: str = "t"):
     """Joint posterior STATE samples [S, T, d] given observations Y [T, p]
     (NaN = missing), from the prior draws eps_x [T, S, d] and the noise
     draws eps_y [S, T, p].
@@ -133,7 +134,9 @@ def matheron_state_samples_given(ssm, R, Y, eps_x, eps_y, parallel: bool = True,
     ms(Y~_s). Exact for any prior mean m0 (the smoother's offset cancels).
     The S + 1 smoother passes run one after another (the counterpart of the
     reference's `lax.map` branch): a batched pass would hold S + 1 passes'
-    covariance recursions at once.
+    covariance recursions at once. `mesh` makes each of them a time-sharded
+    pass over the mesh dimension `mesh_axis` (the prior draws stay local:
+    every rank holds the same draws).
     """
     from .runner import run_filter_smoother
 
@@ -146,14 +149,15 @@ def matheron_state_samples_given(ssm, R, Y, eps_x, eps_y, parallel: bool = True,
     Yt = torch.where(torch.isnan(Y)[None], torch.nan, Yt)  # copy the pattern
     ms = [
         run_filter_smoother(ssm, R, Yb, parallel=parallel, sqrt=sqrt,
-                            chunk_size=chunk_size)[1].ms
+                            chunk_size=chunk_size, mesh=mesh, mesh_axis=mesh_axis)[1].ms
         for Yb in [Y, *Yt]
     ]
     return xprior + ms[0][None] - torch.stack(ms[1:])
 
 
 def matheron_state_samples(generator, ssm, R, Y, n_samples: int, parallel: bool = True,
-                           sqrt: bool = False, chunk_size=None):
+                           sqrt: bool = False, chunk_size=None, mesh=None,
+                           mesh_axis: str = "t"):
     """`matheron_state_samples_given` with the draws eps_x [T, S, d], then
     eps_y [S, T, p], taken from `generator`."""
     T, p = Y.shape
@@ -161,4 +165,5 @@ def matheron_state_samples(generator, ssm, R, Y, n_samples: int, parallel: bool 
     eps_x = standard_normal(generator, (T, n_samples, d), Y)
     eps_y = standard_normal(generator, (n_samples, T, p), Y)
     return matheron_state_samples_given(ssm, R, Y, eps_x, eps_y, parallel=parallel,
-                                        sqrt=sqrt, chunk_size=chunk_size)
+                                        sqrt=sqrt, chunk_size=chunk_size, mesh=mesh,
+                                        mesh_axis=mesh_axis)

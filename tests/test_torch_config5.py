@@ -42,6 +42,7 @@ def test_positive_bijector_matches_jax():
     assert p.fixed and not p.raw.requires_grad
 
 
+@pytest.mark.slow
 def test_jax_reproduces_golden(monkeypatch):
     monkeypatch.setenv("PHYSS_INNER_SCAN", "blocked")
     monkeypatch.setenv("PHYSS_SCAN_BLOCKS", "8")

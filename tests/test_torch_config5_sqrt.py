@@ -82,6 +82,7 @@ def test_head_rows_over_markov_kernels_match_jax(name):
         _close(H[0], [1.0, 0.0, 1.0, 0.0], 0.0)
 
 
+@pytest.mark.slow
 def test_jax_reproduces_sqrt_golden(monkeypatch):
     import functools
 

@@ -81,20 +81,21 @@ def test_checkpoint_rejects_another_model(tmp_path):
 
 
 @pytest.mark.parametrize("form", FORMS)
-def test_objective_gradient_matches_jax(jax_runs, blocked, form):
-    tp.check_gradient(jax_runs[form], form)
+def test_objective_gradient_matches_jax(blocked, form):
+    tp.check_gradient(tp.golden_run(form), form)
 
 
 @pytest.mark.parametrize("form", FORMS)
-def test_vb_ng_adam_scan_matches_jax(jax_runs, blocked, form):
-    tp.check_vb_ng_adam_scan(jax_runs[form], form)
+def test_vb_ng_adam_scan_matches_jax(blocked, form):
+    tp.check_vb_ng_adam_scan(tp.golden_run(form), form)
 
 
 @pytest.mark.parametrize("form", FORMS)
-def test_vb_ng_adam_trainer_matches_jax(jax_runs, blocked, form):
-    tp.check_vb_ng_adam_trainer(jax_runs[form], form)
+def test_vb_ng_adam_trainer_matches_jax(blocked, form):
+    tp.check_vb_ng_adam_trainer(tp.golden_run(form), form)
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("form", FORMS)
 def test_jax_reproduces_train_golden(jax_runs, form):
     tp.check_golden(jax_runs[form], form)

@@ -65,15 +65,16 @@ def test_cholesky_backward_is_nan_on_an_indefinite_member_as_in_jax():
 
 
 @pytest.mark.parametrize("form", FORMS)
-def test_objective_gradient_matches_jax(jax_runs, blocked, form):
-    tp.check_gradient(jax_runs[form], form)
+def test_objective_gradient_matches_jax(blocked, form):
+    tp.check_gradient(tp.golden_run(form), form)
 
 
 @pytest.mark.parametrize("form", FORMS)
-def test_vb_ng_adam_scan_matches_jax(jax_runs, blocked, form):
-    tp.check_vb_ng_adam_scan(jax_runs[form], form)
+def test_vb_ng_adam_scan_matches_jax(blocked, form):
+    tp.check_vb_ng_adam_scan(tp.golden_run(form), form)
 
 
+@pytest.mark.slow
 @pytest.mark.parametrize("form", FORMS)
 def test_jax_reproduces_train_golden(jax_runs, form):
     tp.check_golden(jax_runs[form], form)

@@ -5,12 +5,15 @@ file, and the checks that hold the port to them.
 
 Each parity file covers some of the golden file's forms, so that the JAX
 reference runs (~40 s of compiles each) spread over the test workers.
-The checks, on the CPU in float64, blocked scan schedule with 8 blocks:
+The port's checks read the JAX runs' outputs from the committed golden
+file (`golden_run`), which holds every field of a run; only the `slow`
+tests that hold the JAX package to that file run it live. The checks, on
+the CPU in float64, blocked scan schedule with 8 blocks:
 after 2 `natgrad_scan` steps at lr 0.5, `get_objective()` and its gradient
 with respect to every trainable raw (normwise rtol 1e-9); then 3
 iterations of `vb_ng_adam_scan(adam_lr=0.05, ng_lr=0.5)` or of
 `VB_NG_Adam`: ELBOs and raws at rtol 1e-9, sites and the posterior at
-1e-7; and the JAX runs against `tests/data/train_T256_golden.npz`.
+1e-7; and (`slow`) the JAX runs against `tests/data/train_T256_golden.npz`.
 """
 import importlib.util
 import os
@@ -78,6 +81,13 @@ def reference_runs(forms):
             yield {form: ref.reference_run(form)[0] for form in forms}
 
     return jax_runs
+
+
+def golden_run(form):
+    """{field: array} of the JAX reference run of `form` as the golden file
+    holds it: the fields of `reference_run` and the posterior."""
+    gold = np.load(GOLDEN)
+    return {k.split(":", 1)[1]: gold[k] for k in gold.files if k.startswith(f"{form}:")}
 
 
 def after_natgrad(form):

@@ -19,7 +19,8 @@ models, flows, uncertain inputs, the misc and aggregated batch kernels), and
 the last batch-style models (`VecchiaGP` with its neighbour sets on the
 card, `GPRN`, `LatentVariableGP`), and time-axis sharding (the filter and
 smoother split over a `torch.distributed` DeviceMesh, on ranks that share
-the card).
+the card), and independent models stacked under `torch.func.vmap` (many
+series in one step, every kernel launched once for all of them).
 
     python3 chip_smoke.py
 
@@ -263,7 +264,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      checks (`parallel/dryrun.py`: lml value and gradient, a Poisson CVI
      step, 3 `natgrad_scan` steps, a config-5 step, at n = 4 the composite
      dp x t value and gradient on a 2 x 2 mesh) against their unsharded
-     runs (rtol 1e-8);
+     runs (rtol 1e-8), and the dryrun's part 2 (dp-vmap: 2 n Poisson series,
+     each rank stacking its two for one step, the summed ELBO all-reduced
+     over a ("dp",) mesh) against one single-process stack of all 2 n;
  24. sharding at full width (`phase_sharded_full`, after phase 6, whose
      ELBOs it compares with): config-5 at T = 100 000, chunk 25 000, on 4
      gloo ranks that share the card, a 25 000-step segment each, in
@@ -280,6 +283,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      rank k lml + gradient" and "... steps" in `launches_by_path`), and the
      card's memory in use by all processes. No speed-up figure: the ranks
      share one card.
+ 25. stacked anchors (`phase_stacked_anchor`, `models/stacked.py`: B
+     independent models under `torch.func.vmap`), float64, T = 256: B = 8
+     temporal series in both forms and B = 2 config-5 series in covariance,
+     fused and square-root form, each member with its own data and
+     parameters, 2 `natgrad_scan` steps of the stack against each member's
+     own run (ELBOs rtol 1e-9, sites and posterior moments 1e-7, bit for bit
+     printed); then each of the eight kernel wrappers under `vmap` (one
+     launch) against a loop over the members (B launches) at d = 32 and
+     d = 2, rel 1e-12;
+ 26. stacks at full size (`phase_stacked_full`), float32: the temporal
+     model as B = 1024 series of T = 1000 in both forms, config-5 as B = 4
+     series of T = 25 000 (chunk 25 000) in covariance, fused and
+     square-root form: one stacked `step_with_elbo` after a warm-up step,
+     its wall, peak memory and launches by kernel and route, against one
+     series' step; the first 8 series' ELBOs held to their own runs (rtol
+     1e-5) and the stacked step's launches equal to one series' step's
+     (`launches_per_stacked_step` in the summary).
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -339,15 +359,17 @@ FUSED = ("fused_filter", "fused_smooth")
 EXPORT_KERNELS = {"cov": ("bmm", "gj_solve", "gj_solve_logdet", "chol"),
                   "sqrt": ("bmm", "gj_solve", "lq", "chol", "chol_gram")}
 EXPORT_CALLS = 20  # loaded and live calls of the exported full-width predict_f
-# The exported full-width model: two chunks (T + 1000 new times = 7 000
-# steps at chunk 3 500), so the program still carries a chunk boundary. At
+# The exported full-width model: two chunks (T + 1000 new times = 5 000
+# steps at chunk 2 500), so the program still carries a chunk boundary. At
 # T = 100 000 (five chunks of 25 000, 34 065 nodes) export took 315 s on an
 # H100 machine's host, load 61 s; at T = 49 000 (two chunks of 25 000,
 # 14 534 nodes) 192-315 s, load 27 s; at T = 24 000 (two chunks of 12 500,
 # 9046 nodes) 121-222 s for the whole phase on two hosts; at T = 12 000
 # (two chunks of 6 500, 6470 nodes) 92-116 s: still among the script's
 # largest phases, and the one whose host time spreads most.
-EXPORT_T, EXPORT_CHUNK = 6_000, 3_500
+# T = 6 000 at chunk 3 500 until the stacked phases came (PR 18: cut to
+# keep the script's time)
+EXPORT_T, EXPORT_CHUNK = 4_000, 2_500
 # the export anchors predict the 256 + 40 steps in one chunk of 64 blocks
 # (5 sequential steps and 6 levels of block totals to trace; with 32 blocks
 # 10 and 5, 2357 and 3905 nodes, 78-94 s for the phase)
@@ -4000,6 +4022,8 @@ def phase_sharded_anchor():
                                                                  atol=0)):
                     raise AssertionError(f"{tag}: dryrun {key} {val} against unsharded {want}")
             print(f"[{tag}] every check passed; rank wall {out['wall']:.1f} s")
+        print(f"[sharded anchor n={n}] dryrun part 2 (dp-vmap: {2 * n} Poisson series stacked "
+              f"over a ('dp',) mesh, the summed ELBO all-reduced) passed on every rank")
     for (name, key), r in worst.items():
         print(f"[sharded anchor] {name} {key}: worst rel over ranks and n {r:.3e}")
 
@@ -4191,6 +4215,267 @@ def phase_sharded_full():
                 raise AssertionError(f"sharded {form} rank {rank}: float32 and float64 ELBOs disagree")
     return counts, routes
 
+# ---------------------------------------------------------------------------
+# Independent models stacked under torch.func.vmap (`models/stacked.py`)
+# ---------------------------------------------------------------------------
+
+# (model, form, B) of the float64 anchors at T = 256, chunk 64, 8 blocks
+STACKED_ANCHORS = (("temporal", "cov", 8), ("temporal", "sqrt", 8), ("config5", "cov", 2),
+                   ("config5", "fused", 2), ("config5", "sqrt", 2))
+STACKED_ANCHOR_STEPS = 2
+# (model, form, B, T, chunk) of the float32 stacks at full size: a thousand
+# hourly count series of the temporal model, and config-5 as four series of
+# 25 000 steps (the state count of its T = 100 000 step)
+STACKED_FULL = (("temporal", "cov", 1024, 1000, 1000), ("temporal", "sqrt", 1024, 1000, 1000),
+                ("config5", "cov", 4, 25_000, 25_000), ("config5", "fused", 4, 25_000, 25_000),
+                ("config5", "sqrt", 4, 25_000, 25_000))
+STACKED_HELD = 8  # series of a full-size stack held to their own single-model steps
+STACKED_F32_RTOL = 1e-5
+# the kernels each config-5 form launches (the temporal model's: whatever one
+# series' step launches)
+STACKED_PATH_KERNELS = {"cov": ("bmm", "gj_solve", "gj_solve_logdet"),
+                        "fused": ("bmm", "gj_solve", "gj_solve_logdet") + FUSED,
+                        "sqrt": tuple(k for k in SOURCES if k not in FUSED)}
+# launches of one stacked step per kernel, by full-size stack (the summary's
+# `launches_per_stacked_step`)
+STACKED_LAUNCHES = {}
+
+
+def _stacked_members(which, form, B, T, chunk, dtype, seed):
+    """B models of `which` (`build_temporal` or `build_config5`) on the card,
+    each with its own data and parameters: the temporal model's own times on
+    [0, 1000] and Poisson counts of 1.2 sin(0.1 t + phase); config-5's counts
+    plus Poisson(0.5) noise where observed; every trainable raw scaled by a
+    factor drawn from [0.95, 1.05]."""
+    import copy
+
+    from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
+
+    rng = np.random.default_rng(seed)
+    build = build_temporal if which == "temporal" else build_config5
+    base = build(T, chunk, dtype=dtype, sqrt=form == "sqrt", device="cuda")
+    kw = dict(dtype=dtype, device="cuda")
+    models = []
+    for _ in range(B):
+        m = copy.deepcopy(base)
+        with torch.no_grad():
+            if which == "temporal":
+                t = np.sort(rng.uniform(0, 1000, T))
+                y = rng.poisson(np.exp(1.2 * np.sin(0.1 * t + rng.uniform(0, 2 * np.pi))))
+                m.t, m.Y = torch.as_tensor(t, **kw), torch.as_tensor(y[:, None], **kw)
+            else:
+                noise = torch.as_tensor(rng.poisson(0.5, tuple(m.Y.shape)), **kw)
+                m.Y = torch.where(torch.isfinite(m.Y), m.Y + noise, m.Y)
+            for p in m.parameters():
+                p.mul_(float(rng.uniform(0.95, 1.05)))
+        models.append(m)
+    return models
+
+
+@contextlib.contextmanager
+def _knob(form):
+    """PHYSS_FUSED_COMBINE=1 for the fused form, unset otherwise."""
+    old = os.environ.pop("PHYSS_FUSED_COMBINE", None)
+    if form == "fused":
+        os.environ["PHYSS_FUSED_COMBINE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("PHYSS_FUSED_COMBINE", None)
+        if old is not None:
+            os.environ["PHYSS_FUSED_COMBINE"] = old
+
+
+def _vmapped_op_cases(gen, B, N, d, dtype):
+    """{kernel: (wrapper call, operands with a leading B)} at [B, N, d, .]."""
+    from physs_gp_tpu_torch.ops.cuda import batched_chol as bc
+    from physs_gp_tpu_torch.ops.cuda import batched_linalg as bl
+    from physs_gp_tpu_torch.ops.cuda import batched_qr as bq
+    from physs_gp_tpu_torch.ops.cuda import fused_combine as fc
+    from physs_gp_tpu_torch.ops.parallel_kalman import _FilterElems, _SmootherElems
+
+    def lead(x):
+        return x.reshape((B, N) + tuple(x.shape[1:]))
+
+    def spd():
+        return lead(_spd(gen, B * N, d, dtype))
+
+    def rnd(*shape):
+        return lead(_randn(gen, B * N, *shape).to(dtype))
+
+    cases = {
+        "bmm": (lambda A, C: bl.batch_bmm(A, C, False, True), (rnd(d, d), rnd(d, d))),
+        "gj_solve": (bl.batch_solve, (spd(), rnd(d, d))),
+        "gj_solve_logdet": (bl.batch_solve_logdet, (spd(), rnd(d, 1))),
+        "lq": (bq.batch_tria, (rnd(d, 2 * d),)),
+        "chol": (bc.batch_cholesky, (spd(),)),
+        "chol_gram": (lambda X, Y: bc.batch_chol_gram(X, Y, plus_eye=True), (rnd(d, d), rnd(d, d))),
+    }
+    if d >= 3:
+        f1, f2 = (tuple(lead(x) for x in _filter_elems(gen, B * N, d, dtype)) for _ in range(2))
+        s1, s2 = (tuple(lead(x) for x in _smoother_elems(gen, B * N, d, dtype)) for _ in range(2))
+        cases["fused_filter"] = (lambda a, b: tuple(fc.fused_filtering_combine(
+            _FilterElems(*a), _FilterElems(*b))), (f1, f2))
+        cases["fused_smooth"] = (lambda a, b: tuple(fc.fused_smoothing_combine(
+            _SmootherElems(*a), _SmootherElems(*b))), (s1, s2))
+    return cases
+
+
+def _check_vmapped_ops(gen):
+    """Each kernel wrapper under `torch.func.vmap` (B members folded into the
+    kernel's batch: one launch) against a loop over the members (B
+    launches), float64, at config-5's d = 32 (N = 256) and the temporal
+    model's d = 2 (N = 1000): rel 1e-12; prints whether bit for bit."""
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    tree = torch.utils._pytree
+    B = 4
+    for N, d in ((256, 32), (1000, 2)):
+        for name, (fn, args) in _vmapped_op_cases(gen, B, N, d, torch.float64).items():
+            kernels.reset_launch_counts()
+            got = torch.func.vmap(fn)(*args)
+            torch.cuda.synchronize()
+            once = kernels.launch_counts()[name]
+            kernels.reset_launch_counts()
+            loop = [fn(*tree.tree_map(lambda x: x[b], args)) for b in range(B)]
+            torch.cuda.synchronize()
+            per_member = kernels.launch_counts()[name]
+            want = tree.tree_map(lambda *xs: torch.stack(xs), *loop)
+            pairs = list(zip(tree.tree_leaves(got), tree.tree_leaves(want)))
+            err = max(_rel(g, w)[0] for g, w in pairs)
+            bits = all(torch.equal(g, w) for g, w in pairs)
+            print(f"[stacked vmap op] {name} [{B}, {N}, {d}] f64: rel {err:.3e} to the loop, "
+                  f"bit for bit {bits}; launches {once} vmapped, {per_member} looped")
+            if not (err <= 1e-12 and once == 1 and per_member == B):
+                raise AssertionError(f"stacked vmap op {name} d={d}: rel {err:.3e}, "
+                                     f"launches {once} / {per_member}")
+
+
+def phase_stacked_anchor():
+    """Stacked models against their own single-model runs, float64, T = 256,
+    chunk 64, 8 blocks: B = 8 temporal series in both forms and B = 2
+    config-5 series in covariance, fused and square-root form, each with its
+    own data and parameters, 2 `natgrad_scan` steps of the stack against 2
+    of each member alone (ELBOs rtol 1e-9, sites and posterior moments
+    1e-7); then every kernel wrapper under `vmap` against a loop over the
+    members (`_check_vmapped_ops`)."""
+    from physs_gp_tpu_torch.models.stacked import StackedCVIGP
+    from physs_gp_tpu_torch.trainers.scan import natgrad_scan
+
+    old = os.environ.get("PHYSS_SCAN_BLOCKS")
+    os.environ["PHYSS_SCAN_BLOCKS"] = "8"
+    try:
+        for seed, (which, form, B) in enumerate(STACKED_ANCHORS):
+            tag = f"stacked anchor {which} {form} B={B} f64"
+            with _knob(form):
+                models = _stacked_members(which, form, B, 256, 64, torch.float64, seed)
+                st, elbos = natgrad_scan(StackedCVIGP(models), 0.5, n_steps=STACKED_ANCHOR_STEPS)
+                post = st.posterior()
+                worst, bits = {}, True
+                for b, m in enumerate(models):
+                    m, e = natgrad_scan(m, 0.5, n_steps=STACKED_ANCHOR_STEPS)
+                    p = m.posterior()
+                    for key, got, want, tol in (
+                            ("ELBOs", elbos[:, b], e, 1e-9), ("sites Y", st.sites.Y[b], m.sites.Y, 1e-7),
+                            ("sites V", st.sites.V[b], m.sites.V, 1e-7),
+                            ("posterior mean", post.mean[b], p.mean, 1e-7),
+                            ("posterior var", post.var[b], p.var, 1e-7)):
+                        ref = want.detach().cpu().numpy()
+                        r = _rel_np(got, ref)
+                        worst[key] = max(worst.get(key, 0.0), r)
+                        bits = bits and np.array_equal(got.cpu().numpy(), ref, equal_nan=True)
+                        if not r <= tol:
+                            raise AssertionError(f"{tag}: member {b} {key} rel {r:.3e} (tol {tol:g})")
+            print(f"[{tag}] every member equals its own run; worst rel "
+                  f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }, bit for bit {bits}")
+    finally:
+        if old is None:
+            os.environ.pop("PHYSS_SCAN_BLOCKS", None)
+        else:
+            os.environ["PHYSS_SCAN_BLOCKS"] = old
+    _check_vmapped_ops(torch.Generator(device="cuda").manual_seed(31))
+
+
+def phase_stacked_full():
+    """The stacks at full size, float32 (`STACKED_FULL`): one warm-up step,
+    then one `step_with_elbo` of the stack with its wall, its peak memory
+    and its launches by kernel and route (counters reset just before it and
+    read just after), beside the same two steps of the first STACKED_HELD
+    series alone (the first one's second step timed and counted). Each
+    held series' two ELBOs equal the stack's at rtol STACKED_F32_RTOL; the
+    stack's step launches every kernel exactly as often as one series'
+    step (a count that grows with B fails), every config-5 form its path's
+    kernels, all on the warp and tiled routes. Returns the stacks' launch
+    counts and routes."""
+    import copy
+
+    from physs_gp_tpu_torch.models.stacked import StackedCVIGP
+    from physs_gp_tpu_torch.ops import cuda as kernels
+
+    paths, routes = {}, {}
+    for seed, (which, form, B, T, chunk) in enumerate(STACKED_FULL):
+        tag = f"stacked {which} {form} B={B} T={T} f32"
+        with _knob(form):
+            models = _stacked_members(which, form, B, T, chunk, torch.float32, 100 + seed)
+            held = [copy.deepcopy(m) for m in models[:STACKED_HELD]]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            st = StackedCVIGP(models)
+            del models
+            torch.cuda.synchronize()
+            t_stack = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            st, e0 = st.step_with_elbo(0.5)
+            torch.cuda.synchronize()
+            t_first = time.perf_counter() - t0
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, e1 = st.step_with_elbo(0.5)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, route = kernels.launch_counts(), kernels.route_counts()
+            peak = _peak()
+            finite = bool(torch.isfinite(e1).all() & torch.isfinite(st.sites.V).all())
+            stacked = torch.stack([e0, e1], 1).cpu().numpy()
+            del st
+            worst, one_wall, one_counts = 0.0, None, None
+            for i, m in enumerate(held):
+                m, h0 = m.step_with_elbo(0.5)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    kernels.reset_launch_counts()
+                    t0 = time.perf_counter()
+                m, h1 = m.step_with_elbo(0.5)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    one_wall = time.perf_counter() - t0
+                    one_counts = kernels.launch_counts()
+                worst = max(worst, _rel_np(torch.stack([h0, h1]), stacked[i]))
+            del held
+        print(f"[{tag}] stack built in {t_stack:.3f} s; step wall {wall:.4f} s (first {t_first:.4f} s), "
+              f"{wall / B * 1e3:.4f} ms a series; one series' step {one_wall:.4f} s; peak "
+              f"{peak:.2f} GiB; finite {finite}")
+        print(f"[{tag}] first {STACKED_HELD} series' ELBOs against their own runs: worst rel "
+              f"{worst:.3e} (tol {STACKED_F32_RTOL:g})")
+        print(f"[{tag}] launches per stacked step {counts}; per series step {one_counts}")
+        print(f"[{tag}] launches by route: {route}")
+        if not finite:
+            raise AssertionError(f"{tag}: non-finite ELBO or sites")
+        if not worst <= STACKED_F32_RTOL:
+            raise AssertionError(f"{tag}: a held series' ELBO differs from its own run")
+        if counts != one_counts or not any(counts.values()):
+            raise AssertionError(f"{tag}: the stacked step's launches {counts} are not one "
+                                 f"series' {one_counts}")
+        need = STACKED_PATH_KERNELS[form] if which == "config5" else ()
+        if not all(counts[k] for k in need) or any(r["block"] for r in route.values()):
+            raise AssertionError(f"{tag}: a path kernel never launched or a block route ran")
+        paths[tag], routes[tag] = counts, route
+        STACKED_LAUNCHES[tag] = counts
+    return paths, routes
+
+
+
 def _timed(phase, *args):
     """phase(*args), its wall printed as "[name] s"."""
     t0 = time.perf_counter()
@@ -4254,6 +4539,7 @@ def main():
     vecchia_paths = phase_vecchia_gprn_anchor()
     print(f"[phase_vecchia_gprn_anchor] {time.perf_counter() - t0:.1f} s")
     _timed(phase_sharded_anchor)
+    _timed(phase_stacked_anchor)
     paths, routes = _timed(phase_slice_full)
     sharded_paths, sharded_routes = _timed(phase_sharded_full)
     paths.update(sharded_paths)
@@ -4266,7 +4552,7 @@ def main():
     routes.update(batch_routes)
     for phase in (phase_temporal_full, phase_sampling_full, phase_streaming_full, phase_physics_full,
                   phase_scattered_full, phase_batch_full, phase_dynamics_full, phase_markov_full,
-                  phase_vecchia_gprn_full):
+                  phase_vecchia_gprn_full, phase_stacked_full):
         t0 = time.perf_counter()
         more_paths, more_routes = phase()
         print(f"[{phase.__name__}] {time.perf_counter() - t0:.1f} s")
@@ -4288,6 +4574,7 @@ def main():
          "replaces": REPLACES[name],
          "launches": paths[LAUNCHES_PATH[name]][name], "launches_path": LAUNCHES_PATH[name],
          "launches_by_path": {path: counts[name] for path, counts in paths.items()},
+         "launches_per_stacked_step": {tag: counts[name] for tag, counts in STACKED_LAUNCHES.items()},
          **by_kernel(name), "max_abs_err": worst[name], **times[name]}
         for name in SOURCES
     ]

@@ -7,7 +7,8 @@ surrogate conjugate model q(f) ∝ p(f) Π_t N(Ỹ_t | f_t, Ṽ_t); the step is
     λ2 ← (1 - lr) λ2 + lr g2,       λ1 = Ṽ⁻¹Ỹ,  λ2 = -0.5 Ṽ⁻¹,
 
 with (g1, g2) = ∂ELL/∂(m, S) of the data ELL at the current q marginals,
-taken with `torch.autograd.grad`. Missing observations keep NaN site means.
+taken with `torch.func.grad` (so the step also runs under `torch.func.vmap`,
+`models/stacked.py`). Missing observations keep NaN site means.
 """
 from __future__ import annotations
 
@@ -73,10 +74,7 @@ def natgrad_update(sites: Sites, m, S, ell_fn, lr: float, grads=None,
     gives (g1, g2). `naturals` overrides `to_natural(sites)`.
     """
     if grads is None:
-        with torch.enable_grad():
-            m_ = m.detach().requires_grad_(True)
-            S_ = S.detach().requires_grad_(True)
-            g1, g2 = torch.autograd.grad(ell_fn(m_, S_), (m_, S_))
+        g1, g2 = torch.func.grad(ell_fn, argnums=(0, 1))(m.detach(), S.detach())
     else:
         g1, g2 = grads
     g2 = symmetrize(g2)

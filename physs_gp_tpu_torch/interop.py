@@ -45,6 +45,10 @@ too: `VecchiaGP`'s `.kernel.*`, `.likelihood.*` and `.mean.c.raw`,
 `.base.kernel.*`, `.base.likelihood.*` and `.W.raw`. Static numbers
 (`n_harmonics`, `q`, `hessian`) are constructor arguments.
 
+`load_stacked_params(stacked, flat)` carries the leaves of a vmapped JAX
+model (`jax.vmap` over `CVIGP.init`: every leaf with a leading B) into a
+`models.stacked.StackedCVIGP`'s stacked state, by the same key paths.
+
 `load_stream_state(arrays, dtype, device)` carries a JAX `StreamState`
 (m, P, t_last, lml as numpy) into the port's.
 """
@@ -55,7 +59,7 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["load_numpy_params", "load_stream_state"]
+__all__ = ["load_numpy_params", "load_stacked_params", "load_stream_state"]
 
 _STEP = re.compile(r"\.([A-Za-z_]\w*)|\[(\d+)\]")
 
@@ -104,6 +108,20 @@ def load_numpy_params(model, flat: dict) -> None:
                 current.copy_(new)
         else:
             setattr(obj, leaf, new)
+
+
+def load_stacked_params(stacked, flat: dict) -> None:
+    """Copy every leaf of `flat`, each [B, ...], into the stacked state of
+    `stacked` (in place); a path that names no stacked tensor raises."""
+    for key, value in flat.items():
+        name = ".".join(str(step) for step in _parse(key))
+        current = stacked.state.get(name)
+        if current is None:
+            raise KeyError(f"{key!r} does not name a stacked parameter or buffer")
+        new = torch.as_tensor(np.array(value), dtype=current.dtype, device=current.device)
+        if new.shape != current.shape:
+            raise ValueError(f"{key!r}: shape {tuple(new.shape)} != {tuple(current.shape)}")
+        stacked.state[name] = new
 
 
 def load_stream_state(arrays, dtype=torch.float64, device="cuda"):

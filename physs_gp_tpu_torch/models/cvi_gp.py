@@ -8,7 +8,7 @@ gradients, and
 
 all from one Kalman filter + smoother pass over the surrogate.
 `step_with_elbo` and `natural_gradient_update` update the model's sites in
-place and return the model. Prediction runs on the surrogate as a
+place and return the model; `natgrad_step` is the pure step beneath them. Prediction runs on the surrogate as a
 `StateSpaceGP` (`surrogate_model`): `predict_f` on its NaN-augmented grid,
 `predict_y` by Gauss-Hermite moment matching, `nlpd` by log-domain
 Gauss-Hermite quadrature, `sample_f` by Matheron pathwise conditioning on
@@ -222,15 +222,31 @@ class CVIGP(nn.Module):
         return None
 
     @torch.no_grad()
+    def natgrad_step(self, lr: float, hessian: str = "exact", draws=None,
+                     with_elbo: bool = True):
+        """The pure CVI step under `natural_gradient_update` and
+        `step_with_elbo`: (new sites, pre-update ELBO, or None without
+        `with_elbo`) from one surrogate filter + smoother pass; the model is
+        not changed (`models/stacked.py` runs it under `torch.func.vmap`).
+        With the ELBO, the site inverse of its site term gives the natural
+        parameters; without it they come from `to_natural(sites)`."""
+        lml_sur, m, S = self._surrogate_pass()
+        elbo = naturals = None
+        if with_elbo:
+            ell_sites, naturals = self._ell_sites_ex(m, S)
+            elbo = self._ell_data(m, S, draws) - ell_sites + lml_sur
+        sites = natgrad_update(
+            self.sites, m, S, lambda mm, SS: self._ell_data(mm, SS, draws), lr,
+            grads=self._site_grads(m, S, hessian, draws), naturals=naturals,
+        )
+        return sites, elbo
+
+    @torch.no_grad()
     def natural_gradient_update(self, lr: float, hessian: str = "exact", generator=None,
                                 draws=None):
         """One CVI step on all sites; the sites are replaced in place."""
-        draws = self._draws(generator, draws)
-        _, m, S = self._surrogate_pass()
-        self.sites = natgrad_update(
-            self.sites, m, S, lambda mm, SS: self._ell_data(mm, SS, draws), lr,
-            grads=self._site_grads(m, S, hessian, draws),
-        )
+        self.sites, _ = self.natgrad_step(lr, hessian, self._draws(generator, draws),
+                                          with_elbo=False)
         return self
 
     @torch.no_grad()
@@ -238,14 +254,7 @@ class CVIGP(nn.Module):
         """One CVI step and the (pre-update) ELBO from a single surrogate
         filter + smoother pass; the sites are replaced in place. The ELBO and
         the site gradients share one set of Monte-Carlo draws."""
-        draws = self._draws(generator, draws)
-        lml_sur, m, S = self._surrogate_pass()
-        ell_sites, naturals = self._ell_sites_ex(m, S)
-        elbo = self._ell_data(m, S, draws) - ell_sites + lml_sur
-        self.sites = natgrad_update(
-            self.sites, m, S, lambda mm, SS: self._ell_data(mm, SS, draws), lr,
-            grads=self._site_grads(m, S, hessian, draws), naturals=naturals,
-        )
+        self.sites, elbo = self.natgrad_step(lr, hessian, self._draws(generator, draws))
         return self, elbo
 
     @torch.no_grad()

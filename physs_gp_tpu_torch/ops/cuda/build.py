@@ -7,7 +7,8 @@ and loaded through ctypes. `build()` starts one `nvcc` per source that is
 not built yet, all side by side, and waits for them together. The helpers
 below are the operand checks and launch plumbing the wrappers share;
 `launch` counts every kernel launch in `LAUNCHES`; `KernelOp` registers a
-kernel as a `torch.library` custom op.
+kernel as a `torch.library` custom op, with a vmap rule that folds the
+vmapped dimension into the kernel's batch.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from torch.utils._python_dispatch import is_in_torch_dispatch_mode
 __all__ = [
     "build", "library", "build_info", "SMEM_LIMIT", "D_MAX", "LAUNCHES", "ROUTES", "launch",
     "count_route", "launch_counts", "reset_launch_counts", "route_counts", "KernelOp", "traced",
+    "transformed",
 ]
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -185,6 +187,29 @@ def traced() -> bool:
     return is_in_torch_dispatch_mode() or torch.compiler.is_compiling()
 
 
+def transformed() -> bool:
+    """Whether a `torch.func` transform (`vmap`, `grad`, ...) is active: it
+    works through functorch's dispatch keys, which `traced()` does not see,
+    and hands wrapped tensors to the implementations it bypasses."""
+    return torch._C._are_functorch_transforms_active()
+
+
+def _fold(x, dim, B: int):
+    """One operand of a vmapped kernel call as the kernel's own batch: the
+    vmapped dimension `dim` (None: not vmapped, broadcast to B) moved to the
+    front and merged into the leading batch, [B, N, ...] -> [B * N, ...],
+    with unit stride along the last dimension."""
+    if isinstance(x, (list, tuple)):
+        return [_fold(v, d, B) for v, d in zip(x, dim)]
+    if not isinstance(x, torch.Tensor):
+        return x
+    x = x.expand(B, *x.shape) if dim is None else x.movedim(dim, 0)
+    x = x.reshape(B * x.shape[1], *x.shape[2:])
+    if x.shape[-1] > 1 and x.stride(-1) != 1:
+        x = x.contiguous()
+    return x
+
+
 class KernelOp:
     """A kernel as the custom op `torch.ops.physs_gp.<name>` with `schema`:
     `plain` is its CPU implementation, `cuda` the launch code, `fake` the
@@ -194,19 +219,44 @@ class KernelOp:
     A wrapper calls `op(cpu, *args)`, `cpu` from its `on_cpu` check. Under a
     tracer that goes through the dispatcher, which records one node per
     call; in eager mode it goes straight to the implementation for the
-    device, which saves the dispatcher's host time on every launch."""
+    device, which saves the dispatcher's host time on every launch. Under a
+    `torch.func` transform it goes through the dispatcher too, where the
+    op's vmap rule (`_vmap`) runs the B members of a vmapped call as one
+    call of the op on a B times larger batch: one launch, not B."""
 
     def __init__(self, name: str, schema: str, plain, cuda, fake):
         self.op = torch.library.custom_op(
             f"physs_gp::{name}", plain, mutates_args=(), device_types="cpu", schema=schema)
         self.op.register_kernel("cuda", cuda)
         self.op.register_fake(fake)
+        self.op.register_vmap(self._vmap)
         self.plain, self.cuda = plain, cuda
 
     def __call__(self, cpu: bool, *args):
         if traced():
             return self.op(*args)
+        if transformed():
+            # the `autograd.Function`s around the kernels carry their
+            # gradients (`ops/matrix.py`): the op itself records none
+            with torch.no_grad():
+                return self.op(*args)
         return (self.plain if cpu else self.cuda)(*args)
+
+    def _vmap(self, info, in_dims, *args):
+        """Every operand is [N, ...] and every output [N, ...] per member:
+        fold the members into N, call the op once, unfold the outputs."""
+        B = info.batch_size
+        folded = [_fold(x, d, B) for x, d in zip(args, in_dims)]
+        tensors = [t for x in folded for t in (x if isinstance(x, list) else [x])
+                   if isinstance(t, torch.Tensor)]
+        if any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in tensors):
+            out = self.op(*folded)  # another transform around this one
+        else:  # plain tensors: the implementation itself, as in eager mode
+            cpu = all(t.device.type == "cpu" for t in tensors)
+            out = (self.plain if cpu else self.cuda)(*folded)
+        if isinstance(out, torch.Tensor):
+            return out.reshape(B, -1, *out.shape[1:]), 0
+        return tuple(o.reshape(B, -1, *o.shape[1:]) for o in out), (0,) * len(out)
 
 
 # launches per kernel, counted where the entry point is called and nowhere else

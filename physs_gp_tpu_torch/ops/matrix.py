@@ -7,7 +7,10 @@ batched kernels (`ops/cuda/batched_linalg.py`: CUDA kernels on the card,
 their plain PyTorch versions on the CPU) whenever the kernel can hold the
 matrix size (d <= 80); other shapes go to PyTorch's own routines. The
 solve-calculus custom VJPs of the reference become `torch.autograd.Function`s
-whose backward calls the same forward entry points.
+whose backward calls the same forward entry points; they take the
+`forward` / `setup_context` form with a generated vmap rule, so
+`torch.func` transforms (`vmap`, `grad`) pass through them to the kernels'
+own vmap rules.
 
 `_cholesky_any(A, assume_psd=True)` (hence `safe_cholesky` and
 `safe_cholesky_rel`) sends every [N, d, d] or single [d, d] matrix with
@@ -23,7 +26,7 @@ import torch
 
 from .cuda import batched_chol as bc
 from .cuda import batched_linalg as bl
-from .cuda.build import SMEM_LIMIT
+from .cuda.build import SMEM_LIMIT, transformed
 
 __all__ = [
     "add_jitter",
@@ -50,6 +53,8 @@ __all__ = [
     "get_block_diagonal",
     "kron_mv",
     "project_psd",
+    "recompute_vjp",
+    "apply_function",
 ]
 
 # Counterpart of `highest_precision`: every float32 product on the card runs
@@ -81,6 +86,17 @@ def symmetrize(A):
     return 0.5 * (A + A.transpose(-1, -2))
 
 
+def apply_function(fn, *args):
+    """`fn.apply(*args)` of an `autograd.Function` where autograd needs it
+    (grad mode on and an input that requires grad), else its `forward`
+    alone: the same values without the Function's host cost (under
+    `torch.func.vmap`, that of its generated vmap rule)."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        return fn.apply(*args)
+    return fn.forward(*args)
+
+
 def _cholesky_any(A, assume_psd: bool = False):
     """Batched Cholesky with closed-form n <= 2 branches.
 
@@ -102,7 +118,7 @@ def _cholesky_any(A, assume_psd: bool = False):
             [torch.stack([l11, z], -1), torch.stack([l21, l22], -1)], -2
         )
     if assume_psd and A.dim() in (2, 3) and n <= bl.D_MAX:
-        return _KernelCholesky.apply(A)
+        return apply_function(_KernelCholesky, A)
     return torch.linalg.cholesky(A)
 
 
@@ -114,21 +130,52 @@ class _KernelCholesky(torch.autograd.Function):
     as through the reference's `jnp.linalg.cholesky`, with no error and no
     read-back to the host."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, A):
-        ctx.save_for_backward(A)
+    def forward(A):
         if A.dim() == 2:
             return bc.batch_cholesky(unit_last(A[None]))[0]
         return bc.batch_cholesky(unit_last(A))
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
     def backward(ctx, ct):
         (A,) = ctx.saved_tensors
-        with torch.enable_grad():
-            a = A.detach().requires_grad_(True)
-            L, info = torch.linalg.cholesky_ex(a)
-            (grad,) = torch.autograd.grad(L, a, ct)
+        if transformed():  # under `torch.func.grad` / `vmap`: no `requires_grad_`
+            _, pull, info = torch.func.vjp(torch.linalg.cholesky_ex, A, has_aux=True)
+            (grad,) = pull(ct)
+        else:
+            with torch.enable_grad():
+                a = A.detach().requires_grad_(True)
+                L, info = torch.linalg.cholesky_ex(a)
+                (grad,) = torch.autograd.grad(L, a, ct)
         return torch.where((info == 0)[..., None, None], grad, float("nan"))
+
+
+def recompute_vjp(fn, cts, *xs):
+    """The cotangents at `xs` of `fn(*xs)` for its outputs' cotangents
+    `cts`, by recomputing `fn` (a backward that reruns a reference); None
+    entries of `xs` pass through as None. Regular autograd, or
+    `torch.func.vjp` under a `torch.func` transform, where `requires_grad_`
+    is refused."""
+    live = [x for x in xs if x is not None]
+
+    def on_live(*ys):
+        it = iter(ys)
+        return fn(*[None if x is None else next(it) for x in xs])
+
+    if transformed():
+        _, pull = torch.func.vjp(on_live, *live)
+        grads = iter(pull(cts))
+    else:
+        with torch.enable_grad():
+            ins = [x.detach().requires_grad_(True) for x in live]
+            grads = iter(torch.autograd.grad(on_live(*ins), ins, cts))
+    return tuple(None if x is None else next(grads) for x in xs)
 
 
 def safe_cholesky(A, jitter: float | None = DEFAULT_JITTER):
@@ -301,11 +348,15 @@ def _outer_sum(W, X):
 class _PsdSolve(torch.autograd.Function):
     """X = A^-1 B for symmetric A; dB = A^-1 ct, dA = -dB X^T."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, A, B):
-        X = _psd_solve_primal(A, B)
-        ctx.save_for_backward(A, X)
-        return X
+    def forward(A, B):
+        return _psd_solve_primal(A, B)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
 
     @staticmethod
     def backward(ctx, ct):
@@ -317,11 +368,15 @@ class _PsdSolve(torch.autograd.Function):
 class _PsdSolveLogdet(torch.autograd.Function):
     """(A^-1 B, log det A); the logdet cotangent adds ct_ld A^-1 to dA."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, A, B):
-        X, ld = _psd_solve_logdet_primal(A, B)
-        ctx.save_for_backward(A, X)
-        return X, ld
+    def forward(A, B):
+        return _psd_solve_logdet_primal(A, B)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output[0])
 
     @staticmethod
     def backward(ctx, ct_X, ct_ld):
@@ -337,11 +392,15 @@ class _PsdSolveLogdet(torch.autograd.Function):
 class _GenSolve(torch.autograd.Function):
     """X = A^-1 B for general A; dB = A^-T ct, dA = -dB X^T."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, A, B):
-        X = _gen_solve_primal(A, B)
-        ctx.save_for_backward(A, X)
-        return X
+    def forward(A, B):
+        return _gen_solve_primal(A, B)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
 
     @staticmethod
     def backward(ctx, ct):
@@ -368,11 +427,17 @@ def _unbroadcast_to(x, shape):
 class _Bmm(torch.autograd.Function):
     """C = op(A) op(B); each cotangent is another bmm."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, A, B, ta, tb):
+    def forward(A, B, ta, tb):
+        return _bmm_primal(A, B, ta, tb)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A, B, ta, tb = inputs
         ctx.save_for_backward(A, B)
         ctx.ta, ctx.tb = ta, tb
-        return _bmm_primal(A, B, ta, tb)
 
     @staticmethod
     def backward(ctx, ct):
@@ -391,23 +456,23 @@ class _Bmm(torch.autograd.Function):
 
 def bmm(A, B, ta: bool = False, tb: bool = False):
     """op(A) @ op(B) batched over the leading axis; op = T when ta/tb."""
-    return _Bmm.apply(A, B, ta, tb)
+    return apply_function(_Bmm, A, B, ta, tb)
 
 
 def gen_solve(A, B):
     """Differentiable batched solve for general, well-conditioned A (e.g.
     the filtering combine's identity-dominated I + C J)."""
-    return _GenSolve.apply(A, B)
+    return apply_function(_GenSolve, A, B)
 
 
 def psd_solve(A, B, jitter: float | None = DEFAULT_JITTER):
     """Solve (sym(A) + jitter I) X = B for batched SPD A."""
-    return _PsdSolve.apply(add_jitter(symmetrize(A), jitter), B)
+    return apply_function(_PsdSolve, add_jitter(symmetrize(A), jitter), B)
 
 
 def psd_solve_logdet(A, B, jitter: float | None = DEFAULT_JITTER):
     """(X, log det) of the jittered SPD solve, in one pass."""
-    return _PsdSolveLogdet.apply(add_jitter(symmetrize(A), jitter), B)
+    return apply_function(_PsdSolveLogdet, add_jitter(symmetrize(A), jitter), B)
 
 
 def kron(A, B):

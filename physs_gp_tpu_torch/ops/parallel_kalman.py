@@ -35,7 +35,7 @@ import torch
 from .gaussian import mask_covariance, masked_mvn_logpdf
 from .cuda import fused_combine as fc
 from .kalman import FilterResult, SmootherResult, observation_mask
-from .matrix import bmm, gen_solve, psd_solve, symmetrize, unit_last
+from .matrix import apply_function, bmm, gen_solve, psd_solve, recompute_vjp, symmetrize, unit_last
 
 __all__ = [
     "parallel_kalman_filter",
@@ -94,8 +94,9 @@ def _build_filter_elements(A, Q, H, R, y, mask, m0, P0) -> _FilterElems:
 
     P_loc = Q.clone()
     P_loc[0] += A[0] @ P0 @ A[0].T
-    m_loc = torch.zeros((T, d), dtype=P0.dtype, device=P0.device)
-    m_loc[0] = A[0] @ m0
+    m_first = (A[0] @ m0)[None]
+    # out of place: under `vmap` the first row may be batched where zeros are not
+    m_loc = torch.cat([m_first, m_first.new_zeros((T - 1, d))])
 
     HP = bmm(Hm, P_loc)  # [T, p, d]
     S = mask_covariance(bmm(HP, Hm, tb=True) + R, mask)
@@ -160,7 +161,7 @@ def _filtering_operator(ei: _FilterElems, ej: _FilterElems) -> _FilterElems:
     """Associative combine of filtering elements (Särkkä & G-F eq. 10): one
     fused kernel when `use_fused_combine` says so, else the unfused route."""
     if fc.use_fused_combine(ei.A.shape, ej.A.shape, ei.A.dtype):
-        return _FilterElems(*_FusedCombine.apply(
+        return _FilterElems(*apply_function(_FusedCombine, 
             fc.fused_filtering_combine, _filtering_operator_unfused, _FilterElems, *ei, *ej))
     return _filtering_operator_unfused(ei, ej)
 
@@ -195,7 +196,7 @@ def _smoothing_operator(ej: _SmootherElems, ei: _SmootherElems) -> _SmootherElem
     """Combine for the reverse scan, i earlier than j: one fused kernel when
     `use_fused_combine` says so, else the unfused route."""
     if fc.use_fused_combine(ej.E.shape, ei.E.shape, ej.E.dtype, smoothing=True):
-        return _SmootherElems(*_FusedCombine.apply(
+        return _SmootherElems(*apply_function(_FusedCombine, 
             fc.fused_smoothing_combine, _smoothing_operator_unfused, _SmootherElems, *ej, *ei))
     return _smoothing_operator_unfused(ej, ei)
 
@@ -211,22 +212,27 @@ class _FusedCombine(torch.autograd.Function):
     two elements of type `cls`. The kernels have no backward (nor have the
     reference's): the cotangents are recomputed through `unfused`."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, fused, unfused, cls, *leaves):
-        ctx.save_for_backward(*leaves)
-        ctx.unfused, ctx.cls = unfused, cls
+    def forward(fused, unfused, cls, *leaves):
         x = [unit_last(v) for v in leaves]
         n = len(x) // 2
         return tuple(fused(cls(*x[:n]), cls(*x[n:])))
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.unfused, ctx.cls, *leaves = inputs
+        ctx.save_for_backward(*leaves)
+
+    @staticmethod
     def backward(ctx, *cts):
-        with torch.enable_grad():
-            x = [v.detach().requires_grad_(True) for v in ctx.saved_tensors]
-            n = len(x) // 2
-            out = ctx.unfused(ctx.cls(*x[:n]), ctx.cls(*x[n:]))
-            grads = torch.autograd.grad(tuple(out), x, cts)
-        return (None, None, None, *grads)
+        n = len(ctx.saved_tensors) // 2
+
+        def unfused(*x):
+            return tuple(ctx.unfused(ctx.cls(*x[:n]), ctx.cls(*x[n:])))
+
+        return (None, None, None, *recompute_vjp(unfused, cts, *ctx.saved_tensors))
 
 
 def _ident_filter_elem(d, like):

@@ -95,8 +95,9 @@ def _build_sqrt_elements(A, Q_sqrt, H, R_sqrt, y, mask, m0, U0):
     # local prior factor: Qs_k, and tria([A0 U0, Qs_0]) at the first step
     Up_loc = Q_sqrt.clone()
     Up_loc[0] = tria(torch.cat([A[0] @ U0, Q_sqrt[0]], -1))
-    m_loc = torch.zeros((T, d), dtype=U0.dtype, device=U0.device)
-    m_loc[0] = A[0] @ m0
+    m_first = (A[0] @ m0)[None]
+    # out of place: under `vmap` the first row may be batched where zeros are not
+    m_loc = torch.cat([m_first, m_first.new_zeros((T - 1, d))])
 
     HU = Hm @ Up_loc  # [T, p, d]
     # [HU, Rs] has full row rank (Rs diag > 0, identity filler included)

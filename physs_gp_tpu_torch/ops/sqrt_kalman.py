@@ -27,10 +27,10 @@ import torch
 
 from .cuda.batched_chol import batch_chol_gram
 from .cuda.batched_qr import batch_tria, lq_fits
-from .cuda.build import D_MAX, count_route
+from .cuda.build import D_MAX, count_route, transformed
 from .gaussian import mask_covariance
 from .kalman import FilterResult, SmootherResult, observation_mask
-from .matrix import symmetrize, unit_last
+from .matrix import apply_function, recompute_vjp, symmetrize, unit_last
 
 __all__ = ["tria", "tria_sum", "psd_sqrt", "sqrt_kalman_filter", "sqrt_rts_smoother"]
 
@@ -42,16 +42,6 @@ def _floor(dtype) -> float:
     return 1e-24 if dtype.itemsize < 8 else 1e-60
 
 
-def _vjp(fn, ct, *xs):
-    """Cotangents of fn at xs (None entries pass through as None)."""
-    with torch.enable_grad():
-        ins = [None if x is None else x.detach().requires_grad_(True) for x in xs]
-        out = fn(*ins)
-        live = [x for x in ins if x is not None]
-        grads = iter(torch.autograd.grad(out, live, ct))
-    return tuple(None if x is None else next(grads) for x in ins)
-
-
 def tria(B, assume_full_rank: bool = False):
     """Lower-triangular L [.., d, d] with L Lᵀ = B Bᵀ, B [.., d, m].
 
@@ -61,8 +51,25 @@ def tria(B, assume_full_rank: bool = False):
     a tiny relative identity block appended, so rank-deficient inputs keep
     bounded gradients. `assume_full_rank=True` skips both, for pre-arrays
     with a full-row-rank block ([G, I], [H U, R^1/2])."""
+    return _tria(B, assume_full_rank, _kernel_core)
+
+
+def _kernel_core(B, ref):
+    """The factorisation by the LQ kernel (`_TriaCore`), its backward
+    through `ref`."""
+    return apply_function(_TriaCore, B, ref)
+
+
+def _reference_core(B, ref):
+    """`_TriaCore`'s gradient without the kernel: `ref` itself."""
+    return ref(B)
+
+
+def _tria(B, assume_full_rank: bool, core):
+    """`tria` with `core(B, ref)` for the factorisation whose backward runs
+    through `ref`: `_kernel_core`, or `_reference_core`."""
     if assume_full_rank:
-        return _TriaCore.apply(B, _tria_canonical_ref)
+        return core(B, _tria_canonical_ref)
     d, m = B.shape[-2], B.shape[-1]
     if m < d:  # zero columns leave B Bᵀ unchanged; the LQ needs m >= d
         B = torch.cat([B, B.new_zeros(B.shape[:-1] + (d - m,))], -1)
@@ -72,7 +79,7 @@ def tria(B, assume_full_rank: bool = False):
     is_zero = scale <= 2.0 * floor ** 0.5
     eye = torch.eye(d, m, dtype=B.dtype, device=B.device)
     B_safe = torch.where(is_zero, eye, B)
-    return torch.where(is_zero, 0.0, _TriaCore.apply(B_safe, _tria_reg))
+    return torch.where(is_zero, 0.0, core(B_safe, _tria_reg))
 
 
 class _QrR(torch.autograd.Function):
@@ -81,17 +88,24 @@ class _QrR(torch.autograd.Function):
     symmetric matrix of M's lower triangle, and Q accumulated from the
     Householder reflectors in batched products. (`torch.linalg.qr`'s own
     backward forms Q through `orgqr`, which the CUDA build runs one matrix
-    at a time.)"""
+    at a time.) The forward also returns the factorisation (a, tau), which
+    the backward reads; `_qr_r` gives R alone."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, A):
+    def forward(A):
         a, tau = torch.geqrf(A)
-        R = a[..., : A.shape[-1], :].triu()
-        ctx.save_for_backward(a, tau, R)
-        return R
+        return a[..., : A.shape[-1], :].triu(), a, tau
 
     @staticmethod
-    def backward(ctx, gR):
+    def setup_context(ctx, inputs, output):
+        R, a, tau = output
+        ctx.mark_non_differentiable(a, tau)
+        ctx.save_for_backward(a, tau, R)
+
+    @staticmethod
+    def backward(ctx, gR, _ga, _gtau):
         a, tau, R = ctx.saved_tensors
         m, n = a.shape[-2:]
         eye = torch.eye(m, n, dtype=a.dtype, device=a.device)
@@ -105,9 +119,14 @@ class _QrR(torch.autograd.Function):
         return torch.linalg.solve_triangular(R.transpose(-1, -2), Q @ Y, upper=False, left=False)
 
 
+def _qr_r(A):
+    """R of the reduced QR of A [.., m, n], m >= n (`_QrR`)."""
+    return apply_function(_QrR, A)[0]
+
+
 def _tria_canonical_ref(B):
     """Canonical (diag >= 0) factor through the library QR (backward)."""
-    r = _QrR.apply(B.transpose(-1, -2))
+    r = _qr_r(B.transpose(-1, -2))
     L = r.transpose(-1, -2)
     sign = torch.sign(torch.diagonal(L, dim1=-2, dim2=-1))
     sign = torch.where(sign == 0, 1.0, sign)
@@ -131,10 +150,10 @@ class _TriaCore(torch.autograd.Function):
     `ref` (the QR of B, `_tria_canonical_ref`, or of the regularised
     pre-array, `_tria_reg`)."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, B, ref):
-        ctx.save_for_backward(B)
-        ctx.ref = ref
+    def forward(B, ref):
         d, m = B.shape[-2:]
         if not lq_fits(d, m):
             if B.is_cuda:
@@ -144,8 +163,13 @@ class _TriaCore(torch.autograd.Function):
         return L.reshape(B.shape[:-1] + (d,))
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        B, ctx.ref = inputs
+        ctx.save_for_backward(B)
+
+    @staticmethod
     def backward(ctx, ct):
-        return *_vjp(ctx.ref, ct, *ctx.saved_tensors), None
+        return *recompute_vjp(ctx.ref, ct, *ctx.saved_tensors), None
 
 
 def _eye_like(X):
@@ -153,27 +177,36 @@ def _eye_like(X):
     return torch.eye(d, dtype=X.dtype, device=X.device).expand(X.shape[:-1] + (d,))
 
 
-def _tria_sum_ref(X, Y, plus_eye: bool):
+def _tria_sum_ref(X, Y, plus_eye: bool, core=_kernel_core):
     """Reference composition: `tria` of the concatenated pre-array."""
     parts = [X] + ([] if Y is None else [Y]) + ([_eye_like(X)] if plus_eye else [])
-    return tria(torch.cat(parts, -1))
+    return _tria(torch.cat(parts, -1), False, core)
 
 
 class _CholGramCore(torch.autograd.Function):
     """Forward: the fused Gram + Cholesky kernel; backward: through
     `_tria_sum_ref`, whose QR stays finite for rank-deficient inputs."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, X, Y, plus_eye):
-        ctx.save_for_backward(X, Y)
-        ctx.plus_eye = plus_eye
+    def forward(X, Y, plus_eye):
         return batch_chol_gram(unit_last(X), None if Y is None else unit_last(Y),
                                plus_eye=plus_eye)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        X, Y, ctx.plus_eye = inputs
+        ctx.save_for_backward(X, Y)
+
+    @staticmethod
     def backward(ctx, ct):
         X, Y = ctx.saved_tensors
-        gx, gy = _vjp(lambda x, y: _tria_sum_ref(x, y, ctx.plus_eye), ct, X, Y)
+        # under a `torch.func` transform the recomputation differentiates
+        # `tria`'s backward reference directly: a `torch.func.vjp` nested in
+        # `_TriaCore`'s backward inside this one fails functorch's level check
+        core = _reference_core if transformed() else _kernel_core
+        gx, gy = recompute_vjp(lambda x, y: _tria_sum_ref(x, y, ctx.plus_eye, core), ct, X, Y)
         return gx, gy, None
 
 
@@ -192,7 +225,7 @@ def tria_sum(X, Y=None, plus_eye: bool = False):
     if not fits:
         return _tria_sum_ref(X, Y, plus_eye)
     if plus_eye:  # Gram + I: spectrum >= 1, never degenerate
-        return _CholGramCore.apply(X, Y, True)
+        return apply_function(_CholGramCore, X, Y, True)
     floor = _floor(X.dtype)
     s2 = torch.sum(X * X, dim=(-1, -2), keepdim=True)
     if Y is not None:
@@ -200,7 +233,7 @@ def tria_sum(X, Y=None, plus_eye: bool = False):
     is_zero = s2 / X.shape[-2] + floor <= 2.0 * floor
     Xs = torch.where(is_zero, torch.eye(*X.shape[-2:], dtype=X.dtype, device=X.device), X)
     Ys = None if Y is None else torch.where(is_zero, 0.0, Y)
-    return torch.where(is_zero, 0.0, _CholGramCore.apply(Xs, Ys, False))
+    return torch.where(is_zero, 0.0, apply_function(_CholGramCore, Xs, Ys, False))
 
 
 def psd_sqrt(A):

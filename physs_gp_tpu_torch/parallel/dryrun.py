@@ -13,11 +13,16 @@ runs, at tiny shapes, each check against the same rank's single-device run:
 - three `natgrad_scan` steps;
 - a config-5 step through the mesh;
 - at n >= 4 (n even), the composite dp x t mode on a (2, n / 2) mesh: four
-  series, value and gradient.
+  series, value and gradient;
+- part 2, data parallelism over independent models (`dp-vmap`): 2 n
+  Poisson series of 32 steps over a ("dp",) mesh, each rank stacking its
+  two (`models/stacked.py`) for one natural-gradient update and the ELBOs;
+  the summed ELBO is all-reduced over "dp". Each rank's per-series ELBOs
+  are held to the same series of one single-process stacked run of all
+  2 n, and the sum to that run's sum.
 
 Everything runs in float64; values and gradients must agree to rtol `RTOL`
-on every rank. Part 2 of the JAX dryrun (data parallelism over independent
-models) is not ported.
+on every rank.
 """
 from __future__ import annotations
 
@@ -110,6 +115,43 @@ def _data(n, dtype, device):
     return [torch.as_tensor(x, **kw) for x in (t, y, t2, y2)]
 
 
+def _series(n, dtype, device):
+    """Part 2's data, as the JAX dryrun's: 2 n series of 32 sorted times on
+    [0, 10] and Poisson counts, t [2 n, 32], y [2 n, 32, 1]."""
+    rng = np.random.default_rng(1)
+    t = np.sort(rng.uniform(0, 10, (2 * n, 32)), axis=1)
+    y = rng.poisson(np.exp(np.sin(t))).astype(np.float64)[..., None]
+    return [torch.as_tensor(x, dtype=dtype, device=device) for x in (t, y)]
+
+
+def _stacked_step(t, y, lr: float = 0.5):
+    """The JAX dryrun's part 2 step on the series t [B, T], y [B, T, 1]: B
+    Matérn-3/2 Poisson CVI models stacked, one natural-gradient update of
+    all, then their ELBOs [B]."""
+    from ..likelihoods.nongaussian import Poisson
+    from ..models.cvi_gp import CVIGP
+    from ..models.stacked import StackedCVIGP
+
+    models = [CVIGP.init(t[b], y[b], _matern(t.dtype, t.device), Poisson(), parallel=True)
+              for b in range(t.shape[0])]
+    return StackedCVIGP(models).natural_gradient_update(lr).elbo()
+
+
+def _dp_vmap(rank, n, dtype, device):
+    """Part 2 on this rank: {check: (this rank's, the single-process
+    stacked run's)} for its series' ELBOs and the all-reduced sum."""
+    import torch.distributed as dist
+
+    t, y = _series(n, dtype, device)
+    mesh = make_mesh((n,), ("dp",), device)
+    mine = slice(2 * rank, 2 * rank + 2)
+    elbos = _stacked_step(t[mine], y[mine])
+    total = torch.sum(elbos)
+    dist.all_reduce(total, group=mesh.get_group("dp"))
+    single = _stacked_step(t, y)
+    return {"dp-vmap elbos": (elbos, single[mine]), "dp-vmap total": (total, torch.sum(single))}
+
+
 def dryrun_rank(rank, n, device):
     """The dryrun's checks on one rank, float64; returns {check: (sharded,
     single)} as numpy arrays."""
@@ -153,6 +195,8 @@ def dryrun_rank(rank, n, device):
         for i, name in enumerate(("composite value", "composite grad")):
             out[name] = tuple(np.asarray(composite_value_and_grad(m, t2, y2)[i].cpu())
                               for m in (mesh2, None))
+    for name, pair_ in _dp_vmap(rank, n, dtype, device).items():
+        out[name] = tuple(np.asarray(v.detach().cpu()) for v in pair_)
     return out
 
 
@@ -166,7 +210,8 @@ def dryrun_multichip(n: int, device: str = "cuda", timeout: float = 600.0) -> di
             if not (np.all(np.isfinite(got)) and np.allclose(got, ref, rtol=RTOL, atol=0)):
                 raise AssertionError(f"dryrun rank {rank} of {n}: {name} {got} != single-device {ref}")
     print(f"DRYRUN-OK: {n} ranks on {device} ({', '.join(results[0])}), every rank equal to its "
-          f"single-device run (rtol {RTOL:g})")
+          f"single-device run (rtol {RTOL:g}); part 2 (dp-vmap: {2 * n} stacked series over a "
+          f"('dp',) mesh) passed")
     return results[0]
 
 

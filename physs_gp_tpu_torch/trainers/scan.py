@@ -42,20 +42,27 @@ def _as_lrs(lrs, n_steps):
     return [float(lr) for lr in lrs]
 
 
-def _sites_ok(new_sites, old_sites):
+def _sites_ok(new_sites, old_sites, batch_dims: int = 0):
     """Finite site variances and an unchanged finite pattern of site means
-    (inactive sites are NaN by convention), as a 0-d bool tensor."""
-    v_ok = torch.all(torch.isfinite(new_sites.V))
-    y_ok = torch.all(torch.isfinite(new_sites.Y) == torch.isfinite(old_sites.Y))
+    (inactive sites are NaN by convention): a bool tensor over the leading
+    `batch_dims` dimensions (a stacked model's members), 0-d without."""
+    lead = new_sites.Y.shape[:batch_dims]
+    v_ok = torch.all(torch.isfinite(new_sites.V).reshape(*lead, -1), -1)
+    y_ok = torch.all((torch.isfinite(new_sites.Y) == torch.isfinite(old_sites.Y)).reshape(*lead, -1), -1)
     return v_ok & y_ok
 
 
 @torch.no_grad()
 def _guard_sites(model, old_sites) -> None:
-    """Keep the model's new sites if they pass `_sites_ok`, else the old."""
-    ok = _sites_ok(model.sites, old_sites)
-    model.sites = Sites(torch.where(ok, model.sites.Y, old_sites.Y),
-                        torch.where(ok, model.sites.V, old_sites.V))
+    """Keep the model's new sites if they pass `_sites_ok`, else the old;
+    per member of a stacked model (`models/stacked.py`)."""
+    batch_dims = getattr(model, "batch_dims", 0)
+    ok = _sites_ok(model.sites, old_sites, batch_dims)
+
+    def pick(new, old):
+        return torch.where(ok.reshape(ok.shape + (1,) * (new.dim() - batch_dims)), new, old)
+
+    model.sites = Sites(pick(model.sites.Y, old_sites.Y), pick(model.sites.V, old_sites.V))
 
 
 def _adam(model, lr: float) -> torch.optim.Adam:
@@ -84,8 +91,9 @@ def natgrad_scan(model: Any, lrs, n_steps: int | None = None, hessian: str = "ex
     """N CVI natural-gradient steps on a model exposing
     `step_with_elbo(lr, hessian, generator=)`.
 
-    Returns `(model, elbos)` with `elbos[i]` the pre-update ELBO of step i.
-    The model's sites are updated in place.
+    Returns `(model, elbos)` with `elbos[i]` the pre-update ELBO of step i
+    ([B] for a stacked model, `models/stacked.py`, whose members each keep
+    or revert their own sites). The model's sites are updated in place.
     """
     elbos = []
     for lr in _as_lrs(lrs, n_steps):

@@ -29,19 +29,19 @@ def test_qr_backward_matches_the_library_qr(shape):
     QR's backward with Q accumulated from the reflectors: R and its
     gradient equal `torch.linalg.qr`'s at the square-root path's shapes
     ([m, d] = [64, 32], [96, 32] with the regularising block, d <= 2)."""
-    from physs_gp_tpu_torch.ops.sqrt_kalman import _QrR
+    from physs_gp_tpu_torch.ops.sqrt_kalman import _qr_r
 
     gen = torch.Generator().manual_seed(sum(shape))
     A = torch.randn(*shape, generator=gen, dtype=torch.float64, requires_grad=True)
     gR = torch.randn(*shape[:-2], shape[-1], shape[-1], generator=gen, dtype=torch.float64)
-    R = _QrR.apply(A)
+    R = _qr_r(A)
     (g,) = torch.autograd.grad(R, A, gR)
     _, R_lib = torch.linalg.qr(A, mode="reduced")
     (g_lib,) = torch.autograd.grad(R_lib, A, gR)
     assert torch.equal(R, R_lib)
     assert _rel(g, g_lib.numpy()) <= 1e-13
     small = A[:1, : min(6, shape[-2]), : min(3, shape[-1])].detach().requires_grad_(True)
-    assert torch.autograd.gradcheck(_QrR.apply, (small,))
+    assert torch.autograd.gradcheck(_qr_r, (small,))
 
 
 def test_cholesky_backward_is_nan_on_an_indefinite_member_as_in_jax():

@@ -300,10 +300,12 @@ def test_matheron_samples_with_mesh(port, sqrt):
 def test_dryrun_checks_on_four_ranks(port):
     """The dryrun's checks (`parallel/dryrun.py`: lml value and gradient, a
     CVI step, three `natgrad_scan` steps, a config-5 step, the composite
-    value and gradient) agree with each rank's single-device run."""
+    value and gradient, part 2's stacked series over the ("dp",) mesh)
+    agree with each rank's single-device run."""
     for rank, out in enumerate(port.wait()):
         res = out["dryrun"]
-        assert {"composite value", "composite grad", "config5 step"} <= set(res)
+        assert {"composite value", "composite grad", "config5 step", "dp-vmap elbos",
+                "dp-vmap total"} <= set(res)
         for name, (got, ref) in res.items():
             assert np.all(np.isfinite(got)), f"rank {rank}: {name}"
             _close(got, ref, RTOL, 0.0, f"rank {rank}: {name}")

@@ -27,7 +27,8 @@ HANG_TIMEOUT_S = 8.0
 
 def test_dryrun_multichip_on_two_cpu_ranks():
     res = dryrun_multichip(2, device="cpu", timeout=240.0)
-    assert {"lml value", "lml grad", "cvi step", "natgrad_scan 3", "config5 step"} <= set(res)
+    assert {"lml value", "lml grad", "cvi step", "natgrad_scan 3", "config5 step", "dp-vmap elbos",
+            "dp-vmap total"} <= set(res)
 
 
 def test_a_failed_rank_fails_the_call():

@@ -297,9 +297,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      series of T = 25 000 (chunk 25 000) in covariance, fused and
      square-root form: one stacked `step_with_elbo` after a warm-up step,
      its wall, peak memory and launches by kernel and route, against one
-     series' step; the first 8 series' ELBOs held to their own runs (rtol
-     1e-5) and the stacked step's launches equal to one series' step's
-     (`launches_per_stacked_step` in the summary).
+     series' step; that step once more with every wrapper on its plain
+     version on the card: every member's ELBO and sites equal (rtol
+     1e-5); 8 series spread over the stack, the last included, alone: their
+     ELBOs equal the stack's (rtol 1e-5); the stacked step's launches equal
+     to one series' step's (`launches_per_stacked_step` in the summary).
 The total time is printed before the summary lines. The second-to-last line is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Needs one card; imports no JAX.
 """
@@ -2152,7 +2154,7 @@ def phase_backward():
                            layout)
         # factorisations: the Cholesky (backward: the library Cholesky), the
         # LQ and the Gram + Cholesky (backward: the library QR; tria_sum's
-        # recomputes through tria, whose forward is the LQ kernel)
+        # recomputes through tria's backward reference, with no LQ launch)
         for N, d in ((N_SCAN, D), (N_MAIN, D)):
             A = _spd(gen, N, d, dtype)
             for layout in (("contiguous", "expanded") if N == N_SCAN else ("contiguous",)):
@@ -4015,6 +4017,8 @@ def phase_sharded_anchor():
                     worst[(name, key)] = max(worst.get((name, key), 0.0), r)
                     if not r <= tol:
                         raise AssertionError(f"{tag}: {name} {key} rel {r:.3e} (tol {tol:g})")
+            if not {"dp-vmap elbos", "dp-vmap total"} <= set(out["dryrun"]):
+                raise AssertionError(f"{tag}: the dryrun returned no part 2: {sorted(out['dryrun'])}")
             for key, (val, want) in out["dryrun"].items():
                 r = _rel_np(val, np.asarray(want))
                 worst[("dryrun", key)] = max(worst.get(("dryrun", key), 0.0), r)
@@ -4396,17 +4400,27 @@ def phase_stacked_anchor():
     _check_vmapped_ops(torch.Generator(device="cuda").manual_seed(31))
 
 
+def _rel_members(val, ref):
+    """The worst over the members (leading dimension) of each member's
+    max |val - ref| / max |ref| (`_rel_np`)."""
+    return max(_rel_np(v, r) for v, r in zip(val, ref.detach().cpu().numpy()))
+
+
 def phase_stacked_full():
     """The stacks at full size, float32 (`STACKED_FULL`): one warm-up step,
     then one `step_with_elbo` of the stack with its wall, its peak memory
     and its launches by kernel and route (counters reset just before it and
-    read just after), beside the same two steps of the first STACKED_HELD
-    series alone (the first one's second step timed and counted). Each
-    held series' two ELBOs equal the stack's at rtol STACKED_F32_RTOL; the
-    stack's step launches every kernel exactly as often as one series'
-    step (a count that grows with B fails), every config-5 form its path's
-    kernels, all on the warp and tiled routes. Returns the stacks' launch
-    counts and routes."""
+    read just after). That step once more, from the same stack, with every
+    kernel wrapper on its plain version (`_plain_on_card`, at the folded
+    shapes the stack gives each kernel): every member's ELBO and new sites
+    equal the kernels' at rtol STACKED_F32_RTOL. The same two steps
+    of STACKED_HELD series alone, spread over the stack from the first to
+    the last (the first one's second step timed and counted): each one's
+    two ELBOs equal the stack's at rtol STACKED_F32_RTOL. The stack's step
+    launches every kernel exactly as often as one series' step (a count
+    that grows with B fails), every config-5 form its path's kernels, all
+    on the warp and tiled routes. Returns the stacks' launch counts and
+    routes."""
     import copy
 
     from physs_gp_tpu_torch.models.stacked import StackedCVIGP
@@ -4417,7 +4431,8 @@ def phase_stacked_full():
         tag = f"stacked {which} {form} B={B} T={T} f32"
         with _knob(form):
             models = _stacked_members(which, form, B, T, chunk, torch.float32, 100 + seed)
-            held = [copy.deepcopy(m) for m in models[:STACKED_HELD]]
+            idx = np.unique(np.linspace(0, B - 1, min(STACKED_HELD, B)).round().astype(int))
+            held = [copy.deepcopy(models[i]) for i in idx]
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -4429,6 +4444,8 @@ def phase_stacked_full():
             st, e0 = st.step_with_elbo(0.5)
             torch.cuda.synchronize()
             t_first = time.perf_counter() - t0
+            plain = copy.copy(st)  # the stack after the warm-up step
+            plain.state = dict(st.state)
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             st, e1 = st.step_with_elbo(0.5)
@@ -4437,17 +4454,25 @@ def phase_stacked_full():
             counts, route = kernels.launch_counts(), kernels.route_counts()
             peak = _peak()
             finite = bool(torch.isfinite(e1).all() & torch.isfinite(st.sites.V).all())
+            t0 = time.perf_counter()
+            with _plain_on_card():
+                plain, p1 = plain.step_with_elbo(0.5)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+            vs_plain = {"ELBOs": _rel_members(e1[:, None], p1[:, None]),
+                        "sites Y": _rel_members(st.sites.Y, plain.sites.Y),
+                        "sites V": _rel_members(st.sites.V, plain.sites.V)}
+            del st, plain
             stacked = torch.stack([e0, e1], 1).cpu().numpy()
-            del st
             worst, one_wall, one_counts = 0.0, None, None
-            for i, m in enumerate(held):
+            for i, m in zip(idx, held):
                 m, h0 = m.step_with_elbo(0.5)
-                if i == 0:
+                if one_wall is None:
                     torch.cuda.synchronize()
                     kernels.reset_launch_counts()
                     t0 = time.perf_counter()
                 m, h1 = m.step_with_elbo(0.5)
-                if i == 0:
+                if one_wall is None:
                     torch.cuda.synchronize()
                     one_wall = time.perf_counter() - t0
                     one_counts = kernels.launch_counts()
@@ -4456,12 +4481,17 @@ def phase_stacked_full():
         print(f"[{tag}] stack built in {t_stack:.3f} s; step wall {wall:.4f} s (first {t_first:.4f} s), "
               f"{wall / B * 1e3:.4f} ms a series; one series' step {one_wall:.4f} s; peak "
               f"{peak:.2f} GiB; finite {finite}")
-        print(f"[{tag}] first {STACKED_HELD} series' ELBOs against their own runs: worst rel "
+        print(f"[{tag}] every member's second step against the plain versions on the card "
+              f"({t_plain:.2f} s): worst rel { {k: float(f'{v:.3e}') for k, v in vs_plain.items()} } "
+              f"(tol {STACKED_F32_RTOL:g})")
+        print(f"[{tag}] series {idx.tolist()} alone: ELBOs against the stack's, worst rel "
               f"{worst:.3e} (tol {STACKED_F32_RTOL:g})")
         print(f"[{tag}] launches per stacked step {counts}; per series step {one_counts}")
         print(f"[{tag}] launches by route: {route}")
         if not finite:
             raise AssertionError(f"{tag}: non-finite ELBO or sites")
+        if not all(r <= STACKED_F32_RTOL for r in vs_plain.values()):
+            raise AssertionError(f"{tag}: the stack disagrees with its plain versions: {vs_plain}")
         if not worst <= STACKED_F32_RTOL:
             raise AssertionError(f"{tag}: a held series' ELBO differs from its own run")
         if counts != one_counts or not any(counts.values()):

@@ -161,7 +161,14 @@ def recompute_vjp(fn, cts, *xs):
     `cts`, by recomputing `fn` (a backward that reruns a reference); None
     entries of `xs` pass through as None. Regular autograd, or
     `torch.func.vjp` under a `torch.func` transform, where `requires_grad_`
-    is refused."""
+    is refused.
+
+    Outside a transform `torch.func.vjp` does not serve: its pull runs the
+    recomputed `autograd.Function`s' backwards with no transform active on
+    functorch-wrapped saved tensors, so a kernel wrapper there takes its
+    direct launch and fails on a tensor without storage (the fused
+    combines' backward, on the card; the CPU's plain versions accept
+    wrapped tensors)."""
     live = [x for x in xs if x is not None]
 
     def on_live(*ys):

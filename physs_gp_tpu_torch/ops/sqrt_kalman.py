@@ -27,7 +27,7 @@ import torch
 
 from .cuda.batched_chol import batch_chol_gram
 from .cuda.batched_qr import batch_tria, lq_fits
-from .cuda.build import D_MAX, count_route, transformed
+from .cuda.build import D_MAX, count_route
 from .gaussian import mask_covariance
 from .kalman import FilterResult, SmootherResult, observation_mask
 from .matrix import apply_function, recompute_vjp, symmetrize, unit_last
@@ -202,11 +202,10 @@ class _CholGramCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         X, Y = ctx.saved_tensors
-        # under a `torch.func` transform the recomputation differentiates
-        # `tria`'s backward reference directly: a `torch.func.vjp` nested in
-        # `_TriaCore`'s backward inside this one fails functorch's level check
-        core = _reference_core if transformed() else _kernel_core
-        gx, gy = recompute_vjp(lambda x, y: _tria_sum_ref(x, y, ctx.plus_eye, core), ct, X, Y)
+        # differentiates `tria`'s backward reference directly: the LQ
+        # kernel's forward value would go unread
+        gx, gy = recompute_vjp(lambda x, y: _tria_sum_ref(x, y, ctx.plus_eye, _reference_core),
+                               ct, X, Y)
         return gx, gy, None
 
 

@@ -13,7 +13,8 @@ the pieces that let `vmap` through (float64, CPU):
 - each of the eight kernel ops under `vmap` against a loop over the members
   (1e-14; on the CPU they agree bit for bit);
 - the converted `autograd.Function`s' gradients under `torch.func.grad`
-  against their eager gradients.
+  against their eager gradients, and their eager backwards handing the
+  kernel wrappers plain tensors.
 """
 import numpy as np
 import pytest
@@ -319,3 +320,32 @@ def test_converted_functions_grad_under_torch_func(function):
     for a, b in zip(got, want):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max() <= 1e-13 * b.abs().max()
+
+
+@pytest.mark.parametrize("function", ["_Bmm", "_PsdSolve", "_PsdSolveLogdet", "_GenSolve",
+                                      "_KernelCholesky", "_TriaCore", "_CholGramCore",
+                                      "_FusedCombine"])
+def test_eager_backward_hands_kernel_wrappers_plain_tensors(monkeypatch, function):
+    """Outside a `torch.func` transform a kernel wrapper calls its launch
+    code directly, which reads data pointers: the eager backwards (the
+    recomputing ones among them) must not hand it functorch-wrapped
+    tensors. The CPU's plain versions accept either, so the wrapper's
+    operands are checked here."""
+    from physs_gp_tpu_torch.ops.cuda import build
+
+    call = build.KernelOp.__call__
+    eager = []
+
+    def checked(self, cpu, *args):
+        if not build.transformed():
+            eager.extend(torch._C._functorch.is_functorch_wrapped_tensor(a)
+                         for a in torch.utils._pytree.tree_leaves(args) if isinstance(a, torch.Tensor))
+        return call(self, cpu, *args)
+
+    monkeypatch.setattr(build.KernelOp, "__call__", checked)
+    fn, args = _function_cases()[function]
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    outs = torch.utils._pytree.tree_leaves(fn(*leaves))
+    grads = torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs])
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert eager and not any(eager)

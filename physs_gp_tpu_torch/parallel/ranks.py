@@ -2,14 +2,19 @@
 call within a time limit (PyTorch).
 
 `start_ranks(fn, n, args=..., device=..., timeout=...)` starts n processes
-with the `spawn` start method, joins them into one process group at
-`tcp://localhost:<free port>` and runs `fn(rank, n, *args)` in each; it
-returns at once, and the `wait()` of what it returns gives the results in
+with the `spawn` start method, joins them into one process group and runs
+`fn(rank, n, *args)` in each; it returns at once, and the `wait()` of what it returns gives the results in
 rank order. `fn` must be importable (a module-level function)
 and return picklable values (numbers, numpy arrays). A rank that raises
 fails the call with its traceback; a call that outlives `timeout` kills
 every rank and fails, so a hung rendezvous or collective ends the call
 instead of hanging it.
+
+Rendezvous: the caller's process hosts the call's `TCPStore` on a port the
+system picks (port 0) and holds it until the call ends; the ranks join it
+as clients. A port found free and then released for a rank to bind could
+be handed to another caller in between (two calls in flight, or any other
+process on the host), whose ranks would then meet in one store.
 
 Backends: NCCL for a single rank on the card; gloo for several ranks on
 one card (NCCL refuses two ranks on one GPU) and on the CPU. Every rank runs
@@ -20,7 +25,6 @@ from __future__ import annotations
 
 import datetime
 import queue
-import socket
 import time
 import traceback
 
@@ -47,12 +51,6 @@ def make_mesh(shape, names, device: str):
     return init_device_mesh(device, tuple(shape), mesh_dim_names=tuple(names))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(fn, rank, n, port, backend, device, arg_queue, results, timeout):
     """One rank: take fn's arguments, join the group, run fn, report (rank,
     ok, result or traceback) to the parent."""
@@ -61,8 +59,9 @@ def _rank_main(fn, rank, n, port, backend, device, arg_queue, results, timeout):
         torch.set_num_threads(1)
         if device == "cuda":
             torch.cuda.set_device(0)
-        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=n,
-                                rank=rank, timeout=datetime.timedelta(seconds=timeout))
+        limit = datetime.timedelta(seconds=timeout)
+        store = dist.TCPStore("localhost", port, is_master=False, timeout=limit)
+        dist.init_process_group(backend, store=store, world_size=n, rank=rank, timeout=limit)
         try:
             out = fn(rank, n, *args)
         finally:
@@ -75,8 +74,9 @@ def _rank_main(fn, rank, n, port, backend, device, arg_queue, results, timeout):
 class Ranks:
     """n ranks started by `start_ranks`; `wait()` returns their results."""
 
-    def __init__(self, procs, arg_queue, results, n, backend, device, timeout):
-        self.procs, self.arg_queue, self.results, self.n = procs, arg_queue, results, n
+    def __init__(self, store, procs, arg_queue, results, n, backend, device, timeout):
+        self.store, self.procs, self.arg_queue, self.results, self.n = (store, procs, arg_queue,
+                                                                        results, n)
         self.what = f"{n} ranks ({backend}, {device})"
         self.timeout = timeout
         self.deadline = time.monotonic() + timeout
@@ -121,6 +121,7 @@ class Ranks:
             self.arg_queue.cancel_join_thread()
             self.arg_queue.close()
             self.results.close()
+            self.store = None  # frees the call's port
         self.out = [got[r] for r in range(n)]
         return self.out
 
@@ -131,7 +132,10 @@ def start_ranks(fn, n: int, *, args=(), device: str = "cuda", timeout: float = 6
         raise RuntimeError("ranks on device 'cuda' need a CUDA device")
     ctx = mp.get_context("spawn")
     results, arg_queue = ctx.Queue(), ctx.Queue()
-    port = _free_port()
+    # the call's rendezvous: bound here, on a port the system picks, until the call ends
+    store = dist.TCPStore("localhost", 0, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout))
+    port = store.port
     backend = _backend(device, n)
     procs = [ctx.Process(target=_rank_main, daemon=True, args=(
         fn, r, n, port, backend, device, arg_queue, results, timeout)) for r in range(n)]
@@ -141,5 +145,5 @@ def start_ranks(fn, n: int, *, args=(), device: str = "cuda", timeout: float = 6
     # the ranks import: a start() that carried them would wait for each rank
     for _ in procs:
         arg_queue.put(args)
-    return Ranks(procs, arg_queue, results, n, backend, device, timeout)
+    return Ranks(store, procs, arg_queue, results, n, backend, device, timeout)
 

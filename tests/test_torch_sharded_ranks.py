@@ -5,12 +5,14 @@ On the CPU: `dryrun_multichip(2, device="cpu")` on two gloo ranks (every
 check equal to each rank's single-device run, rtol 1e-8), a rank that raises
 fails the call with its traceback, a rank that hangs fails it within the
 time limit, and without a card the default device raises instead of falling
-back to the CPU. On the card (`cuda`-marked, skipped here):
+back to the CPU; two calls in flight at once each fail with their own
+rank's error, though the system hand both the same port. On the card (`cuda`-marked, skipped here):
 `dryrun_multichip(2)`, two gloo ranks sharing cuda:0, against the unsharded
 run on the card. Run the card case with
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_sharded_ranks.py
 """
+import socket
 import time
 
 import pytest
@@ -34,6 +36,26 @@ def test_dryrun_multichip_on_two_cpu_ranks():
 def test_a_failed_rank_fails_the_call():
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
         start_ranks(sharded_ranks.fail_on_rank, 2, args=(1,), device="cpu", timeout=240.0).wait()
+
+
+def test_two_calls_in_flight_keep_apart(monkeypatch):
+    """Two calls started together, one failing on rank 1 and one on rank 0,
+    each fail with their own rank's error. A port the system has released
+    may be handed out again before a rank binds it; here every port that
+    Python's sockets report is one released port, so a launcher that took
+    its rendezvous port from a released socket would give both calls the
+    same one, and the second call's ranks would fail to bind it or meet
+    the first call's ranks."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setattr(socket.socket, "getsockname", lambda self: ("127.0.0.1", port))
+    calls = {bad: start_ranks(sharded_ranks.fail_on_rank, 2, args=(bad,), device="cpu",
+                              timeout=240.0) for bad in (1, 0)}
+    monkeypatch.undo()
+    for bad, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"rank {bad} fails on purpose"):
+            call.wait()
 
 
 def test_a_hung_rank_fails_the_call_within_its_time_limit():

@@ -258,8 +258,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      (`parallel/ranks.py`) share cuda:0, n = 1 under NCCL and n = 2 and 4
      under gloo, the three spawns side by side; on every rank the config-5
      covariance and square-root slices and the temporal slice in both forms
-     (T = 256, chunk 64, 8 blocks, 3 steps) through the ("t",) mesh equal
-     the same rank's unsharded run (lml and ELBOs rtol 1e-9, sites and
+     (T = 256, chunk 64, 8 blocks, 3 steps) through the ("t",) mesh, each
+     rank holding its segment of the sites, equal the same rank's unsharded
+     run (lml and ELBOs rtol 1e-9, sites gathered over the series and
      posterior moments 1e-7) and the golden files above; then the dryrun's
      checks (`parallel/dryrun.py`: lml value and gradient, a Poisson CVI
      step, 3 `natgrad_scan` steps, a config-5 step, at n = 4 the composite
@@ -269,20 +270,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      over a ("dp",) mesh) against one single-process stack of all 2 n;
  24. sharding at full width (`phase_sharded_full`, after phase 6, whose
      ELBOs it compares with): config-5 at T = 100 000, chunk 25 000, on 4
-     gloo ranks that share the card, a 25 000-step segment each, in
-     covariance, fused and square-root form, float32 and float64: the
-     surrogate lml (the sharded filter) and its gradient, the float64 ones
-     against this process's unsharded ones (the square-root float64
-     gradient at T = 50 000: at 100 000 it does not fit on the card), then
-     2 natural-gradient steps against phase 6's ELBOs (float64 rtol 1e-9;
-     float32 step 1 within 1e-2 of float64, the float32 gaps to phase 6's
-     printed); per rank the walls, the peak memory, and for the gradient
-     and the steps apart (counted from after the model is built) the
-     exchanges' calls, bytes and time (totals, results gathered to full T,
-     gradients) and the launches by kernel and route (under "sharded ...
-     rank k lml + gradient" and "... steps" in `launches_by_path`), and the
-     card's memory in use by all processes. No speed-up figure: the ranks
-     share one card.
+     gloo ranks that share the card, each building, holding and updating
+     its 25 000-step segment alone, in covariance, fused and square-root
+     form, float32 and float64: the surrogate lml (the sharded filter) and
+     its gradient, the float64 ones against this process's unsharded ones
+     (the square-root float64 gradient at T = 50 000: at 100 000 four ranks
+     do not fit on one card; the unsharded peak there is printed), then 2
+     natural-gradient steps against phase 6's ELBOs (float64 rtol
+     1e-9; float32 step 1 within 1e-2 of float64, the float32 gaps to phase
+     6's printed); per rank the walls, and for the gradient and the steps
+     apart (counted from after the model is built) the peak memory against
+     the unsharded run's (this process's gradient, phase 6's steps; at most
+     0.4 of it), the exchanges' calls, bytes and time (totals, results
+     gathered to full T: none allowed, gradients) and the launches by
+     kernel and route (under "sharded ... rank k lml + gradient" and "...
+     steps" in `launches_by_path`), and the card's memory in use by all
+     processes. No speed-up figure: the ranks share one card.
  25. stacked anchors (`phase_stacked_anchor`, `models/stacked.py`: B
      independent models under `torch.func.vmap`), float64, T = 256: B = 8
      temporal series in both forms and B = 2 config-5 series in covariance,
@@ -1493,7 +1496,9 @@ def _full(sqrt, path_kernels, fused=False):
         if not finite:
             raise AssertionError(f"{tag}: non-finite ELBO or sites in {dtype}")
         out[dtype] = elbos
-        SLICE_ELBOS[("sqrt" if sqrt else "fused" if fused else "cov", str(dtype)[6:])] = elbos
+        form = "sqrt" if sqrt else "fused" if fused else "cov"
+        SLICE_ELBOS[(form, str(dtype)[6:])] = elbos
+        SLICE_PEAKS[(form, str(dtype)[6:])] = peak
         if dtype == torch.float32 and not fused:
             t_new = torch.as_tensor(np.sort(np.random.default_rng(22).uniform(0, 100, 1000)),
                                     dtype=dtype, device="cuda")
@@ -3924,17 +3929,24 @@ SHARDED_ANCHORS = (("config5 cov", False, False), ("config5 sqrt", False, True),
                    ("temporal cov", True, False), ("temporal sqrt", True, True))
 SHARDED_ANCHOR_NS = (1, 2, 4)  # n = 1 runs under NCCL, more ranks under gloo
 # (form, type, T of the lml gradient) of the full-width runs, each of which
-# also takes SHARDED_FULL_STEPS natural-gradient steps at T = 100 000. The
-# square-root float64 gradient at T = 100 000 does not fit on one NVIDIA H100
-# 80GB HBM3 at n = 4 or n = 2 (every rank holds the global inputs and the
-# gathered results; the unsharded one peaks at 62.4 GiB there): it runs at
-# T = 50 000.
-SHARDED_FULL = tuple((form, dtype, 50_000 if (form, dtype) == ("sqrt", "float64") else 100_000)
+# also takes SHARDED_FULL_STEPS natural-gradient steps at T = 100 000. A rank
+# builds and holds its segment alone (its gradient's peak ~0.25 of the
+# unsharded run's), but the square-root float64 gradient at T = 100 000
+# still does not fit on one card for 4 ranks: the unsharded one peaks at
+# ~63 GiB, so the ranks' tensors take ~64 GiB and the five processes' CUDA
+# memory the rest of the card's 79 GiB (phase_sharded_full measures and
+# prints both); it runs at T = 50 000.
+SHARDED_FULL_T = 100_000
+SHARDED_FULL = tuple((form, dtype, 50_000 if (form, dtype) == ("sqrt", "float64") else SHARDED_FULL_T)
                      for form in ("cov", "fused", "sqrt") for dtype in ("float32", "float64"))
+# a rank's peak memory against the unsharded run's, same form, type and T
+SHARDED_PEAK_SHARE = 0.4
 SHARDED_FULL_N, SHARDED_FULL_STEPS = 4, 2
 SHARDED_TIMEOUT_S = 420.0
 # ELBOs of phase_slice_full's float32 and float64 runs at T = 100 000, by form
 SLICE_ELBOS = {}
+# peak memory (GiB) of phase_slice_full's runs (build and steps), by form and type
+SLICE_PEAKS = {}
 
 
 def _surrogate_lml_grad(model):
@@ -3955,6 +3967,7 @@ def _sharded_anchor_rank(rank, n):
     import physs_gp_tpu_torch.ops.matrix  # noqa: F401  (TF32 off)
     from physs_gp_tpu_torch.parallel.dryrun import dryrun_rank
     from physs_gp_tpu_torch.parallel.ranks import make_mesh
+    from physs_gp_tpu_torch.parallel.sharded import gather_time
     from physs_gp_tpu_torch.trainers.scan import natgrad_scan
     from physs_gp_tpu_torch.zoo.bench_configs import build_config5, build_temporal
 
@@ -3964,15 +3977,20 @@ def _sharded_anchor_rank(rank, n):
     for name, temporal, sqrt in SHARDED_ANCHORS:
         for tag, m in (("sharded", mesh), ("single", None)):
             model = (build_temporal if temporal else build_config5)(256, 64, dtype=torch.float64,
-                                                                    sqrt=sqrt, device="cuda")
-            model.mesh = m
+                                                                    sqrt=sqrt, device="cuda", mesh=m)
             model, elbos = natgrad_scan(model, 0.5, n_steps=3, nan_guard=True)
             post = model.posterior()
             with torch.no_grad():
                 lml = float(model.surrogate_model().log_marginal_likelihood())
+            # the rank holds its segment's sites: the whole series' for the goldens
+            sites = torch.cat([model.sites.Y, torch.diagonal(model.sites.V, dim1=-2, dim2=-1)], -1)
+            rows = sites.shape[0]
+            if m is not None:
+                sites = gather_time(sites, m, model._seg())
+            site_Y, site_V_diag = sites.cpu().numpy().reshape(sites.shape[0], 2, -1).swapaxes(0, 1)
             out[(name, tag)] = {
-                "elbos": elbos.cpu().numpy(), "lml": lml, "site_Y": model.sites.Y.cpu().numpy(),
-                "site_V_diag": torch.diagonal(model.sites.V, dim1=-2, dim2=-1).cpu().numpy(),
+                "elbos": elbos.cpu().numpy(), "lml": lml, "site_Y": site_Y,
+                "site_V_diag": site_V_diag, "rows": rows,
                 "post_mean": post.mean.cpu().numpy(), "post_var": post.var.cpu().numpy()}
     out["dryrun"] = dryrun_rank(rank, n, "cuda")
     out["wall"] = time.perf_counter() - t0
@@ -4059,9 +4077,10 @@ def _sharded_full_rank(rank, n, runs):
     """One rank of phase_sharded_full, for each (form, type, T of the
     gradient): the surrogate lml of config-5 (chunk 25 000) and its gradient
     through the ("t",) mesh of n ranks, then SHARDED_FULL_STEPS
-    natural-gradient steps at T = 100 000. The launch counters and the
-    exchange statistics are reset after each model is built, just before
-    the gradient and just before the steps, and read just after each."""
+    natural-gradient steps at T = 100 000. The launch counters, the exchange
+    statistics and the peak memory are reset after each model is built,
+    just before the gradient and just before the steps, and read just after
+    each."""
     import physs_gp_tpu_torch.ops.matrix  # noqa: F401  (TF32 off)
     from physs_gp_tpu_torch.ops import cuda as kernels
     from physs_gp_tpu_torch.parallel import sharded
@@ -4071,17 +4090,16 @@ def _sharded_full_rank(rank, n, runs):
 
     mesh = make_mesh((n,), ("t",), "cuda")
 
-    def built(T, dtype, form):
-        model = build_config5(T, 25_000, dtype=dtype, sqrt=form == "sqrt", device="cuda")
-        model.mesh = mesh
+    def counted():
+        return {"exchange": sharded.exchange_stats(), "launches": kernels.launch_counts(),
+                "routes": kernels.route_counts(),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    def reset():
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         sharded.reset_exchange_stats()
-        return model
-
-    def counted():
-        return {"exchange": sharded.exchange_stats(), "launches": kernels.launch_counts(),
-                "routes": kernels.route_counts()}
+        torch.cuda.reset_peak_memory_stats()
 
     out = {}
     for form, dtype_name, grad_T in runs:
@@ -4089,30 +4107,27 @@ def _sharded_full_rank(rank, n, runs):
             os.environ["PHYSS_FUSED_COMBINE"] = "1"
         dtype = getattr(torch, dtype_name)
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        model = built(grad_T, dtype, form)
+        model = build_config5(grad_T, 25_000, dtype=dtype, sqrt=form == "sqrt", device="cuda",
+                              mesh=mesh)
+        reset()
         t0 = time.perf_counter()
         lml, grad = _surrogate_lml_grad(model)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         grad_counts = counted()
-        grad_peak = torch.cuda.max_memory_allocated() / 2**30
-        if grad_T != 100_000:
+        if grad_T != SHARDED_FULL_T:
             del model
             torch.cuda.empty_cache()
-            model = build_config5(100_000, 25_000, dtype=dtype, sqrt=form == "sqrt", device="cuda")
-            model.mesh = mesh
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        sharded.reset_exchange_stats()
+            model = build_config5(SHARDED_FULL_T, 25_000, dtype=dtype, sqrt=form == "sqrt",
+                                  device="cuda", mesh=mesh)
+        reset()
         t2 = time.perf_counter()
         model, elbos = natgrad_scan(model, 0.5, n_steps=SHARDED_FULL_STEPS, nan_guard=False)
         elbos = elbos.cpu().numpy()
         t3 = time.perf_counter()
         out[(form, dtype_name)] = {
             "lml": lml, "grad": grad, "grad_T": grad_T, "elbos": elbos, "grad_wall_s": t1 - t0,
-            "steps_wall_s": t3 - t2, "grad_peak_gib": grad_peak,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "steps_wall_s": t3 - t2, "site_rows": model.sites.V.shape[0],
             "runs": {"lml + gradient": grad_counts, "steps": counted()},
             "finite": bool(np.all(np.isfinite(elbos)) and np.all(np.isfinite(grad))
                            and torch.isfinite(model.sites.V).all())}
@@ -4124,18 +4139,22 @@ def _sharded_full_rank(rank, n, runs):
 def phase_sharded_full():
     """Config-5 (chunk 25 000) on 4 ranks that share the card (gloo), in
     covariance, fused and square-root form, float32 and float64: the
-    surrogate lml and its gradient (at T = 100 000, each rank a 25 000-step
-    segment; the square-root float64 one at T = 50 000, SHARDED_FULL), then
-    SHARDED_FULL_STEPS natural-gradient steps at T = 100 000. In float64 the
-    lml and gradient equal this process's unsharded ones and the ELBOs
-    phase_slice_full's (rtol 1e-9); in float32 step 1's ELBO is within 1e-2
-    of the float64 one (step 0 reported, as in phase_slice_full) and the
-    ELBOs' gaps to phase_slice_full's are printed. Prints per rank the
-    walls, the exchanges' calls, bytes and time (the totals apart from the
-    gather of the results to full T and from the gradients'), the peak
-    memory and the launches by kernel and route, and the card's memory in
-    use by all processes. These are no speed-up figures: the ranks share
-    one card. Returns the runs' launches by path and their routes."""
+    surrogate lml and its gradient at T = 100 000 (each rank builds, holds
+    and updates its 25 000-step segment alone; the square-root float64 one
+    at T = 50 000, SHARDED_FULL, with the unsharded peak at 100 000 that
+    keeps it there printed), then SHARDED_FULL_STEPS natural-gradient steps
+    at T = 100 000. In float64 the lml and gradient equal this
+    process's unsharded ones and the ELBOs phase_slice_full's (rtol 1e-9);
+    in float32 step 1's ELBO is within 1e-2 of the float64 one (step 0
+    reported, as in phase_slice_full) and the ELBOs' gaps to
+    phase_slice_full's are printed. A rank's peak memory over the gradient
+    and over the steps must stay within SHARDED_PEAK_SHARE of the unsharded
+    run's (this process's gradient; phase_slice_full's steps), and neither
+    run may gather results over the full T ("results" bytes 0). Prints per
+    rank the walls, the exchanges' calls, bytes and time by kind, the peaks
+    and the launches by kernel and route, and the card's memory in use by
+    all processes. These are no speed-up figures: the ranks share one card.
+    Returns the runs' launches by path and their routes."""
     import gc
 
     from physs_gp_tpu_torch.ops import cuda as kernels
@@ -4144,18 +4163,31 @@ def phase_sharded_full():
 
     single = {}
     for form, dtype_name, grad_T in SHARDED_FULL:
-        if dtype_name != "float64":
-            continue
         if form == "fused":
             os.environ["PHYSS_FUSED_COMBINE"] = "1"
         torch.cuda.empty_cache()
-        model = build_config5(grad_T, 25_000, dtype=torch.float64, sqrt=form == "sqrt", device="cuda")
+        model = build_config5(grad_T, 25_000, dtype=getattr(torch, dtype_name),
+                              sqrt=form == "sqrt", device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        single[form] = _surrogate_lml_grad(model)
-        print(f"[sharded full] unsharded {form} float64 lml + gradient at T = {grad_T}: "
-              f"{time.perf_counter() - t0:.3f} s")
+        lml, grad = _surrogate_lml_grad(model)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        single[(form, dtype_name)] = lml, grad, peak
+        print(f"[sharded full] unsharded {form} {dtype_name} lml + gradient at T = {grad_T}: "
+              f"{time.perf_counter() - t0:.3f} s, peak {peak:.2f} GiB; steps at T = {SHARDED_FULL_T} "
+              f"(phase_slice_full) peak {SLICE_PEAKS[(form, dtype_name)]:.2f} GiB")
         os.environ.pop("PHYSS_FUSED_COMBINE", None)
         del model
+        if grad_T != SHARDED_FULL_T:  # the peak that keeps the ranks' gradient from SHARDED_FULL_T
+            torch.cuda.empty_cache()
+            model = build_config5(SHARDED_FULL_T, 25_000, dtype=getattr(torch, dtype_name),
+                                  sqrt=form == "sqrt", device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _surrogate_lml_grad(model)
+            single[(form, dtype_name, SHARDED_FULL_T)] = torch.cuda.max_memory_allocated() / 2**30
+            del model
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
@@ -4172,6 +4204,16 @@ def phase_sharded_full():
     print(f"[sharded full] {SHARDED_FULL_N} ranks on one card: {time.perf_counter() - t0:.1f} s "
           f"(no speed-up figure: the ranks share one card); the card's memory in use at most "
           f"{max(used) / 2**30:.2f} GiB of {total / 2**30:.2f} (all processes, sampled every 0.5 s)")
+    for form, dtype_name, grad_T in SHARDED_FULL:
+        if grad_T != SHARDED_FULL_T:
+            share = max(out[(form, dtype_name)]["runs"]["lml + gradient"]["peak_gib"]
+                        for out in ranks) / single[(form, dtype_name)][2]
+            peak = single[(form, dtype_name, SHARDED_FULL_T)]
+            print(f"[sharded full] {form} {dtype_name} gradient at T = {grad_T}, not {SHARDED_FULL_T}: the "
+                  f"unsharded one peaks at {peak:.2f} GiB there, so {SHARDED_FULL_N} ranks at the "
+                  f"share {share:.3f} measured at T = {grad_T} need {SHARDED_FULL_N * share * peak:.2f} "
+                  f"GiB of tensors, beside this process's {(total - free) / 2**30:.2f} GiB and each "
+                  f"rank's CUDA memory, on a card of {total / 2**30:.2f} GiB")
     counts, routes = {}, {}
     kernels_of = {"cov": ("bmm", "gj_solve", "gj_solve_logdet"),
                   "fused": ("bmm", "gj_solve", "gj_solve_logdet") + FUSED,
@@ -4179,13 +4221,19 @@ def phase_sharded_full():
     for rank, out in enumerate(ranks):
         for (form, dtype_name), res in out.items():
             tag = f"sharded {form} {dtype_name.replace('float', 'f')} rank {rank}"
-            print(f"[{tag}] lml + gradient at T = {res['grad_T']} {res['grad_wall_s']:.3f} s (peak "
-                  f"{res['grad_peak_gib']:.2f} GiB), {SHARDED_FULL_STEPS} steps at T = 100000 "
-                  f"{res['steps_wall_s']:.3f} s, peak {res['peak_gib']:.2f} GiB")
+            lml1, grad1, grad_peak1 = single[(form, dtype_name)]
+            unsharded = {"lml + gradient": grad_peak1, "steps": SLICE_PEAKS[(form, dtype_name)]}
+            print(f"[{tag}] lml + gradient at T = {res['grad_T']} {res['grad_wall_s']:.3f} s, "
+                  f"{SHARDED_FULL_STEPS} steps at T = {SHARDED_FULL_T} {res['steps_wall_s']:.3f} s; "
+                  f"sites {res['site_rows']} rows")
+            if res["site_rows"] != SHARDED_FULL_T // SHARDED_FULL_N:
+                raise AssertionError(f"{tag}: the rank holds {res['site_rows']} rows of sites")
             launched = dict.fromkeys(SOURCES, 0)
             for run, got in res["runs"].items():
                 ex = got["exchange"]
-                print(f"[{tag}] {run}: exchanges "
+                share = got["peak_gib"] / unsharded[run]
+                print(f"[{tag}] {run}: peak {got['peak_gib']:.2f} GiB against the unsharded "
+                      f"{unsharded[run]:.2f} GiB: {share:.3f} (bound {SHARDED_PEAK_SHARE}); exchanges "
                       + ", ".join(f"{k} {v['calls']} calls {v['bytes'] / 1e6:.3f} MB {v['seconds']:.4f} s"
                                   for k, v in sorted(ex.items())))
                 counts[f"{tag} {run}"], routes[f"{tag} {run}"] = got["launches"], got["routes"]
@@ -4193,6 +4241,10 @@ def phase_sharded_full():
                       f"routes { {k: v for k, v in got['routes'].items() if v.get('warp') or v.get('block')} }")
                 for k, v in got["launches"].items():
                     launched[k] += v
+                if ex.get("results", {"bytes": 0})["bytes"]:
+                    raise AssertionError(f"{tag}: {run} gathered results over the full T")
+                if not share <= SHARDED_PEAK_SHARE:
+                    raise AssertionError(f"{tag}: {run} peak {share:.3f} of the unsharded run's")
             if not res["finite"]:
                 raise AssertionError(f"{tag}: non-finite ELBO, gradient or sites")
             if not all(launched[k] for k in kernels_of[form]):
@@ -4203,7 +4255,6 @@ def phase_sharded_full():
             r_elbo = np.abs(res["elbos"] - ref) / np.abs(ref)
             line = f"[{tag}] ELBOs rel {r_elbo.tolist()} against phase_slice_full's"
             if dtype_name == "float64":
-                lml1, grad1 = single[form]
                 r_lml, r_grad = abs(res["lml"] - lml1) / abs(lml1), _rel_np(res["grad"], grad1)
                 print(f"{line}; lml rel {r_lml:.3e}, gradient rel {r_grad:.3e} against unsharded")
                 if not max(r_lml, r_grad, r_elbo.max()) <= 1e-9:

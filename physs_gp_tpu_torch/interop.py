@@ -76,8 +76,13 @@ def _parse(key: str):
     return steps
 
 
+_SITES = (".sites.Y", ".sites.V")
+
+
 def load_numpy_params(model, flat: dict) -> None:
-    """Copy every leaf of `flat` into `model` (in place); unknown paths raise."""
+    """Copy every leaf of `flat` into `model` (in place); unknown paths raise.
+    A time-sharded model (`mesh`: `CVIGP`) takes its segment's rows of the
+    whole series' sites."""
     for key, value in flat.items():
         *parents, leaf = _parse(key)
         obj = model
@@ -101,6 +106,8 @@ def load_numpy_params(model, flat: dict) -> None:
         if not isinstance(current, torch.Tensor):
             raise KeyError(f"{key!r} names {type(current).__name__}, not a tensor or number")
         new = torch.as_tensor(np.array(value), dtype=current.dtype, device=current.device)
+        if key in _SITES and getattr(model, "mesh", None) is not None:
+            new = model._rows(new)
         if new.shape != current.shape:
             raise ValueError(f"{key!r}: shape {tuple(new.shape)} != {tuple(current.shape)}")
         if isinstance(current, torch.nn.Parameter):

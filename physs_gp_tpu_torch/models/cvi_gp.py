@@ -13,10 +13,13 @@ place and return the model; `natgrad_step` is the pure step beneath them. Predic
 `predict_y` by Gauss-Hermite moment matching, `nlpd` by log-domain
 Gauss-Hermite quadrature, `sample_f` by Matheron pathwise conditioning on
 the surrogate. `mesh` (a `torch.distributed` DeviceMesh) shards the time
-axis of the surrogate pass over its dimension `mesh_axis`
-(`parallel/sharded.py`), and `surrogate_model()` carries it, so
-`step_with_elbo`, `natgrad_scan`, predictions and `sample_f` run sharded;
-every rank calls the model with the same data and keeps the same sites.
+axis over its dimension `mesh_axis` (`parallel/sharded.py`): every rank
+holds the same t and Y, and its segment of the sites (`CVIGP.init(mesh=)`
+splits them; a model given the whole series' sites takes its rows), builds
+and passes its segment of the surrogate, and computes the ELLs and the
+site update on it; the ELBO is the all-reduced sum of the segments'.
+`surrogate_model()` carries the mesh, so predictions and `sample_f` run
+sharded and gather their head values over the series.
 `init_state` = (m0, P0) replaces the stationary prior of the
 filter (online CVI carries the previous segment's filtered state in it,
 `models/streaming.py`); as in the reference, `surrogate_model()` does not
@@ -112,26 +115,73 @@ class CVIGP(nn.Module):
             if hasattr(likelihood, "site_active_mask")
             else None
         )
+        Y_sites = Y
+        if mesh is not None:  # the rank's segment of the sites
+            from ..parallel import sharded
+
+            seg = sharded.segment(Y.shape[0], mesh, mesh_axis, chunk_size)
+            Y_sites, active = seg.rows(Y), None if active is None else seg.rows(active)
         return cls(
             t=t.reshape(-1), Y=Y, kernel=kernel, likelihood=likelihood,
-            sites=init_sites(Y, site_var, active=active), observation=observation,
+            sites=init_sites(Y_sites, site_var, active=active), observation=observation,
             mean=mean, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
             init_state=init_state, mesh=mesh, mesh_axis=mesh_axis,
         )
 
+    # ---- time-axis sharding ----
+    def _seg(self):
+        """The rank's segment of the series, or None without a mesh."""
+        if self.mesh is None:
+            return None
+        from ..parallel import sharded
+
+        return sharded.segment(self.t.shape[0], self.mesh, self.mesh_axis, self.chunk_size)
+
+    def _rows(self, x, dim: int = 0):
+        """x's rows of the rank's segment (all of x without a mesh)."""
+        seg = self._seg()
+        return x if seg is None else seg.rows(x, dim)
+
+    def _local_sites(self) -> Sites:
+        """The sites of the rank's segment (all sites without a mesh)."""
+        if self.mesh is None:
+            return self.sites
+        return Sites(self._rows(self.sites.Y), self._rows(self.sites.V))
+
+    def _reduce(self, x):
+        """The sum of the ranks' x (x itself without a mesh)."""
+        if self.mesh is None:
+            return x
+        from ..parallel import sharded
+
+        return sharded.all_reduce_sum(x, self.mesh, self.mesh_axis)
+
+    def _whole(self, x):
+        """x [rows of the segment, ...] gathered over the series (x itself
+        without a mesh)."""
+        if self.mesh is None:
+            return x
+        from ..parallel import sharded
+
+        return sharded.gather_time(x, self.mesh, self._seg(), self.mesh_axis)
+
     # ---- surrogate filtering ----
     def _surrogate_pass(self):
         """Filter + smooth the surrogate; return (lml, m [T, p], S [T, p, p])
-        with the H-projected q(f) block moments."""
-        ssm = build_lgssm(self.kernel, self.t)
+        with the H-projected q(f) block moments (with a mesh: the rank's
+        segment of them, and its share of the lml)."""
+        seg = self._seg()
+        ssm = build_lgssm(self.kernel, self.t, seg)
         if self.observation is not None:
-            ssm = ssm._replace(H=self.observation.H(self.kernel))
+            ssm = ssm._replace(H=self.observation.H(
+                self.kernel, None if seg is None else slice(seg.lo, seg.hi)))
         if self.init_state is not None:
             ssm = ssm._replace(m0=self.init_state[0], P0=self.init_state[1])
+        sites = self._local_sites()
         f, s = run_filter_smoother(
-            ssm, self.sites.V, self.sites.Y, parallel=self.parallel,
+            ssm, sites.V, sites.Y, parallel=self.parallel,
             sqrt=self.sqrt, chunk_size=self.chunk_size, mesh=self.mesh,
-            mesh_axis=self.mesh_axis,
+            mesh_axis=self.mesh_axis, T=self.t.shape[0],
         )
         # the square-root smoother ships the covariance factors: (H L)(H L)ᵀ
         # stays PSD in float32 where H P Hᵀ goes indefinite
@@ -150,7 +200,13 @@ class CVIGP(nn.Module):
         source = lik if hasattr(lik, "draws") else getattr(lik, "residual", None)
         if source is None:
             return None
-        return source.draws(self.sites.Y, generator)
+        if self.mesh is None:
+            return source.draws(self.sites.Y, generator)
+        # the whole series' draws, so a rank's equal the unsharded model's rows
+        draws = source.draws(self.Y, generator)
+        if isinstance(draws, torch.Tensor):
+            return self._rows(draws, 1)
+        return type(draws)(self._rows(x, 1) for x in draws)
 
     def _mu(self, t=None):
         """The prior mean μ [T, p] at the heads (at the training times, or
@@ -161,30 +217,36 @@ class CVIGP(nn.Module):
                                 observation=self.observation, p=self.Y.shape[1])
 
     def _ell_data(self, m, S, draws=None):
+        """The data ELL of the q(f) block moments (with a mesh: of the rank's
+        segment, m and S its rows)."""
+        seg = self._seg()
         mu = self._mu()
         if mu is not None:
-            m = m + mu
+            m = m + self._rows(mu)
         if self.observation is not None:
-            corr = self.observation.var_correction(self.kernel)
+            corr = self.observation.var_correction(
+                self.kernel, None if seg is None else slice(seg.lo, seg.hi))
             if corr is not None:
                 # off-site heads: q(f(s)) marginal var = H P H^T + ρ(s)
                 S = S + torch.diag_embed(corr.expand(m.shape))
+        Y = self._rows(self.Y)
         if hasattr(self.likelihood, "expected_log_lik_blocks"):
             # block likelihoods: per-column heads and nonlinear residuals
-            return self.likelihood.expected_log_lik_blocks(self.Y, m, S, draws=draws)
+            return self.likelihood.expected_log_lik_blocks(Y, m, S, draws=draws)
         v = torch.diagonal(S, dim1=-2, dim2=-1)
-        return torch.sum(expected_log_lik(self.likelihood, self.Y, m, v))
+        return torch.sum(expected_log_lik(self.likelihood, Y, m, v))
 
     def _ell_sites_ex(self, m, S):
         """(Σ_t E_q[log N(Ỹ_t | f_t, Ṽ_t)] over active site elements,
         (λ1, λ2)): the site inverse of the ELL doubles as the natural
-        parameters `natgrad_update` needs."""
-        ok = torch.isfinite(self.sites.Y).to(m.dtype)  # [T, p]
+        parameters `natgrad_update` needs. With a mesh: the rank's segment."""
+        sites = self._local_sites()
+        ok = torch.isfinite(sites.Y).to(m.dtype)  # [T, p]
         p = m.shape[-1]
-        Vm = mask_covariance(self.sites.V, ok)
+        Vm = mask_covariance(sites.V, ok)
         eye = torch.eye(p, dtype=m.dtype, device=m.device).expand(Vm.shape)
         Vinv, logdet = psd_solve_logdet(Vm, eye)
-        y0 = torch.where(ok > 0, torch.nan_to_num(self.sites.Y), 0.0)
+        y0 = torch.where(ok > 0, torch.nan_to_num(sites.Y), 0.0)
         diff = y0 - m * ok
         maha = torch.einsum("ti,tij,tj->t", diff, Vinv, diff)
         n_obs = torch.sum(ok, -1)
@@ -203,10 +265,20 @@ class CVIGP(nn.Module):
     def _draws(self, generator, draws):
         return self.mc_draws(generator) if draws is None else draws
 
-    def elbo(self, generator=None, draws=None):
-        draws = self._draws(generator, draws)
+    def _elbo(self, draws):
         lml_sur, m, S = self._surrogate_pass()
         return self._ell_data(m, S, draws) - self._ell_sites(m, S) + lml_sur
+
+    def elbo(self, generator=None, draws=None):
+        """The ELBO; with a mesh, the all-reduced sum of the segments' (the
+        gradient of a parameter summed over the ranks in the backward)."""
+        draws = self._draws(generator, draws)
+        if self.mesh is None:
+            return self._elbo(draws)
+        from ..parallel import sharded
+
+        return self._reduce(sharded.shared_params(self, lambda m: m._elbo(draws), self.mesh,
+                                                  self.mesh_axis))
 
     def get_objective(self, generator=None, draws=None):
         return -self.elbo(generator=generator, draws=draws)
@@ -229,14 +301,15 @@ class CVIGP(nn.Module):
         `with_elbo`) from one surrogate filter + smoother pass; the model is
         not changed (`models/stacked.py` runs it under `torch.func.vmap`).
         With the ELBO, the site inverse of its site term gives the natural
-        parameters; without it they come from `to_natural(sites)`."""
+        parameters; without it they come from `to_natural(sites)`. With a
+        mesh: the rank's segment of the sites, and the all-reduced ELBO."""
         lml_sur, m, S = self._surrogate_pass()
         elbo = naturals = None
         if with_elbo:
             ell_sites, naturals = self._ell_sites_ex(m, S)
-            elbo = self._ell_data(m, S, draws) - ell_sites + lml_sur
+            elbo = self._reduce(self._ell_data(m, S, draws) - ell_sites + lml_sur)
         sites = natgrad_update(
-            self.sites, m, S, lambda mm, SS: self._ell_data(mm, SS, draws), lr,
+            self._local_sites(), m, S, lambda mm, SS: self._ell_data(mm, SS, draws), lr,
             grads=self._site_grads(m, S, hessian, draws), naturals=naturals,
         )
         return sites, elbo
@@ -259,11 +332,14 @@ class CVIGP(nn.Module):
 
     @torch.no_grad()
     def posterior(self) -> GaussianMoments:
+        """q(f)'s head means and variances [T, p] (gathered over the series
+        with a mesh)."""
         _, m, S = self._surrogate_pass()
+        m, v = self._whole(torch.cat([m, torch.diagonal(S, dim1=-2, dim2=-1)], -1)).chunk(2, -1)
         mu = self._mu()
         if mu is not None:
             m = m + mu
-        return GaussianMoments(mean=m, var=torch.diagonal(S, dim1=-2, dim2=-1))
+        return GaussianMoments(mean=m, var=v)
 
     def surrogate_model(self) -> StateSpaceGP:
         """The conjugate surrogate as a `StateSpaceGP` whose observations are

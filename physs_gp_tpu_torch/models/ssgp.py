@@ -7,9 +7,13 @@ and smooths, and unsorts. `parallel=True` runs the parallel scans,
 `sqrt=True` the square-root filters, `chunk_size` the chunked scans; the
 runner pads the augmented grid to a multiple of the chunk. `mesh` (a
 `torch.distributed` DeviceMesh) shards the time axis over its dimension
-`mesh_axis` (`parallel/sharded.py`): the lml then runs the sharded filter,
-the posterior, predictions and samples the sharded filter + smoother; every
-rank calls the model with the same data. `sample_f` draws
+`mesh_axis` (`parallel/sharded.py`): every rank calls the model with the
+same t and Y (Y may also hold just the rank's rows of the series), builds
+and passes its segment of the state-space model alone, and holds its
+segment of the results. The lml is the all-reduced sum of the segments'
+(the gradient of a parameter summed over the ranks in the backward); the
+posterior, predictions and samples gather their head values over the
+full series. `sample_f` draws
 joint posterior sample paths by Matheron pathwise conditioning
 (`ops/sampling.py`). A prior `mean` (one `means.mean.Mean`, or one per
 head) shifts the heads by μ = `head_mean_values`: inference runs on Y - μ,
@@ -37,10 +41,11 @@ class GaussianMoments(NamedTuple):
     var: torch.Tensor
 
 
-def _lgssm(kernel, observation, t):
-    ssm = build_lgssm(kernel, t)
+def _lgssm(kernel, observation, t, seg=None):
+    """The LGSSM over t, or its rows of the segment `seg` alone."""
+    ssm = build_lgssm(kernel, t, seg)
     if observation is not None:
-        ssm = ssm._replace(H=observation.H(kernel))
+        ssm = ssm._replace(H=observation.H(kernel, None if seg is None else slice(seg.lo, seg.hi)))
     return ssm
 
 
@@ -61,6 +66,29 @@ class StateSpaceGP(nn.Module):
         self.mesh = mesh
         self.mesh_axis = mesh_axis
 
+    def _seg(self, T=None):
+        """The rank's segment of the training series (or of a T-step grid),
+        or None without a mesh."""
+        if self.mesh is None:
+            return None
+        from ..parallel import sharded
+
+        return sharded.segment(self.t.shape[0] if T is None else T, self.mesh, self.mesh_axis,
+                               self.chunk_size)
+
+    def _rows(self, x, seg):
+        """x's rows of the segment (all of x without a mesh)."""
+        return x if seg is None else seg.rows(x)
+
+    def _whole(self, x, seg, dim: int = 0):
+        """x over the whole series: gathered along `dim` when it holds the
+        rank's rows."""
+        if seg is None or x.shape[dim] == seg.T:
+            return x
+        from ..parallel import sharded
+
+        return sharded.gather_time(x, self.mesh, seg, self.mesh_axis, dim)
+
     def _mu(self, t=None):
         """The prior-mean matrix μ [T, p] at the heads (at the training
         times, or at `t`), or None for a zero mean."""
@@ -69,35 +97,41 @@ class StateSpaceGP(nn.Module):
         return head_mean_values(self.mean, self.t if t is None else t,
                                 observation=self.observation, p=self.Y.shape[1])
 
-    def _centred(self):
-        """Y - μ: the observations the filters see."""
+    def _centred(self, seg=None):
+        """Y - μ: the observations the filters see (the segment's rows)."""
         mu = self._mu()
-        return self.Y if mu is None else self.Y - mu
+        Y = self._rows(self.Y, seg)
+        return Y if mu is None else Y - self._rows(mu, seg)
 
-    def _run(self, ssm, R, Y):
+    def _run(self, ssm, R, Y, T=None):
+        """The filter + smoother; with a mesh, on the rank's segment of the
+        T-step series (default: the training series)."""
         f, s = run_filter_smoother(ssm, R, Y, parallel=self.parallel, sqrt=self.sqrt,
                                    chunk_size=self.chunk_size, mesh=self.mesh,
-                                   mesh_axis=self.mesh_axis)
+                                   mesh_axis=self.mesh_axis, T=T or self.t.shape[0])
         return ssm, f, s
 
-    def _corr(self):
-        """[p] conditional-variance correction of off-site heads, or None."""
+    def _corr(self, seg=None):
+        """[p] (or [T, p]: the segment's rows) conditional-variance
+        correction of off-site heads, or None."""
         if self.observation is None:
             return None
-        return self.observation.var_correction(self.kernel)
+        return self.observation.var_correction(
+            self.kernel, None if seg is None else slice(seg.lo, seg.hi))
 
-    def _noise(self):
-        """R [T, p, p] of the training rows; off-site heads fold their
-        conditional-variance residual into it."""
-        T, p = self.Y.shape
-        R = self.likelihood.R(T, p)
-        corr = self._corr()
+    def _noise(self, seg=None):
+        """R [T, p, p] of the training rows (the segment's); off-site heads
+        fold their conditional-variance residual into it."""
+        p = self.Y.shape[1]
+        T = self.t.shape[0] if seg is None else seg.hi - seg.lo
+        R = self._rows(self.likelihood.R(T, p), seg)
+        corr = self._corr(seg)
         if corr is not None:
             R = R + torch.diag_embed(corr.expand(T, p))
         return R
 
-    def _filter_inputs(self):
-        return _lgssm(self.kernel, self.observation, self.t), self._noise()
+    def _filter_inputs(self, seg=None):
+        return _lgssm(self.kernel, self.observation, self.t, seg), self._noise(seg)
 
     def _augmented(self, t_new, what: str):
         """(t, Y, R, inv) of the grid augmented with NaN rows at t_new
@@ -107,45 +141,73 @@ class StateSpaceGP(nn.Module):
                 f"{what} does not support time-varying observation operators "
                 "(H [T, p, d]): the training H cannot be reused on the augmented grid"
             )
-        T, p = self.Y.shape
-        R = self._noise()
+        seg = self._seg()
+        T, p = self.t.shape[0], self.Y.shape[1]
+        # the whole series' noise and observations: gathered where the
+        # model holds the rank's rows of them (a CVI surrogate's sites)
+        R = self._whole(self._noise(seg), seg)
         t_all = torch.cat([self.t, t_new])
-        Y_all = torch.cat([self._centred(), self.Y.new_full((t_new.shape[0], p), float("nan"))])
+        Y_all = torch.cat([self._whole(self._centred(seg), seg),
+                           self.Y.new_full((t_new.shape[0], p), float("nan"))])
         eye = torch.eye(p, dtype=R.dtype, device=R.device)
         R_all = torch.cat([R, eye.expand(t_new.shape[0], p, p)])
         order = torch.argsort(t_all, stable=True)
         return t_all[order], Y_all[order], R_all[order], torch.argsort(order)
 
-    def log_marginal_likelihood(self):
-        ssm, R = self._filter_inputs()
-        f, _ = run_filter(ssm, R, self._centred(), parallel=self.parallel, sqrt=self.sqrt,
-                          chunk_size=self.chunk_size, mesh=self.mesh, mesh_axis=self.mesh_axis)
+    def _lml(self):
+        """The lml, of the rank's segment with a mesh."""
+        seg = self._seg()
+        ssm, R = self._filter_inputs(seg)
+        f, _ = run_filter(ssm, R, self._centred(seg), parallel=self.parallel, sqrt=self.sqrt,
+                          chunk_size=self.chunk_size, mesh=self.mesh, mesh_axis=self.mesh_axis,
+                          T=self.t.shape[0])
         return f.lml
+
+    def log_marginal_likelihood(self):
+        if self.mesh is None:
+            return self._lml()
+        from ..parallel import sharded
+
+        return sharded.all_reduce_sum(
+            sharded.shared_params(self, StateSpaceGP._lml, self.mesh, self.mesh_axis),
+            self.mesh, self.mesh_axis)
 
     def get_objective(self):
         return -self.log_marginal_likelihood()
 
     def filter_smooth(self, Y=None):
-        ssm, R = self._filter_inputs()
-        return self._run(ssm, R, self._centred() if Y is None else Y)
+        """(ssm, FilterResult, SmootherResult) of the training series (with
+        a mesh: the rank's segment of each, the filter's lml the segment's)."""
+        seg = self._seg()
+        ssm, R = self._filter_inputs(seg)
+        return self._run(ssm, R, self._centred(seg) if Y is None else self._rows(Y, seg))
 
     def posterior(self) -> GaussianMoments:
-        """Smoothed marginals at the training times: [T, p] mean and var."""
+        """Smoothed marginals at the training times: [T, p] mean and var
+        (gathered over the whole series with a mesh)."""
+        seg = self._seg()
         ssm, _, s = self.filter_smooth()
-        mean = project_mean(ssm.H, s.ms)
+        mean, var = project_mean(ssm.H, s.ms), project_var(ssm.H, s.Ps)
+        corr = self._corr(seg)
+        if corr is not None:
+            var = var + corr
+        if seg is not None:
+            mean, var = self._whole(torch.cat([mean, var], -1), seg).chunk(2, -1)
         mu = self._mu()
         if mu is not None:
             mean = mean + mu
-        var = project_var(ssm.H, s.Ps)
-        corr = self._corr()
-        if corr is not None:
-            var = var + corr
         return GaussianMoments(mean=mean, var=var)
 
     def posterior_blocks(self):
-        """The smoothed state posterior (m [T, d], P [T, d, d]) and the lml."""
+        """The smoothed state posterior (m [T, d], P [T, d, d]) and the lml;
+        with a mesh, the rank's segment of the blocks and the series' lml."""
         _, f, s = self.filter_smooth()
-        return s.ms, s.Ps, f.lml
+        lml = f.lml
+        if self.mesh is not None:
+            from ..parallel import sharded
+
+            lml = sharded.all_reduce_sum(lml, self.mesh, self.mesh_axis)
+        return s.ms, s.Ps, lml
 
     def predict_f(self, t_new) -> GaussianMoments:
         """Posterior at new times: the grid augmented with NaN observations
@@ -153,12 +215,15 @@ class StateSpaceGP(nn.Module):
         unsorted."""
         t_new = t_new.reshape(-1)
         t, Y, R, inv = self._augmented(t_new, "predict_f")
-        T = self.Y.shape[0]
+        T = self.t.shape[0]
         corr = self._corr()
         view = StateSpaceGPView(t=t, Y=Y, R=R, base=self)
         ssm, _, s = view.filter_smooth()
-        mean = (s.ms @ ssm.H.T)[inv][T:]
-        var = diag_from_XDXT(ssm.H, s.Ps)[inv][T:]
+        mean, var = s.ms @ ssm.H.T, diag_from_XDXT(ssm.H, s.Ps)
+        if self.mesh is not None:
+            seg = self._seg(t.shape[0])
+            mean, var = self._whole(torch.cat([mean, var], -1), seg).chunk(2, -1)
+        mean, var = mean[inv][T:], var[inv][T:]
         if self.mean is not None:
             mean = mean + self._mu(t=t_new)
         if corr is not None:
@@ -172,26 +237,31 @@ class StateSpaceGP(nn.Module):
         return f
 
     def _sample_inputs(self, t_new):
-        """(ssm, R, Y, unsort, μ) of the sampling pass: the training grid, or
-        the grid augmented at `t_new` (`_augmented`), whose `unsort` maps the
-        samples back and keeps the new rows; μ is the prior mean at the
-        output rows (None for a zero mean)."""
+        """(ssm, R, Y, unsort, μ, T*) of the sampling pass over T* steps: the
+        training grid, or the grid augmented at `t_new` (`_augmented`), whose
+        `unsort` maps the samples back and keeps the new rows; μ is the
+        prior mean at the output rows (None for a zero mean). With a mesh,
+        ssm, R and Y hold the rank's segment of the grid."""
         if t_new is None:
-            ssm, R = self._filter_inputs()
-            return ssm, R, self._centred(), None, self._mu()
+            seg = self._seg()
+            ssm, R = self._filter_inputs(seg)
+            return ssm, R, self._centred(seg), None, self._mu(), self.t.shape[0]
         t_new = t_new.reshape(-1)
         t, Y, R, inv = self._augmented(t_new, "sample_f at new times")
-        T = self.Y.shape[0]
+        T = self.t.shape[0]
         mu = None if self.mean is None else self._mu(t=t_new)
-        return _lgssm(self.kernel, self.observation, t), R, Y, lambda f: f[:, inv][:, T:], mu
+        seg = self._seg(t.shape[0])
+        return (_lgssm(self.kernel, self.observation, t, seg), self._rows(R, seg),
+                self._rows(Y, seg), lambda f: f[:, inv][:, T:], mu, t.shape[0])
 
     def _sample(self, inputs, eps_x, eps_y, eps_corr):
-        ssm, R, Y, unsort, mu = inputs
+        ssm, R, Y, unsort, mu, n_all = inputs
         xs = matheron_state_samples_given(
             ssm, R, Y, eps_x, eps_y, parallel=self.parallel, sqrt=self.sqrt,
-            chunk_size=self.chunk_size, mesh=self.mesh, mesh_axis=self.mesh_axis,
-        )  # [S, T*, d]
+            chunk_size=self.chunk_size, mesh=self.mesh, mesh_axis=self.mesh_axis, T=n_all,
+        )  # [S, T*, d]: the rank's rows of them with a mesh
         f = xs @ ssm.H.T if ssm.H.dim() == 2 else torch.einsum("tpd,std->stp", ssm.H, xs)
+        f = self._whole(f, self._seg(n_all), dim=1)
         if unsort is not None:
             f = unsort(f)
         if mu is not None:
@@ -221,9 +291,9 @@ class StateSpaceGP(nn.Module):
         eps_corr come from `generator`, a `torch.Generator` on the model's
         device."""
         inputs = self._sample_inputs(t_new)
-        ssm, _, Y, _, _ = inputs
-        n_all, p = Y.shape
-        n_out = n_all if t_new is None else n_all - self.Y.shape[0]
+        ssm, _, Y, _, _, n_all = inputs
+        p = Y.shape[1]
+        n_out = n_all if t_new is None else n_all - self.t.shape[0]
         eps_x = standard_normal(generator, (n_all, n_samples, ssm.A.shape[-1]), Y)
         eps_y = standard_normal(generator, (n_samples, n_all, p), Y)
         eps_corr = None
@@ -239,5 +309,10 @@ class StateSpaceGPView:
         self.t, self.Y, self.R, self.base = t, Y, R, base
 
     def filter_smooth(self):
+        """The base model's pass over the grid (with a mesh: the rank's
+        segment of it)."""
         base = self.base
-        return base._run(_lgssm(base.kernel, base.observation, self.t), self.R, self.Y)
+        T = self.t.shape[0]
+        seg = base._seg(T)
+        return base._run(_lgssm(base.kernel, base.observation, self.t, seg),
+                         base._rows(self.R, seg), base._rows(self.Y, seg), T=T)

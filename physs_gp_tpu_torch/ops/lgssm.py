@@ -1,7 +1,8 @@
 """Linear-Gaussian state-space model assembly from Markov kernels (PyTorch).
 
 Counterpart of `physs_gp_tpu/ops/lgssm.py`: all T transitions are built in
-one batched pass before the filter runs.
+one batched pass before the filter runs; under time-axis sharding, a
+rank's rows of them (`build_lgssm(seg=)`).
 """
 from __future__ import annotations
 
@@ -21,11 +22,20 @@ class LGSSM(NamedTuple):
     P0: torch.Tensor  # [d, d]
 
 
-def build_lgssm(kernel, t) -> LGSSM:
+def build_lgssm(kernel, t, seg=None) -> LGSSM:
     """Discretise a Markov kernel over sorted time points t [T]; dt_0 = 0,
-    so A[0] = I, Q[0] = 0 and the first prediction is the stationary prior."""
+    so A[0] = I, Q[0] = 0 and the first prediction is the stationary prior.
+
+    `seg` (a `parallel.sharded.Segment`): rows [seg.lo, seg.hi) of A and Q
+    alone, built over t[lo - 1 : hi] with the first row dropped (its
+    predecessor's step gives row lo's dt), so they equal those rows of the
+    whole build."""
     from ..kernels.markov import noise_matrix, to_ss, transition_matrix
 
+    if seg is not None:
+        t = t.reshape(-1)
+        ssm = build_lgssm(kernel, t[max(seg.lo - 1, 0):seg.hi])
+        return ssm if seg.lo == 0 else ssm._replace(A=ssm.A[1:], Q=ssm.Q[1:])
     if hasattr(kernel, "to_lgssm"):
         # composite kernels (e.g. SpatioTemporalKernel) own their lifting
         return kernel.to_lgssm(t)

@@ -85,18 +85,22 @@ def _mtv(M, v):
     return (v[..., None, :] @ M)[..., 0, :]
 
 
-def _build_filter_elements(A, Q, H, R, y, mask, m0, P0) -> _FilterElems:
+def _build_filter_elements(A, Q, H, R, y, mask, m0, P0, prior: bool = True) -> _FilterElems:
     """All T filtering elements in one batched pass; the first element folds
-    in the prior (m0, P0)."""
+    in the prior (m0, P0). `prior=False`: every element generic (a later
+    segment of a time-sharded series; m0 and P0 give only dtype and size)."""
     T, d = y.shape[0], m0.shape[-1]
     y0 = torch.where(mask > 0, torch.nan_to_num(y), 0.0)
     Hm = mask[..., :, None] * H  # [T, p, d]
 
-    P_loc = Q.clone()
-    P_loc[0] += A[0] @ P0 @ A[0].T
-    m_first = (A[0] @ m0)[None]
-    # out of place: under `vmap` the first row may be batched where zeros are not
-    m_loc = torch.cat([m_first, m_first.new_zeros((T - 1, d))])
+    if prior:
+        P_loc = Q.clone()
+        P_loc[0] += A[0] @ P0 @ A[0].T
+        m_first = (A[0] @ m0)[None]
+        # out of place: under `vmap` the first row may be batched where zeros are not
+        m_loc = torch.cat([m_first, m_first.new_zeros((T - 1, d))])
+    else:
+        P_loc, m_loc = Q, y.new_zeros((T, d))
 
     HP = bmm(Hm, P_loc)  # [T, p, d]
     S = mask_covariance(bmm(HP, Hm, tb=True) + R, mask)
@@ -119,10 +123,10 @@ def _build_filter_elements(A, Q, H, R, y, mask, m0, P0) -> _FilterElems:
     HtSinvH = bmm(Hm, SinvH, ta=True)
     J = symmetrize(bmm(bmm(A, HtSinvH, ta=True), A))
 
-    # first element: A = 0, eta = 0, J = 0; b/C already hold the updated prior
-    A_out[0] = 0.0
-    eta[0] = 0.0
-    J[0] = 0.0
+    if prior:  # first element: A = 0, eta = 0, J = 0; b/C already hold the updated prior
+        A_out[0] = 0.0
+        eta[0] = 0.0
+        J[0] = 0.0
     return _FilterElems(A=A_out, b=b_out, C=C_out, J=J, eta=eta)
 
 

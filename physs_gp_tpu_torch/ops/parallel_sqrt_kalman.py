@@ -78,9 +78,10 @@ def _masked_noise_factor(R_sqrt, mask):
     return mask[..., :, None] * R_sqrt * mask[..., None, :] + torch.diag_embed(1.0 - mask)
 
 
-def _build_sqrt_elements(A, Q_sqrt, H, R_sqrt, y, mask, m0, U0):
+def _build_sqrt_elements(A, Q_sqrt, H, R_sqrt, y, mask, m0, U0, prior: bool = True):
     """Square-root filtering elements for all T steps; the prior folds into
-    element 0.
+    element 0 (`prior=False`: every element generic, as for a later segment
+    of a time-sharded series).
 
       S^1/2   = tria([H Up, R^1/2])          LQ (information side)
       K S^1/2 = Up (S^-1/2 H Up)ᵀ           one solve against S^1/2
@@ -92,12 +93,15 @@ def _build_sqrt_elements(A, Q_sqrt, H, R_sqrt, y, mask, m0, U0):
     Hm = mask[..., :, None] * H  # [T, p, d]
     Rs_m = _masked_noise_factor(R_sqrt, mask)
 
-    # local prior factor: Qs_k, and tria([A0 U0, Qs_0]) at the first step
-    Up_loc = Q_sqrt.clone()
-    Up_loc[0] = tria(torch.cat([A[0] @ U0, Q_sqrt[0]], -1))
-    m_first = (A[0] @ m0)[None]
-    # out of place: under `vmap` the first row may be batched where zeros are not
-    m_loc = torch.cat([m_first, m_first.new_zeros((T - 1, d))])
+    if prior:
+        # local prior factor: Qs_k, and tria([A0 U0, Qs_0]) at the first step
+        Up_loc = Q_sqrt.clone()
+        Up_loc[0] = tria(torch.cat([A[0] @ U0, Q_sqrt[0]], -1))
+        m_first = (A[0] @ m0)[None]
+        # out of place: under `vmap` the first row may be batched where zeros are not
+        m_loc = torch.cat([m_first, m_first.new_zeros((T - 1, d))])
+    else:
+        Up_loc, m_loc = Q_sqrt, y.new_zeros((T, d))
 
     HU = Hm @ Up_loc  # [T, p, d]
     # [HU, Rs] has full row rank (Rs diag > 0, identity filler included)
@@ -121,10 +125,10 @@ def _build_sqrt_elements(A, Q_sqrt, H, R_sqrt, y, mask, m0, U0):
     eta = _mtv(A, _mtv(M, Sv))  # Aᵀ Hᵀ S^-1 v
     Z = tria(bmm(A, M, ta=True, tb=True))
 
-    # first element: A = 0, eta = 0, Z = 0 (the prior is in b, U)
-    A_out[0] = 0.0
-    eta[0] = 0.0
-    Z[0] = 0.0
+    if prior:  # first element: A = 0, eta = 0, Z = 0 (the prior is in b, U)
+        A_out[0] = 0.0
+        eta[0] = 0.0
+        Z[0] = 0.0
     return _SqrtFilterElems(A=A_out, b=b_out, U=U_out, eta=eta, Z=Z)
 
 

@@ -6,7 +6,9 @@ take and return triangular factors inside; the runner converts at the
 boundary, so models always see covariance Ps (and, from the square-root
 smoothers, the factors in `Ls`). `mesh=` (a `torch.distributed`
 `DeviceMesh`) sends the pass through the time-sharded multi-device scans of
-`parallel/sharded.py`, with T padded to the mesh and chunk grid.
+`parallel/sharded.py`: each rank passes its segment of the T-step series
+(`sharded.segment`) and gets its segment of the results, the last ranks'
+segments padded to the mesh and chunk grid.
 `run_filter(mesh=)` runs the sharded filter alone: the reference's lml
 reads the filter's results of its sharded filter + smoother pass, and
 `jax.jit` drops the smoother from that program; eager PyTorch would not.
@@ -103,13 +105,14 @@ def _run_filter_raw(ssm, R, Y, *, parallel, sqrt, chunk_size):
 
 
 def run_filter(ssm, R, Y, *, parallel=False, sqrt=False, chunk_size=None, mesh=None,
-               mesh_axis: str = "t"):
+               mesh_axis: str = "t", T=None):
     """One filtering pass; returns (FilterResult, aux) with covariance Ps.
-    `mesh`: the time-sharded filter over the mesh dimension `mesh_axis`
-    (aux None)."""
+    `mesh`: the time-sharded filter over the mesh dimension `mesh_axis` on
+    the rank's segment of the T-step series (aux None; as
+    `run_filter_smoother`)."""
     if mesh is not None:
         return _run_sharded(ssm, R, Y, sqrt=sqrt, chunk_size=chunk_size, mesh=mesh,
-                            mesh_axis=mesh_axis, smooth=False)[0], None
+                            mesh_axis=mesh_axis, smooth=False, T=T)[0], None
     T = Y.shape[0]
     pad = _pad_amount(T, chunk_size if parallel else None)
     if pad:
@@ -119,16 +122,19 @@ def run_filter(ssm, R, Y, *, parallel=False, sqrt=False, chunk_size=None, mesh=N
 
 
 def run_filter_smoother(ssm, R, Y, *, parallel=False, sqrt=False,
-                        chunk_size=None, mesh=None, mesh_axis: str = "t"):
+                        chunk_size=None, mesh=None, mesh_axis: str = "t", T=None):
     """Filter + smoother; both results carry covariance Ps.
 
     `mesh`: a `DeviceMesh` routes the pass through the time-sharded scans
     over its dimension `mesh_axis` (`parallel/sharded.py`); `parallel` is
-    implied. Every rank of the mesh calls it with the same global inputs
-    and gets the results over the full T."""
+    implied. The series has T steps (required with a mesh), and every
+    time-indexed input (ssm.A, ssm.Q, a time-varying ssm.H, R, Y)
+    holds the rank's rows of it, `sharded.segment(T, mesh, mesh_axis,
+    chunk_size)`, or all T (then the rank's are taken); the results hold
+    the rank's rows, and the filter's lml is their sum."""
     if mesh is not None:
         return _run_sharded(ssm, R, Y, sqrt=sqrt, chunk_size=chunk_size, mesh=mesh,
-                            mesh_axis=mesh_axis, smooth=True)
+                            mesh_axis=mesh_axis, smooth=True, T=T)
     T = Y.shape[0]
     pad = _pad_amount(T, chunk_size if parallel else None)
     if pad:
@@ -150,16 +156,21 @@ def run_filter_smoother(ssm, R, Y, *, parallel=False, sqrt=False,
     return _unpad(f_cov, T), _unpad(s, T)
 
 
-def _run_sharded(ssm, R, Y, *, sqrt, chunk_size, mesh, mesh_axis, smooth):
-    """The time-sharded pass (the filter alone unless `smooth`), T padded to
-    the mesh and chunk grid; the square-root form factors Q, the
-    mask-decoupled R and P0 as `_run_filter_raw` does."""
+def _run_sharded(ssm, R, Y, *, sqrt, chunk_size, mesh, mesh_axis, smooth, T):
+    """The time-sharded pass (the filter alone unless `smooth`) on the
+    rank's segment, padded to the segment's length on the mesh and chunk
+    grid; the square-root form factors the segment's Q, mask-decoupled R
+    and P0 as `_run_filter_raw` does."""
     from ..parallel import sharded
 
-    T = Y.shape[0]
-    pad = _pad_amount(T, chunk_size, n_shards=sharded.axis_size(mesh, mesh_axis))
-    if pad:
-        ssm, R, Y = _pad_inputs(ssm, R, Y, pad)
+    if T is None:
+        raise ValueError("a time-sharded pass needs T, the series' length over all ranks")
+    seg = sharded.segment(T, mesh, mesh_axis, chunk_size)
+    H = seg.rows(ssm.H) if ssm.H.dim() == 3 else ssm.H
+    ssm, R, Y = ssm._replace(A=seg.rows(ssm.A), Q=seg.rows(ssm.Q), H=H), seg.rows(R), seg.rows(Y)
+    rows = seg.hi - seg.lo
+    if seg.length > rows:
+        ssm, R, Y = _pad_inputs(ssm, R, Y, seg.length - rows)
     if sqrt:
         f, s = sharded.sharded_sqrt_filter_smoother(
             ssm.A, safe_cholesky_rel(ssm.Q), ssm.H, safe_cholesky_rel(_mask_decoupled_R(R, Y)), Y,
@@ -168,4 +179,4 @@ def _run_sharded(ssm, R, Y, *, sqrt, chunk_size, mesh, mesh_axis, smooth):
     else:
         f, s = sharded.sharded_filter_smoother(ssm.A, ssm.Q, ssm.H, R, Y, ssm.m0, ssm.P0, mesh=mesh,
                                                axis=mesh_axis, chunk_size=chunk_size, smooth=smooth)
-    return _unpad(f, T), None if s is None else _unpad(s, T)
+    return _unpad(f, rows), None if s is None else _unpad(s, rows)

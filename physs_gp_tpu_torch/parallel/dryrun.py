@@ -22,7 +22,10 @@ runs, at tiny shapes, each check against the same rank's single-device run:
   2 n, and the sum to that run's sum.
 
 Everything runs in float64; values and gradients must agree to rtol `RTOL`
-on every rank.
+on every rank. Each rank builds and holds its segment of the series: an
+objective is the all-reduced sum of the ranks' shares, a gradient the sum
+of theirs (`sharded.shared_params`), and the CVI checks hold the rank's
+sites to the same rows of the single-device run's.
 """
 from __future__ import annotations
 
@@ -45,8 +48,22 @@ def _matern(dtype, device):
     return Matern32(lengthscale=1.0, variance=1.0, dtype=dtype, device=device)
 
 
-def _objective(f, s):
-    return torch.sum(f.lml) + torch.sum(s.ms[..., -1, :])
+def _objective(f, s, last: bool = True):
+    """sum(f.lml) + sum(s.ms[..., -1, :]); the second term counts only on
+    the rank that holds the series' last step (`last`), and enters every
+    rank's share (times 0 elsewhere) so every rank's backward runs the
+    smoother's exchanges."""
+    return torch.sum(f.lml) + torch.sum(s.ms[..., -1, :]) * float(last)
+
+
+def _shared(mesh, axes, kernel, share):
+    """share(kernel) without a mesh; with one, the all-reduced sum of the
+    ranks' shares, the kernel's gradient summed over the ranks."""
+    if mesh is None:
+        return share(kernel)
+    from .sharded import all_reduce_sum, shared_params
+
+    return all_reduce_sum(shared_params(kernel, share, mesh, axes), mesh, axes)
 
 
 def _grads(value, kernel):
@@ -56,47 +73,63 @@ def _grads(value, kernel):
 def lml_value_and_grad(mesh, t, y, *, sqrt=False, chunk_size=None):
     """(value, gradient) of `f.lml + s.ms[-1].sum()` of a Matérn-3/2 model
     with noise NOISE over t [T], y [T, 1], with respect to the kernel's raw
-    (lengthscale, variance): through the mesh's "t" dimension, or the
-    single-device parallel pass when `mesh` is None."""
+    (lengthscale, variance): through the mesh's "t" dimension (each rank on
+    its segment), or the single-device parallel pass when `mesh` is None."""
     from ..ops.lgssm import build_lgssm
     from ..ops.runner import run_filter_smoother
+    from .sharded import segment
 
+    T = t.shape[0]
     kernel = _matern(t.dtype, t.device)
-    ssm = build_lgssm(kernel, t)
-    R = (NOISE * torch.eye(1, dtype=t.dtype, device=t.device)).expand(t.shape[0], 1, 1)
-    f, s = run_filter_smoother(ssm, R, y, parallel=True, sqrt=sqrt, chunk_size=chunk_size,
-                               mesh=mesh)
-    value = _objective(f, s)
+    seg = None if mesh is None else segment(T, mesh, "t", chunk_size)
+    R = (NOISE * torch.eye(1, dtype=t.dtype, device=t.device)).expand(T, 1, 1)
+
+    def share(k):
+        f, s = run_filter_smoother(build_lgssm(k, t, seg), R, y, parallel=True, sqrt=sqrt,
+                                   chunk_size=chunk_size, mesh=mesh, T=T)
+        return _objective(f, s, seg is None or seg.holds_last)
+
+    value = _shared(mesh, "t", kernel, share)
     return value.detach(), _grads(value, kernel)
 
 
 def composite_value_and_grad(mesh, t, y, *, sqrt=False):
     """(value, gradient) of `sum(f.lml) + sum(s.ms[:, -1])` over B series
     (t [B, T], y [B, T, 1]) sharing one Matérn-3/2 kernel: the composite
-    dp x t pass over the mesh's ("dp", "t") dimensions, or the series one
-    after another on one device when `mesh` is None."""
+    dp x t pass over the mesh's ("dp", "t") dimensions (each rank on its
+    block of the series along "dp" and their segments along "t"), or the
+    series one after another on one device when `mesh` is None."""
     from ..ops.lgssm import build_lgssm
     from ..ops.matrix import safe_cholesky_rel
     from ..ops.runner import run_filter_smoother
-    from .sharded import sharded_filter_smoother, sharded_sqrt_filter_smoother
+    from .sharded import axis_size, segment, sharded_filter_smoother, sharded_sqrt_filter_smoother
 
     kernel = _matern(t.dtype, t.device)
     B, T = t.shape
-    ssms = [build_lgssm(kernel, t[b]) for b in range(B)]
     R = (NOISE * torch.eye(1, dtype=t.dtype, device=t.device)).expand(B, T, 1, 1)
     if mesh is None:
-        value = sum(_objective(*run_filter_smoother(ssm, R[b], y[b], parallel=True, sqrt=sqrt))
-                    for b, ssm in enumerate(ssms))
+        value = sum(_objective(*run_filter_smoother(build_lgssm(kernel, t[b]), R[b], y[b],
+                                                    parallel=True, sqrt=sqrt))
+                    for b in range(B))
         return value.detach(), _grads(value, kernel)
-    A, Q, m0, P0 = (torch.stack([getattr(s, k) for s in ssms]) for k in ("A", "Q", "m0", "P0"))
-    if sqrt:
-        f, s = sharded_sqrt_filter_smoother(
-            A, safe_cholesky_rel(Q), ssms[0].H, safe_cholesky_rel(R), y, m0, safe_cholesky_rel(P0),
-            mesh=mesh, axis="t", batch_axis="dp")
-    else:
-        f, s = sharded_filter_smoother(A, Q, ssms[0].H, R, y, m0, P0, mesh=mesh, axis="t",
-                                       batch_axis="dp")
-    value = _objective(f, s)
+    seg = segment(T, mesh, "t")
+    Bl = B // axis_size(mesh, "dp")
+    mine = slice(mesh.get_local_rank("dp") * Bl, (mesh.get_local_rank("dp") + 1) * Bl)
+    R, y = seg.rows(R[mine], 1), seg.rows(y[mine], 1)
+
+    def share(k):
+        ssms = [build_lgssm(k, tb, seg) for tb in t[mine]]
+        A, Q, m0, P0 = (torch.stack([getattr(s, n) for s in ssms]) for n in ("A", "Q", "m0", "P0"))
+        if sqrt:
+            f, s = sharded_sqrt_filter_smoother(
+                A, safe_cholesky_rel(Q), ssms[0].H, safe_cholesky_rel(R), y, m0,
+                safe_cholesky_rel(P0), mesh=mesh, axis="t", batch_axis="dp")
+        else:
+            f, s = sharded_filter_smoother(A, Q, ssms[0].H, R, y, m0, P0, mesh=mesh, axis="t",
+                                           batch_axis="dp")
+        return _objective(f, s, seg.holds_last)
+
+    value = _shared(mesh, ("t", "dp"), kernel, share)
     return value.detach(), _grads(value, kernel)
 
 
@@ -159,10 +192,12 @@ def dryrun_rank(rank, n, device):
     from ..models.cvi_gp import CVIGP
     from ..trainers.scan import natgrad_scan
     from ..zoo.bench_configs import build_config5
+    from .sharded import segment
 
     dtype = torch.float64
     t, y, t2, y2 = _data(n, dtype, device)
     mesh = make_mesh((n,), ("t",), device)
+    seg = segment(t.shape[0], mesh, "t")
     out = {}
 
     def pair(name, fn):
@@ -173,19 +208,20 @@ def dryrun_rank(rank, n, device):
     pair("lml grad", lambda m: lml_value_and_grad(m, t, y)[1])
 
     def cvi(m, steps):
+        """The ELBOs and the rank's rows of the sites."""
         model = CVIGP.init(t, y, _matern(dtype, device), Poisson(), parallel=True, mesh=m)
         if steps == 1:
             model, elbo = model.step_with_elbo(0.5)
         else:
             model, elbo = natgrad_scan(model, 0.5, n_steps=steps)
-        return torch.cat([elbo.reshape(-1), model.sites.Y.reshape(-1), model.sites.V.reshape(-1)])
+        Y, V = (seg.rows(x) for x in (model.sites.Y, model.sites.V))
+        return torch.cat([elbo.reshape(-1), Y.reshape(-1), V.reshape(-1)])
 
     pair("cvi step", lambda m: cvi(m, 1))
     pair("natgrad_scan 3", lambda m: cvi(m, 3))
 
     def config5(m):
-        model = build_config5(t.shape[0], None, dtype=dtype, device=device)
-        model.mesh = m
+        model = build_config5(t.shape[0], None, dtype=dtype, device=device, mesh=m)
         model, elbos = natgrad_scan(model, 0.5, n_steps=1)
         return elbos
 

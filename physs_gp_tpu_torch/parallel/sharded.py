@@ -19,44 +19,51 @@ then combine the exchanged prefix with each; splitting the blocked schedule
 instead folds the prefix in through the block totals and runs one reduced
 full-width combine, as the single-device scans do.
 
-The prior folds into element 0 on rank 0 only; the other ranks build generic
-elements behind a dummy copy of their step 0. The smoother's boundary
+The prior folds into element 0 on rank 0 only; the other ranks' elements are
+all generic (the builders' `prior=False`). The smoother's boundary
 element of rank k needs rank k + 1's first (A, Q) (square-root: (A, Qs));
 those ride in the filter pass's all_gather with the totals. The last rank's
 terminal element has E = 0. The local scans run the kernels of the
 single-device scans, and the fused combines where `PHYSS_FUSED_COMBINE=1`
 and the shapes allow.
 
-Where the arrays live: every rank holds the global inputs, as a JAX caller
-does; a call slices the rank's segment out and returns the results over the
-full T on every rank (final all_gathers, one for the filter's results and
-one for the smoother's, stand in for the global view of JAX's sharded
-outputs), so whatever follows runs replicated. Gradients follow the
-transpose rules of `shard_map`:
+Where the arrays live: each rank holds only its segment of every array with
+a time dimension (A, Q, R, y, the mask, a time-varying H) and gets only its
+segment of the results; `segment(T, mesh, axis, chunk_size)` says which
+global rows that is, and `ops/runner` pads the last ranks' segments to the
+mesh and chunk grid. Replicated inputs (m0, P0, a shared H) are the same
+on every rank. The filter's `lml` is the segment's sum: an objective is
+`all_reduce_sum` of the ranks' shares. A global view over the full T is
+built only where a caller asks for one (`gather_time`). Gradients:
 
-- a sharded input's gradient is the all_gather of the segments' gradients;
-- a replicated input (m0, P0, a shared H) gets the sum of the gradients of
-  the ranks that share it;
-- the totals' all_gather sums its incoming gradient over the ranks and keeps
-  the rank's own slice (each rank folds a different prefix);
-- a final gather keeps the rank's own slice of its incoming gradient and
-  sums nothing (the downstream is replicated, so that gradient is whole).
+- a segment input's gradient is the rank's own, of the objective's whole
+  (the exchanges' backward carries the other segments' share into it);
+- a replicated input gets the rank's share, and its gradient is the sum of
+  the ranks' shares: `shared_params` sums the gradients of a module's
+  parameters over the ranks in the backward;
+- the totals' all_gather sums its incoming gradient over the ranks and
+  keeps the rank's own slice (each rank folds a different prefix);
+- `all_reduce_sum` passes its incoming gradient through (every rank's
+  share enters the objective once), `gather_time` keeps the rank's own
+  rows of it.
 
-So every rank's gradient of a replicated objective is the single-device
-gradient. A call's backward collectives form one chain (smoother totals,
-filter totals, inputs), and every rank's graph reaches each of them: the
-prefix and suffix folds run the whole chain of totals on every rank and
-index the rank's own entry.
+A call's backward collectives form one chain (smoother totals, filter
+totals, then the parameters' sums), and every rank's graph reaches each of
+them: the prefix and suffix folds run the whole chain of totals on every
+rank and index the rank's own entry. So every rank's share of an objective
+must read the same results: a term that counts on one rank alone (the
+series' last step) enters the others' times 0, or their backward would
+skip the smoother's exchanges and the ranks' collectives would not match.
 
-Memory: a rank holds the global inputs, its segment's pass and the gathered
-results (views of one buffer each for the filter and the smoother).
+Memory: a rank holds its segment's inputs, pass and results: 1 / n of the
+single-device pass's, plus the replicated t and observations of a model.
 `smooth=False` stops after the filter: under `jax.jit` an lml leaves the
 smoother out of the program, and eager PyTorch must be told.
 
-Composite dp x t mode: with [B, T, ...] inputs and `batch_axis=`, the series
-split over a second mesh dimension and each series' scan over `axis`; the
-rank's series run in turn, their exchanges packed into one collective a
-pass.
+Composite dp x t mode: with [B, T, ...] inputs and `batch_axis=`, the rank
+holds its block of the series along `batch_axis` and their segments along
+`axis`; the rank's series run in turn, their exchanges packed into one
+collective a pass.
 
 Backends: NCCL takes the device tensors; every other backend (gloo: ranks
 that share one card, or run on the CPU) exchanges host copies of the
@@ -66,6 +73,7 @@ from __future__ import annotations
 
 import math
 import time
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -105,6 +113,13 @@ __all__ = [
     "sharded_filter_smoother",
     "sharded_sqrt_filter_smoother",
     "axis_size",
+    "Segment",
+    "segment",
+    "gather_time",
+    "all_reduce_sum",
+    "all_ranks",
+    "all_gather_totals",
+    "shared_params",
     "exchange_stats",
     "reset_exchange_stats",
 ]
@@ -116,6 +131,44 @@ def axis_size(mesh, axis: str) -> int:
     if axis not in names:
         raise ValueError(f"the mesh has no dimension named {axis!r} (it has {names})")
     return mesh.shape[names.index(axis)]
+
+
+class Segment(NamedTuple):
+    """The rank's share of a T-step series: global rows [lo, hi), and
+    `length` rows on the grid padded to the mesh and the chunks, whose
+    padded tail (length - (hi - lo) rows) lies on the last ranks."""
+
+    T: int
+    lo: int
+    hi: int
+    length: int
+
+    def rows(self, x, dim: int = 0):
+        """The rank's rows of x along `dim`: x holds the whole series (T
+        rows, sliced here) or already the rank's rows (returned as it is)."""
+        if x.shape[dim] == self.T:
+            return x.narrow(dim, self.lo, self.hi - self.lo)
+        if x.shape[dim] != self.hi - self.lo:
+            raise ValueError(f"{x.shape[dim]} rows along dim {dim}: neither the series' {self.T} "
+                             f"nor the segment's {self.hi - self.lo}")
+        return x
+
+    @property
+    def holds_last(self) -> bool:
+        """Whether the series' last step is among the rank's rows."""
+        return self.lo < self.T == self.hi
+
+
+def segment(T: int, mesh, axis: str = "t", chunk_size: int | None = None) -> Segment:
+    """The rank's segment of a T-step series split over the mesh dimension
+    `axis`, with T padded as `ops/runner` pads it (`_pad_amount`: equal
+    segments, each a multiple of `chunk_size`)."""
+    from ..ops.runner import _pad_amount
+
+    n = axis_size(mesh, axis)
+    length = (T + _pad_amount(T, chunk_size, n_shards=n)) // n
+    k = mesh.get_local_rank(axis)
+    return Segment(T, min(k * length, T), min((k + 1) * length, T), length)
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +185,9 @@ def reset_exchange_stats() -> None:
 def exchange_stats() -> dict:
     """{kind: {"calls", "bytes", "seconds"}} of this process's collectives
     since the last reset, by kind: "totals" (the passes' exchanges of chunk
-    totals, with their backward), "results" (the gather of the results to
-    full T), "grads" (the inputs' gradients). `bytes` counts what the rank
+    totals, with their backward, and the sums of objectives), "results"
+    (global views over the full T, `gather_time`), "grads" (the sums of
+    replicated parameters' gradients). `bytes` counts what the rank
     received; `seconds` the host wall from a synchronised device to the end
     of the exchange, host copies included."""
     return {k: dict(v) for k, v in _EXCHANGE.items()}
@@ -173,13 +227,13 @@ def _all_gather(x, group, kind: str):
     return out
 
 
-def _all_reduce(x, group, kind: str):
-    """The sum of x over the ranks of the group."""
+def _all_reduce(x, group, kind: str, op=dist.ReduceOp.SUM):
+    """x reduced (summed) over the ranks of the group."""
     _sync(x)
     t0 = time.perf_counter()
     host = _via_host(x, group)
     buf = x.detach().to("cpu" if host else x.device, copy=True).contiguous()
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, op=op, group=group)
     if host:
         buf = buf.to(x.device)
     _sync(buf)
@@ -187,72 +241,120 @@ def _all_reduce(x, group, kind: str):
     return buf
 
 
-def _gather_cat(x, dim: int, group, kind: str):
-    """The ranks' blocks of x concatenated along `dim`."""
-    g = _all_gather(x, group, kind).movedim(0, dim)
-    shape = list(x.shape)
-    shape[dim] *= g.shape[dim]
-    return g.reshape(shape)
+def _groups(mesh, axes):
+    return [mesh.get_group(a) for a in ((axes,) if isinstance(axes, str) else axes)]
 
 
-class _Layout:
-    """Which block of the global arrays the rank holds: the time segment
-    `t_idx` of `n` along the mesh dimension `axis`, and in composite mode
-    the batch block `b_idx` of `n_b` along `batch_axis`."""
-
-    def __init__(self, mesh, axis: str, batch_axis: str | None):
-        self.n = axis_size(mesh, axis)
-        self.t_group, self.t_idx = mesh.get_group(axis), mesh.get_local_rank(axis)
-        self.batched = batch_axis is not None
-        if self.batched:
-            self.n_b = axis_size(mesh, batch_axis)
-            self.b_group, self.b_idx = mesh.get_group(batch_axis), mesh.get_local_rank(batch_axis)
-
-    def block(self, x, tdim, bdim):
-        if bdim is not None:
-            size = x.shape[bdim] // self.n_b
-            x = x.narrow(bdim, self.b_idx * size, size)
-        if tdim is not None:
-            size = x.shape[tdim] // self.n
-            x = x.narrow(tdim, self.t_idx * size, size)
-        return x
-
-    def gather(self, x, tdim, bdim, kind: str):
-        """Inverse of `block`: the blocks of every rank joined."""
-        if tdim is not None:
-            x = _gather_cat(x, tdim, self.t_group, kind)
-        if bdim is not None:
-            x = _gather_cat(x, bdim, self.b_group, kind)
-        return x
-
-
-class _Enter(torch.autograd.Function):
-    """Forward: the rank's block of each global input; `dims` holds each
-    input's (time, batch) dimension, None where it is replicated. Backward:
-    a sharded dimension's gradient is the gather of the blocks' gradients, a
-    replicated one's the sum over the ranks that share it."""
+class _AllReduceSum(torch.autograd.Function):
+    """Forward: x summed over the ranks of each group in turn. Backward: the
+    incoming gradient as it is (the sum is replicated, and each rank's share
+    enters it once)."""
 
     @staticmethod
-    def forward(ctx, layout, dims, *xs):
-        ctx.layout, ctx.dims = layout, dims
-        outs = tuple(layout.block(x, *d).clone() for x, d in zip(xs, dims))
-        ctx.mark_non_differentiable(*[o for o, x in zip(outs, xs) if not x.requires_grad])
-        return outs
+    def forward(ctx, x, groups):
+        for g in groups:
+            x = _all_reduce(x, g, "totals")
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_reduce_sum(x, mesh, axes="t"):
+    """The sum of the ranks' x over the mesh dimension(s) `axes` (a name or
+    a tuple of names): an objective from the segments' shares. Its backward
+    hands every rank the incoming gradient."""
+    return _AllReduceSum.apply(x, _groups(mesh, axes))
+
+
+def all_ranks(flag, mesh, axes="t"):
+    """Whether a bool tensor holds on every rank of the mesh dimension(s)
+    `axes` (elementwise), so that every rank takes the same branch."""
+    x = flag.to(torch.int32)
+    for g in _groups(mesh, axes):
+        x = _all_reduce(x, g, "totals", op=dist.ReduceOp.MIN)
+    return x > 0
+
+
+class _SumGrads(torch.autograd.Function):
+    """Forward: the tensors as they are. Backward: each incoming gradient
+    summed over the ranks of the groups, in one packed collective."""
+
+    @staticmethod
+    def forward(ctx, groups, *xs):
+        ctx.groups = groups
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
     def backward(ctx, *gs):
-        lay = ctx.layout
-        grads = []
-        for need, g, (tdim, bdim) in zip(ctx.needs_input_grad[2:], gs, ctx.dims):
-            if not need:
-                grads.append(None)
-                continue
-            if tdim is None:
-                g = _all_reduce(g, lay.t_group, "grads")
-            if lay.batched and bdim is None:
-                g = _all_reduce(g, lay.b_group, "grads")
-            grads.append(lay.gather(g, tdim, bdim, "grads"))
-        return (None, None, *grads)
+        flat, shapes = _pack_vector(gs)
+        for g in ctx.groups:
+            flat = _all_reduce(flat, g, "grads")
+        return (None, *_unpack(flat, shapes))
+
+
+class _Bound(torch.nn.Module):
+    """`fn(module)` as a module call, for `torch.func.functional_call`."""
+
+    def __init__(self, module, fn):
+        super().__init__()
+        self.module, self.fn = module, fn
+
+    def forward(self):
+        return self.fn(self.module)
+
+
+def shared_params(module, fn, mesh, axes="t"):
+    """`fn(module)`, the module's parameters replicated over the ranks of
+    the mesh dimension(s) `axes`: each rank's gradient of them is its
+    segment's share, and the backward sums the shares, so every rank gets
+    the gradient of the whole objective. Without grad mode, `fn(module)`."""
+    named = [(k, p) for k, p in module.named_parameters() if p.requires_grad]
+    if not named or not torch.is_grad_enabled():
+        return fn(module)
+    entered = _SumGrads.apply(_groups(mesh, axes), *[p for _, p in named])
+    return torch.func.functional_call(
+        _Bound(module, fn), {f"module.{k}": v for (k, _), v in zip(named, entered)}, ())
+
+
+class _GatherTime(torch.autograd.Function):
+    """Forward: the ranks' rows joined over the full T along `dim`.
+    Backward: the rank's own rows of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, seg, group, dim):
+        ctx.seg, ctx.dim = seg, dim
+        rows = seg.hi - seg.lo
+        if rows < seg.length:  # every rank sends `length` rows
+            pad = list(x.shape)
+            pad[dim] = seg.length - rows
+            x = torch.cat([x, x.new_zeros(pad)], dim)
+        g = _all_gather(x, group, "results").movedim(0, dim)
+        shape = list(x.shape)
+        shape[dim] *= g.shape[dim]
+        return g.reshape(shape).narrow(dim, 0, seg.T)
+
+    @staticmethod
+    def backward(ctx, g):
+        seg = ctx.seg
+        return g.narrow(ctx.dim, seg.lo, seg.hi - seg.lo), None, None, None
+
+
+def gather_time(x, mesh, seg: Segment, axis: str = "t", dim: int = 0):
+    """The global view of the ranks' rows of a series (x: this rank's rows
+    of `seg` along `dim`): all T rows on every rank. One all_gather, counted
+    as "results"; its backward keeps the rank's own rows."""
+    return _GatherTime.apply(x, seg, mesh.get_group(axis), dim)
+
+
+class _Layout:
+    """The rank's place along the mesh dimension `axis`: its time segment
+    `t_idx` of `n`."""
+
+    def __init__(self, mesh, axis: str):
+        self.n = axis_size(mesh, axis)
+        self.t_group, self.t_idx = mesh.get_group(axis), mesh.get_local_rank(axis)
 
 
 class _GatherTotals(torch.autograd.Function):
@@ -271,20 +373,10 @@ class _GatherTotals(torch.autograd.Function):
         return _all_reduce(g, lay.t_group, "totals")[lay.t_idx], None
 
 
-class _GatherResults(torch.autograd.Function):
-    """Forward: the ranks' result blocks ([Tl, K], or [Bl, Tl, K] in
-    composite mode) joined over the full T (and B). Backward: the rank's own
-    block of the incoming gradient."""
-
-    @staticmethod
-    def forward(ctx, x, layout):
-        ctx.layout = layout
-        ctx.dims = (1, 0) if layout.batched else (0, None)
-        return layout.gather(x, *ctx.dims, "results")
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.layout.block(g, *ctx.dims), None
+def all_gather_totals(x, mesh, axis: str = "t"):
+    """[n, *x.shape]: every rank's x along the mesh dimension `axis` (a
+    segment's total for a scan across segments), counted as "totals"."""
+    return _GatherTotals.apply(x, _Layout(mesh, axis))
 
 
 # ---------------------------------------------------------------------------
@@ -298,22 +390,6 @@ def _leaves(tree):
 
 def _like(tree, leaves):
     return leaves[0] if isinstance(tree, torch.Tensor) else type(tree)(*leaves)
-
-
-def _segment_elements(build, t_idx, A, Q, H, R, y, mask, m0, P0):
-    """The segment's filtering elements: the prior folds into element 0 of
-    the first segment; the others are generic, built behind a dummy copy of
-    their step 0 (which the builders treat as the series' first step) whose
-    element is dropped."""
-    if t_idx == 0:
-        return build(A, Q, H, R, y, mask, m0, P0)
-
-    def pad(x):
-        return torch.cat([x[:1], x])
-
-    elems = build(pad(A), pad(Q), pad(H), pad(R), pad(y), pad(mask),
-                  torch.zeros_like(m0), torch.zeros_like(P0))
-    return _map(lambda x: x[1:], elems)
 
 
 def _local_pass(op, elems, ident, chunk_size):
@@ -427,8 +503,9 @@ class _CovSegment:
 
     def filter_pass(self):
         to_scan, op, ident, _ = self.fscan
-        elems = _segment_elements(self._build, self.lay.t_idx, self.A, self.Q, self.H, self.R,
-                                  self.y, self.mask, self.m0, self.P0)
+        # the prior folds into element 0 of the first segment alone
+        elems = self._build(self.A, self.Q, self.H, self.R, self.y, self.mask, self.m0, self.P0,
+                            prior=self.lay.t_idx == 0)
         self.passes, total = _local_pass(op, to_scan(elems), ident, self.chunk)
         return [*_leaves(total), self.A[0], self.Q[0]]
 
@@ -551,24 +628,17 @@ def _sharded(segment_cls, A, Q, H, R, y, m0, P0, mesh, axis, mask, chunk_size, b
     if batched and batch_axis is None:
         raise ValueError("batched inputs ([B, T, ...]) need batch_axis= (a mesh dimension name "
                          "for the data-parallel dimension)")
-    lay = _Layout(mesh, axis, batch_axis if batched else None)
-    T = y.shape[-2]
-    if T % lay.n:
-        raise ValueError(f"T={T} must divide over {lay.n} '{axis}' shards")
-    if batched and A.shape[0] % lay.n_b:
-        raise ValueError(f"B={A.shape[0]} must divide over {lay.n_b} '{batch_axis}' shards")
+    lay = _Layout(mesh, axis)
     if mask is None:
         mask = observation_mask(y, P0.dtype)
-    t, b = (1, 0) if batched else (0, None)
-    tv_H = H.dim() == (4 if batched else 3)
-    h_dims = (t, b) if tv_H else ((None, None) if H.dim() == 2 else (None, 0))
-    dims = ((t, b), (t, b), h_dims, (t, b), (t, b), (t, b), (None, b), (None, b))
-    local = _Enter.apply(lay, dims, A, Q, H, R, y, mask, m0, P0)
+    inputs = (A, Q, H, R, y, mask, m0, P0)
     if batched:
-        series = [[x if d[1] is None else x[i] for x, d in zip(local, dims)]
-                  for i in range(local[0].shape[0])]
+        # H shared by the series ([p, d]) or one per series ([B, p, d] or [B, T, p, d])
+        per_series = [True, True, H.dim() > 2, True, True, True, True, True]
+        series = [[x[i] if b else x for x, b in zip(inputs, per_series)]
+                  for i in range(A.shape[0])]
     else:
-        series = [local]
+        series = [inputs]
     segs = [segment_cls(lay, chunk_size, *s) for s in series]
 
     def exchange(parts):
@@ -576,23 +646,17 @@ def _sharded(segment_cls, A, Q, H, R, y, m0, P0, mesh, axis, mask, chunk_size, b
         got = _GatherTotals.apply(torch.stack(flats), lay)  # [n, series, K]
         return [_unpack(got[:, i], shapes[i]) for i in range(len(parts))]
 
+    def joined(parts):
+        """The series' results, stacked in composite mode."""
+        return [torch.stack(xs) for xs in zip(*parts)] if batched else parts[0]
+
     got = exchange([s.filter_pass() for s in segs])
-    filt = [s.filter_results(g) for s, g in zip(segs, got)]  # ms, Ps, lmls
-
-    def gather(parts):
-        """The series' per-step results over the full T (and B): views of
-        one gathered buffer. The filter's and the smoother's go apart, so a
-        gradient of the filter's results leaves the smoother's graph out."""
-        shapes = [tuple(x.shape[1:]) for x in parts[0]]
-        rows = [torch.cat([x.reshape(x.shape[0], -1) for x in p], -1) for p in parts]
-        return _unpack(_GatherResults.apply(torch.stack(rows) if batched else rows[0], lay), shapes)
-
-    ms, Ps, lmls = gather(filt)
+    ms, Ps, lmls = joined([s.filter_results(g) for s, g in zip(segs, got)])
     f = FilterResult(ms=ms, Ps=Ps, lml=torch.sum(lmls, -1), lmls=lmls)
     if not smooth:
         return f, None
     got = exchange([s.smoother_pass() for s in segs])
-    sms, sPs, *rest = gather([s.finish(g) for s, g in zip(segs, got)])  # [sLs,] E
+    sms, sPs, *rest = joined([s.finish(g) for s, g in zip(segs, got)])  # [sLs,] E
     return f, SmootherResult(ms=sms, Ps=sPs, Gs=rest[-1], Ls=rest[0] if len(rest) == 2 else None)
 
 
@@ -601,21 +665,23 @@ def sharded_filter_smoother(A, Q, H, R, y, m0, P0, mesh, axis: str = "t", mask=N
                             smooth: bool = True):
     """Time-sharded parallel filter + smoother in covariance form.
 
-    A, Q: [T, d, d]; H: [p, d] or [T, p, d]; R: [T, p, p]; y: [T, p] (NaN =
-    missing); m0 [d], P0 [d, d]. `mesh` is a `DeviceMesh` with a dimension
-    named `axis` of n ranks, and T must divide by n. Every rank of the mesh
-    calls it with the same global inputs; each returns (FilterResult,
-    SmootherResult) over the full T.
+    `mesh` is a `DeviceMesh` with a dimension named `axis` of n ranks; rank
+    k of it passes its segment of the series, L steps (the same L on every
+    rank; `ops/runner` pads the last segments), and gets its segment of
+    the results. A, Q: [L, d, d]; H: [p, d] (every rank the same) or the
+    segment's [L, p, d]; R: [L, p, p]; y: [L, p] (NaN = missing); m0 [d],
+    P0 [d, d] the series' prior, the same on every rank. The filter's `lml`
+    is the segment's sum (`all_reduce_sum` of it is the series').
 
     Composite dp x t mode: every per-series array with a leading batch
-    dimension ([B, T, ...]; m0 / P0 as [B, d] / [B, d, d]; H shared [p, d],
-    per series [B, p, d] or time-varying [B, T, p, d]) plus `batch_axis=`
-    naming a second mesh dimension: B splits over `batch_axis`, each
-    series' scan over `axis`.
+    dimension ([B, L, ...]; m0 / P0 as [B, d] / [B, d, d]; H shared [p, d],
+    per series [B, p, d] or time-varying [B, L, p, d]) plus `batch_axis=`
+    naming a second mesh dimension: the rank passes its block of B series
+    along `batch_axis`, and their segments along `axis`.
 
     `chunk_size` chunks each rank's local scan (an element carry from chunk
     to chunk: the state entering the segment is unknown until the
-    exchange); it must divide T / n (`ops/runner` pads to that grid).
+    exchange); it must divide L.
 
     `smooth=False` runs the filter alone and returns (FilterResult, None):
     what remains of the pass under `jax.jit` when only the filter's results

@@ -55,9 +55,15 @@ def _sites_ok(new_sites, old_sites, batch_dims: int = 0):
 @torch.no_grad()
 def _guard_sites(model, old_sites) -> None:
     """Keep the model's new sites if they pass `_sites_ok`, else the old;
-    per member of a stacked model (`models/stacked.py`)."""
+    per member of a stacked model (`models/stacked.py`). A time-sharded
+    model (`mesh`) holds its segment of the sites: the check holds for the
+    series when it holds on every rank, so every rank takes one branch."""
     batch_dims = getattr(model, "batch_dims", 0)
     ok = _sites_ok(model.sites, old_sites, batch_dims)
+    if getattr(model, "mesh", None) is not None:
+        from ..parallel import sharded
+
+        ok = sharded.all_ranks(ok, model.mesh, model.mesh_axis)
 
     def pick(new, old):
         return torch.where(ok.reshape(ok.shape + (1,) * (new.dim() - batch_dims)), new, old)

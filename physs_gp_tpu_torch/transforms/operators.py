@@ -168,32 +168,40 @@ class StateObservation(nn.Module):
     """Observation matrix H stacked from heads: one row per `.row` head, a
     block per `.rows` head. H is [n_obs, d_state], or [T, n_obs, d_state]
     when a head is time-varying (its block is [T, N, d]; static blocks are
-    broadcast over T)."""
+    broadcast over T). `steps` (a slice) builds a time-varying H over those
+    steps alone (a rank's segment under time-axis sharding)."""
 
     def __init__(self, heads):
         super().__init__()
         self.heads = nn.ModuleList(heads)
 
-    def H(self, kernel):
-        blocks = [h.rows(kernel) if hasattr(h, "rows") else h.row(kernel)[None, :]
+    def H(self, kernel, steps: slice | None = None):
+        blocks = [h.rows(kernel, steps) if isinstance(h, ScatteredSpatialHead)
+                  else h.rows(kernel) if hasattr(h, "rows") else h.row(kernel)[None, :]
                   for h in self.heads]
         T = next((b.shape[0] for b in blocks if b.dim() == 3), None)
         if T is None:
             return torch.cat(blocks, 0)
         return torch.cat([b if b.dim() == 3 else b.expand((T,) + b.shape) for b in blocks], 1)
 
-    def var_correction(self, kernel):
-        """[p] or [T, p] conditional-variance correction per head row, or
-        None when every head reads the state exactly."""
+    def var_correction(self, kernel, steps: slice | None = None):
+        """[p] or [T, p] conditional-variance correction per head row (over
+        `steps` alone, as `H`), or None when every head reads the state
+        exactly."""
         parts, any_corr = [], False
         for h in self.heads:
-            if hasattr(h, "var_correction") and getattr(h, "correction", True):
+            if isinstance(h, ScatteredSpatialHead) and h.correction:
+                parts.append(h.var_correction(kernel, steps))
+                any_corr = True
+            elif hasattr(h, "var_correction") and getattr(h, "correction", True):
                 parts.append(h.var_correction(kernel))
                 any_corr = True
             elif hasattr(h, "rows"):
                 pts = getattr(h, "points", None)
                 # reads the state exactly: a zero per row (per step and row
                 # for per-step points; a point-free head counts its rows)
+                if pts is not None and pts.dim() == 3 and steps is not None:
+                    pts = pts[steps]
                 parts.append(h.rows(kernel).shape[-2] if pts is None
                              else tuple(pts.shape[:-1]))
             else:
@@ -259,21 +267,24 @@ class ScatteredSpatialHead(nn.Module):
         self.s_op = s_op
         self.correction = correction
 
-    def _flat(self):
-        return self.points.reshape(-1, self.points.shape[-1])
+    def _points(self, steps):
+        return self.points if steps is None else self.points[steps]
 
-    def rows(self, kernel):
-        T, Ng = self.points.shape[:2]
-        w = kernel.spatial_weights(self._flat(), self.s_op)  # [T*Ng, Ns]
+    def rows(self, kernel, steps: slice | None = None):
+        """H's block [T, Ng, Ns·d], or over `steps` alone."""
+        pts = self._points(steps)
+        T, Ng = pts.shape[:2]
+        w = kernel.spatial_weights(pts.reshape(-1, pts.shape[-1]), self.s_op)  # [T*Ng, Ns]
         t_row = derivative_row(kernel.k_time, self.t_order)  # [d]
         return (w[:, :, None] * t_row).reshape(T, Ng, -1)
 
-    def var_correction(self, kernel):
+    def var_correction(self, kernel, steps: slice | None = None):
+        pts = self._points(steps)
         if not self.correction:
-            return self.points.new_zeros(self.points.shape[:2])
+            return pts.new_zeros(pts.shape[:2])
         return kernel.conditional_var_correction(
-            self._flat(), self.s_op, self.t_order
-        ).reshape(self.points.shape[:2])
+            pts.reshape(-1, pts.shape[-1]), self.s_op, self.t_order
+        ).reshape(pts.shape[:2])
 
 
 class ScaledHead(Entries):

@@ -17,9 +17,10 @@ import numpy as np
 import torch
 
 
-def build_config5(T, chunk, parallel=True, dtype=None, sqrt=False, device="cuda"):
+def build_config5(T, chunk, parallel=True, dtype=None, sqrt=False, device="cuda", mesh=None):
     """The config-5 CVI model on `device` (the card unless the caller asks
-    for the CPU); `sqrt=True` runs the square-root filter and smoother."""
+    for the CPU); `sqrt=True` runs the square-root filter and smoother;
+    `mesh` shards its time axis over the mesh dimension "t"."""
     from ..kernels.matern import Matern32
     from ..kernels.rbf import RBF
     from ..kernels.spatio_temporal import SpatioTemporalKernel
@@ -69,12 +70,13 @@ def build_config5(T, chunk, parallel=True, dtype=None, sqrt=False, device="cuda"
     )
     return CVIGP.init(torch.as_tensor(t, **kw), torch.as_tensor(Y, **kw), kern, lik,
                       observation=obs, parallel=parallel, chunk_size=chunk,
-                      sqrt=sqrt)
+                      sqrt=sqrt, mesh=mesh)
 
 
-def build_temporal(T, chunk, parallel=True, dtype=None, sqrt=False, device="cuda"):
+def build_temporal(T, chunk, parallel=True, dtype=None, sqrt=False, device="cuda", mesh=None):
     """The temporal Poisson CVI model on `device` (the card unless the caller
-    asks for the CPU); `sqrt=True` runs the square-root filter and smoother."""
+    asks for the CPU); `sqrt=True` runs the square-root filter and smoother;
+    `mesh` shards its time axis over the mesh dimension "t"."""
     from ..kernels.matern import Matern32
     from ..likelihoods.nongaussian import Poisson
     from ..models.cvi_gp import CVIGP
@@ -88,5 +90,5 @@ def build_temporal(T, chunk, parallel=True, dtype=None, sqrt=False, device="cuda
     return CVIGP.init(
         torch.as_tensor(t, **kw), torch.as_tensor(y, **kw)[:, None],
         Matern32(lengthscale=10.0, variance=1.0, **kw), Poisson(),
-        parallel=parallel, chunk_size=chunk, sqrt=sqrt,
+        parallel=parallel, chunk_size=chunk, sqrt=sqrt, mesh=mesh,
     )

@@ -2,9 +2,14 @@
 
 `parallel/sharded.py` (both forms, chunked and not, a time-varying H, the
 composite dp x t mode), the runner's mesh branch and `_pad_amount`,
-`StateSpaceGP(mesh=)` and its lml gradient, `CVIGP.init(mesh=)`, and
-`matheron_state_samples_given(mesh=)` (fed the JAX key's draws and held to
-the JAX package's unsharded samples for that key).
+`StateSpaceGP(mesh=)` and its lml gradient, `CVIGP.init(mesh=)` with a step
+and a `natgrad_scan`, and `matheron_state_samples_given(mesh=)` (fed the
+JAX key's draws and held to the JAX package's unsharded samples for that
+key). Each rank holds its segment of the series: its rows of every result
+are held to the same rows of the JAX output, every result, site and input
+array of a rank has its segment's rows, no global view is gathered on the
+lml, gradient and step paths, and a segment's LGSSM equals the same rows
+of the whole series' build bit for bit.
 
 The JAX side runs the JAX package's own sharded functions on the conftest's
 8-virtual-device mesh, on as many devices as the port has ranks; gradients
@@ -34,6 +39,7 @@ from physs_gp_tpu.models import StateSpaceGP as JSSGP  # noqa: E402
 from physs_gp_tpu.ops.lgssm import build_lgssm as jbuild_lgssm  # noqa: E402
 from physs_gp_tpu.ops.runner import _pad_amount as jpad_amount  # noqa: E402
 from physs_gp_tpu.ops.sampling import matheron_state_samples as jmatheron  # noqa: E402
+from physs_gp_tpu.trainers.scan import natgrad_scan as jnatgrad_scan  # noqa: E402
 from physs_gp_tpu.parallel.sharded import sharded_filter_smoother as jsharded  # noqa: E402
 from physs_gp_tpu.parallel.sharded import sharded_sqrt_filter_smoother as jsharded_sqrt  # noqa: E402
 from physs_gp_tpu.utils.params import positive_param as jpositive  # noqa: E402
@@ -43,6 +49,7 @@ from physs_gp_tpu_torch.ops.matrix import safe_cholesky, safe_cholesky_rel  # no
 from physs_gp_tpu_torch.ops.runner import _pad_amount  # noqa: E402
 from physs_gp_tpu_torch.parallel.dryrun import RTOL  # noqa: E402
 from physs_gp_tpu_torch.parallel.ranks import start_ranks  # noqa: E402
+from physs_gp_tpu_torch.parallel.sharded import Segment  # noqa: E402
 
 import sharded_ranks  # noqa: E402
 
@@ -103,6 +110,21 @@ def _cvi_inputs():
     return t, rng.poisson(np.exp(np.sin(t))).astype(np.float64)[:, None]
 
 
+def _loaded_sites():
+    """Sites of the whole 102-step series in the JAX package's layout (Y
+    [T, 1], V [T, 1, 1]), from a seed."""
+    rng = np.random.default_rng(5)
+    return {"site_Y": rng.normal(size=(102, 1)), "site_V": rng.uniform(0.5, 2.0, (102, 1, 1))}
+
+
+def _predict_inputs():
+    """10 new times over the CVI series' span and the draws of 2 samples on
+    its augmented grid (112 steps, Matérn-3/2: d = 2)."""
+    rng = np.random.default_rng(6)
+    return {"t_new": np.sort(rng.uniform(0, 12, 10)), "eps_x": rng.normal(size=(112, 2, 2)),
+            "eps_y": rng.normal(size=(2, 112, 1))}
+
+
 def _composite_inputs(sqrt):
     """Two series of 32 steps (Matérn-3/2, noise 0.1, one missing value),
     batched; the square-root form takes jittered Cholesky factors."""
@@ -153,6 +175,9 @@ def _cases():
     cases += [(f"grad {sqrt}", "case_grad", "t4",
                dict(t=t, y=y, log_ls=GRAD_AT, noise=0.05, sqrt=sqrt)) for sqrt in (False, True)]
     cases += [("cvi", "case_cvi", "t4", dict(t=cvi_t, y=cvi_y, sqrt=False))]
+    cases += [("natgrad3", "case_cvi", "t4", dict(t=cvi_t, y=cvi_y, sqrt=False, steps=3))]
+    cases += [("load", "case_load", "t4", dict(t=cvi_t, y=cvi_y, **_loaded_sites()))]
+    cases += [("predict", "case_predict", "t4", dict(t=cvi_t, y=cvi_y, **_predict_inputs()))]
     for sqrt in (False, True):
         a, t2 = _composite_inputs(sqrt)
         cases += [(f"composite {sqrt}", "case_composite", "dp2 t2",
@@ -176,6 +201,11 @@ def _close(got, want, rtol, atol, what):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=what)
 
 
+def _mine(x, out, dim=0):
+    """The rank's rows [lo, hi) of a whole series' x (numpy) along `dim`."""
+    return np.take(np.asarray(x), np.arange(out["lo"], out["hi"]), axis=dim)
+
+
 # ---------------------------------------------------------------------------
 # the sharded pass against the JAX package's
 # ---------------------------------------------------------------------------
@@ -195,7 +225,8 @@ def test_sharded_pass_matches_jax(port, n, chunk, sqrt):
     for rank, out in enumerate(port.wait()):
         got = out[f"pass {n} {chunk} {sqrt}"]
         for k, (rtol, atol) in PASS_TOL.items():
-            _close(got[k], _np(want[k]), rtol, atol, f"rank {rank}: {k}")
+            w = _np(want[k]) if k == "lml" else _mine(want[k], got)
+            _close(got[k], w, rtol, atol, f"rank {rank}: {k}")
 
 
 def test_sharded_time_varying_H(port):
@@ -207,8 +238,10 @@ def test_sharded_time_varying_H(port):
         *[jnp.asarray(a[k]) for k in ("A", "Q", "H", "R", "y", "m0", "P0")])
     want = {"lml": f.lml, "fms": f.ms, "fPs": f.Ps, "sms": s.ms, "sPs": s.Ps}
     for rank, out in enumerate(port.wait()):
+        got = out["tvH"]
         for k, (rtol, atol) in PASS_TOL.items():
-            _close(out["tvH"][k], _np(want[k]), rtol, atol, f"rank {rank}: {k}")
+            w = _np(want[k]) if k == "lml" else _mine(want[k], got)
+            _close(got[k], w, rtol, atol, f"rank {rank}: {k}")
 
 
 _JAX_GRAD = []
@@ -252,8 +285,23 @@ def test_cvi_step_with_mesh_matches_jax(port):
     for rank, out in enumerate(port.wait()):
         got = out["cvi"]
         _close(got["elbo"], float(elbo), 1e-8, 0.0, f"rank {rank}: ELBO")
-        _close(got["site_V"], _np(m1.sites.V), 1e-6, 1e-10, f"rank {rank}: site V")
-        _close(got["site_Y"], _np(m1.sites.Y), 1e-6, 1e-10, f"rank {rank}: site Y")
+        _close(got["site_V"], _mine(m1.sites.V, got), 1e-6, 1e-10, f"rank {rank}: site V")
+        _close(got["site_Y"], _mine(m1.sites.Y, got), 1e-6, 1e-10, f"rank {rank}: site Y")
+
+
+def test_natgrad_scan_with_mesh_matches_jax(port):
+    """Three `natgrad_scan` steps of the Poisson `CVIGP` with a 4-rank mesh
+    (T = 102: the last rank's segment padded) equal the JAX package's
+    single-device `natgrad_scan`: ELBOs rtol 1e-9, the rank's sites 1e-7."""
+    t, y = _cvi_inputs()
+    model = JCVIGP.init(jnp.asarray(t), jnp.asarray(y), JMatern32(lengthscale=1.0, variance=1.0),
+                        JPoisson())
+    m3, elbos = jax.jit(lambda m: jnatgrad_scan(m, 0.5, n_steps=3))(model)
+    for rank, out in enumerate(port.wait()):
+        got = out["natgrad3"]
+        _close(got["elbo"], _np(elbos), 1e-9, 0.0, f"rank {rank}: ELBOs")
+        _close(got["site_V"], _mine(m3.sites.V, got), 1e-7, 1e-12, f"rank {rank}: site V")
+        _close(got["site_Y"], _mine(m3.sites.Y, got), 1e-7, 1e-12, f"rank {rank}: site Y")
 
 
 @pytest.mark.parametrize("sqrt", [False, True])
@@ -268,8 +316,10 @@ def test_composite_dp_t_matches_jax(port, sqrt):
         *[jnp.asarray(a[k]) for k in ("A", "Q", "H", "R", "y", "m0", "P0")])
     for rank, out in enumerate(port.wait()):
         got = out[f"composite {sqrt}"]
-        _close(got["lml"], _np(f.lml), 1e-8, 0.0, f"rank {rank}: lml")
-        _close(got["sms"], _np(s.ms), 1e-6, 1e-9, f"rank {rank}: smoothed means")
+        mine = slice(got["b0"], got["b0"] + got["Bl"])
+        _close(got["lml"], _np(f.lml)[mine], 1e-8, 0.0, f"rank {rank}: lml")
+        _close(got["sms"], _mine(_np(s.ms)[mine], got, 1), 1e-6, 1e-9,
+               f"rank {rank}: smoothed means")
         assert np.all(np.isfinite(got["grad"])) and np.abs(got["grad"]).sum() > 0
         _close(got["value"], got["value_single"], 1e-9, 0.0, f"rank {rank}: value")
         _close(got["grad"], got["grad_single"], 1e-8, 0.0, f"rank {rank}: gradient")
@@ -293,8 +343,11 @@ def test_matheron_samples_with_mesh(port, sqrt):
     scale = np.max(np.abs(want))
     for rank, out in enumerate(port.wait()):
         got = out[f"matheron {sqrt}"]
-        assert np.max(np.abs(got["sharded"] - want)) <= 1e-9 * scale, f"rank {rank}: against JAX"
-        assert np.max(np.abs(got["sharded"] - got["single"])) <= 1e-9 * scale, f"rank {rank}"
+        mine = _mine(want, got, 1)
+        assert got["sharded"].shape == mine.shape, f"rank {rank}: {got['sharded'].shape}"
+        assert np.max(np.abs(got["sharded"] - mine)) <= 1e-9 * scale, f"rank {rank}: against JAX"
+        assert np.max(np.abs(got["sharded"] - _mine(got["single"], got, 1))) <= 1e-9 * scale, \
+            f"rank {rank}"
 
 
 def test_dryrun_checks_on_four_ranks(port):
@@ -309,6 +362,114 @@ def test_dryrun_checks_on_four_ranks(port):
         for name, (got, ref) in res.items():
             assert np.all(np.isfinite(got)), f"rank {rank}: {name}"
             _close(got, ref, RTOL, 0.0, f"rank {rank}: {name}")
+
+
+# ---------------------------------------------------------------------------
+# what a rank holds and exchanges
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case,T,n", [(f"pass {n} {chunk} {sqrt}", 128, n)
+                                      for n, chunk in EQ_CASES for sqrt in (False, True)]
+                         + [("tvH", 128, 4), ("cvi", 102, 4), ("natgrad3", 102, 4)]
+                         + [("load", 102, 4)])
+def test_every_rank_holds_its_segment(port, case, T, n):
+    """Every rank's inputs, results, sites and built LGSSM have its
+    segment's rows: T / n (T = 102 on 4 ranks: 26, the last rank's 24 real
+    rows of its padded 26), the segments tiling the series in rank order."""
+    L = -(-T // n)
+    his = []
+    for rank, out in enumerate(port.wait()):
+        got = out[case]
+        k = rank if n == 4 else rank % 2  # n = 2: the "t" index on the (2, 2) mesh
+        assert (got["lo"], got["hi"]) == (k * L, min((k + 1) * L, T)), f"rank {rank}"
+        assert set(got["rows"]) == {got["hi"] - got["lo"]}, f"rank {rank}: rows {got['rows']}"
+        his.append(got["hi"])
+    assert his[-1] == T
+
+
+def test_loading_the_whole_series_sites_keeps_the_rank_rows(port):
+    """`load_numpy_params` of the whole series' sites into a meshed `CVIGP`
+    keeps the rank's rows of them (T = 102 on 4 ranks)."""
+    want = _loaded_sites()
+    for rank, out in enumerate(port.wait()):
+        got = out["load"]
+        for k in ("site_Y", "site_V"):
+            np.testing.assert_array_equal(got[k], _mine(want[k], got), err_msg=f"rank {rank}: {k}")
+
+
+def test_outputs_to_a_user_gather_over_the_series(port):
+    """With a mesh, a CVI model's `posterior()`, `predict_f` at new times
+    and `sample_f_given` there (each rank holding its segment of the sites,
+    the augmented grid sharded too) equal the model's without one on every
+    rank: posterior and prediction rtol 1e-9, draws 1e-9 of their scale."""
+    for rank, out in enumerate(port.wait()):
+        got, ref = out["predict"]["sharded"], out["predict"]["single"]
+        for k in ("post_mean", "post_var", "mean", "var"):
+            assert got[k].shape == ref[k].shape, f"rank {rank}: {k}"
+            _close(got[k], ref[k], 1e-9, 1e-12, f"rank {rank}: {k}")
+        scale = np.max(np.abs(ref["draws"]))
+        assert got["draws"].shape == ref["draws"].shape == (2, 10, 1)
+        assert np.max(np.abs(got["draws"] - ref["draws"])) <= 1e-9 * scale, f"rank {rank}: draws"
+
+
+def test_no_global_view_on_the_lml_gradient_and_step_paths(port):
+    """Over an lml and its gradient (`StateSpaceGP(mesh=)`), a CVI step and
+    three `natgrad_scan` steps, no rank gathers results ("results" 0
+    bytes); the passes exchange their totals."""
+    for rank, out in enumerate(port.wait()):
+        for case in ("grad False", "grad True", "cvi", "natgrad3"):
+            ex = out[case]["exchange"]
+            assert ex.get("results", {"bytes": 0})["bytes"] == 0, f"rank {rank} {case}: {ex}"
+            assert ex["totals"]["calls"] > 0, f"rank {rank} {case}: {ex}"
+
+
+def _tv_model():
+    """A spatio-temporal kernel (Matérn-3/2 x RBF over 3 sites, d = 6) and a
+    `StateObservation` whose scattered head has 2 points a step: a
+    time-varying H [T, 2, 6]; T = 30 times."""
+    from physs_gp_tpu_torch.kernels.rbf import RBF
+    from physs_gp_tpu_torch.kernels.spatio_temporal import SpatioTemporalKernel
+    from physs_gp_tpu_torch.transforms.operators import ScatteredSpatialHead, StateObservation
+    from physs_gp_tpu_torch.utils.params import positive_param
+
+    rng = np.random.default_rng(7)
+    T = 30
+    t = torch.tensor(np.sort(rng.uniform(0, 5, T)), **F64)
+    kern = SpatioTemporalKernel(k_time=Matern32(lengthscale=0.8, variance=1.1, **F64),
+                                k_space=RBF(lengthscales=positive_param(0.6, **F64),
+                                            variance=positive_param(1.0, **F64)),
+                                Z=torch.tensor(rng.uniform(0, 1, (3, 2)), **F64))
+    obs = StateObservation([ScatteredSpatialHead(torch.tensor(rng.uniform(0, 1, (T, 2, 2)), **F64))])
+    return t, kern, obs
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("sqrt", [False, True])
+def test_segment_lgssm_equals_rows_of_the_whole_build(n, sqrt):
+    """`build_lgssm(seg=)` and `StateObservation.H(steps=)` on each of n
+    segments of a 30-step series (the last one short) equal the same rows
+    of the whole series' build bit for bit: A, Q, the time-varying H and
+    its variance correction; in square-root form also the factors of Q
+    that the runner takes per segment."""
+    t, kern, obs = _tv_model()
+    T = t.shape[0]
+    whole = build_lgssm(kern, t)
+    H, corr = obs.H(kern), obs.var_correction(kern)
+    assert H.shape == (T, 2, 6)
+    L = -(-T // n)
+    for k in range(n):
+        seg = Segment(T, k * L, min((k + 1) * L, T), L)
+        rows = slice(seg.lo, seg.hi)
+        part = build_lgssm(kern, t, seg)
+        pairs = {"A": (part.A, whole.A[rows]), "Q": (part.Q, whole.Q[rows]),
+                 "H": (obs.H(kern, rows), H[rows]),
+                 "corr": (obs.var_correction(kern, rows), corr[rows]),
+                 "m0": (part.m0, whole.m0), "P0": (part.P0, whole.P0)}
+        if sqrt:
+            pairs["Q factor"] = (safe_cholesky_rel(part.Q), safe_cholesky_rel(whole.Q)[rows])
+        for name, (got, want) in pairs.items():
+            assert got.shape == want.shape and torch.equal(got, want), f"segment {k}: {name}"
 
 
 # ---------------------------------------------------------------------------

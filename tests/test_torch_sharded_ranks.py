@@ -13,7 +13,10 @@ run on the card. Run the card case with
     python3 -m pytest --noconftest -m cuda tests/test_torch_sharded_ranks.py
 """
 import socket
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import pytest
 
@@ -25,6 +28,7 @@ from physs_gp_tpu_torch.parallel.ranks import start_ranks  # noqa: E402
 import sharded_ranks  # noqa: E402
 
 HANG_TIMEOUT_S = 8.0
+REPO = Path(__file__).resolve().parents[1]
 
 
 def test_dryrun_multichip_on_two_cpu_ranks():
@@ -67,6 +71,19 @@ def test_a_hung_rank_fails_the_call_within_its_time_limit():
         start_ranks(sharded_ranks.hang_on_rank, 2, args=(1,), device="cpu",
                     timeout=HANG_TIMEOUT_S).wait()
     assert time.monotonic() - t0 < HANG_TIMEOUT_S + 10.0
+
+
+def test_sharded_path_imports_without_jax():
+    """The time-sharded path (`physs_gp_tpu_torch.parallel`), the rank
+    bodies of its tests and `chip_smoke.py` import with JAX and the JAX
+    package unavailable."""
+    code = ("import sys\nsys.modules['jax'] = None\nsys.modules['physs_gp_tpu'] = None\n"
+            "sys.path.insert(0, 'tests')\n"
+            "import physs_gp_tpu_torch.parallel.sharded, physs_gp_tpu_torch.parallel.ranks\n"
+            "import physs_gp_tpu_torch.parallel.dryrun, sharded_ranks, chip_smoke\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_the_default_device_needs_the_card():

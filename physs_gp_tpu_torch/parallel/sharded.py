@@ -20,7 +20,7 @@ instead folds the prefix in through the block totals and runs one reduced
 full-width combine, as the single-device scans do.
 
 The prior folds into element 0 on rank 0 only; the other ranks' elements are
-all generic (the builders' `prior=False`). The smoother's boundary
+all generic (`_build_filter_elements(prior=False)`). The smoother's boundary
 element of rank k needs rank k + 1's first (A, Q) (square-root: (A, Qs));
 those ride in the filter pass's all_gather with the totals. The last rank's
 terminal element has E = 0. The local scans run the kernels of the

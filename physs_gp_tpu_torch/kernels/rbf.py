@@ -5,9 +5,9 @@ from __future__ import annotations
 import torch
 
 from .base import StationaryKernel, _as_2d
-from ..utils.params import Param
+from ..utils.params import Param, positive_param
 
-__all__ = ["RBF"]
+__all__ = ["RBF", "rbf"]
 
 
 class RBF(StationaryKernel):
@@ -42,3 +42,9 @@ class RBF(StationaryKernel):
             i = kind[1]
             return K * (D[..., i] ** 2 / ls[i] ** 4 - 1.0 / ls[i] ** 2)
         raise ValueError(f"unknown spatial operator kind: {kind!r}")
+
+
+def rbf(lengthscales=1.0, variance=1.0, dtype=None, device=None) -> RBF:
+    """An `RBF` with positive lengthscales and variance."""
+    kw = dict(dtype=dtype, device=device)
+    return RBF(lengthscales=positive_param(lengthscales, **kw), variance=positive_param(variance, **kw))

@@ -45,8 +45,12 @@ class SpatioTemporalKernel(Kernel):
         return self.sites.shape[0]
 
     @property
+    def temporal_state_dim(self) -> int:
+        return to_ss(self.k_time).state_dim
+
+    @property
     def state_dim(self) -> int:
-        return self.n_sites * to_ss(self.k_time).state_dim
+        return self.n_sites * self.temporal_state_dim
 
     def Kzz(self):
         """Spatial Gram with relative jitter eps * mean(diag K). The

@@ -79,6 +79,10 @@ class IndependentGaussian(Likelihood):
         v = self._v
         return torch.diag(v).expand(T, v.shape[0], v.shape[0])
 
+    def log_prob(self, y, f):
+        v = self._v
+        return -0.5 * (torch.log(2 * math.pi * v) + (y - f) ** 2 / v)
+
     def expected_log_lik(self, y, m, v):
         """Closed-form E_{N(m, v)}[log N(y | f, var_h)] per head column; NaN
         observations contribute 0."""
@@ -86,6 +90,12 @@ class IndependentGaussian(Likelihood):
         y0 = torch.nan_to_num(y)
         val = -0.5 * (torch.log(2 * math.pi * nv) + ((y0 - m) ** 2 + v) / nv)
         return torch.where(torch.isfinite(y), val, torch.zeros_like(val))
+
+    def conditional_mean(self, f):
+        return f
+
+    def conditional_variance(self, f):
+        return self._v.expand(f.shape)
 
 
 class BlockDiagonalGaussian(Likelihood):

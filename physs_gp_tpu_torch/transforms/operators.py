@@ -175,6 +175,10 @@ class StateObservation(nn.Module):
         super().__init__()
         self.heads = nn.ModuleList(heads)
 
+    @property
+    def n_heads(self) -> int:
+        return len(self.heads)
+
     def H(self, kernel, steps: slice | None = None):
         blocks = [h.rows(kernel, steps) if isinstance(h, ScatteredSpatialHead)
                   else h.rows(kernel) if hasattr(h, "rows") else h.row(kernel)[None, :]

@@ -75,8 +75,19 @@ class Param(nn.Module):
     def value(self) -> torch.Tensor:
         return self.bijector.forward(self.raw)
 
+    def with_value(self, value) -> "Param":
+        """Set the constrained value in place (raw = bijector⁻¹(value))."""
+        with torch.no_grad():
+            self.raw.copy_(self.bijector.inverse(torch.as_tensor(value, dtype=self.raw.dtype,
+                                                                 device=self.raw.device)))
+        return self
+
     def fix(self) -> "Param":
         self.raw.requires_grad_(False)
+        return self
+
+    def release(self) -> "Param":
+        self.raw.requires_grad_(True)
         return self
 
 

@@ -278,3 +278,32 @@ def test_composite_without_residual_and_predictives_match_jax():
     f3 = np.random.default_rng(12).normal(size=(T, P, 4)) * 0.05
     y3 = np.repeat(y0[..., None], 4, -1)
     _close(tl.log_prob(t_(y3), t_(f3)), jl.log_prob(J(y3), J(f3)))
+
+
+@pytest.mark.parametrize("method", ["log_prob", "conditional_mean", "conditional_variance",
+                                    "quadrature_axis"])
+def test_independent_gaussian_methods_match_jax(method):
+    """`IndependentGaussian.log_prob`, `conditional_mean` and
+    `conditional_variance` on [T, p] (a `SharedVariance` group among the
+    heads), as the JAX package's; on a quadrature axis [T, p, n] the
+    per-head variances broadcast against n in both packages, which fails
+    there as here (a multi-head `CVIGP.predict_y`)."""
+    from physs_gp_tpu.likelihoods.gaussian import IndependentGaussian as JIndep
+    from physs_gp_tpu.likelihoods.gaussian import SharedVariance as JShared
+    from physs_gp_tpu_torch.likelihoods.gaussian import IndependentGaussian, SharedVariance
+
+    rng = np.random.default_rng(5)
+    y, f = rng.normal(size=(2, T, P))
+    jl = JIndep(variances=[jpositive(0.3), JShared(p=jpositive(0.05), n=P - 1)])
+    pl = IndependentGaussian([positive_param(0.3, **F64),
+                              SharedVariance(positive_param(0.05, **F64), n=P - 1)])
+    if method == "log_prob":
+        _close(pl.log_prob(t_(y), t_(f)), jl.log_prob(jnp.asarray(y), jnp.asarray(f)))
+    elif method == "quadrature_axis":
+        ff = rng.normal(size=(T, P, 20))
+        with pytest.raises(ValueError):
+            jl.conditional_variance(jnp.asarray(ff))
+        with pytest.raises(RuntimeError):
+            pl.conditional_variance(t_(ff))
+    else:
+        _close(getattr(pl, method)(t_(f)), getattr(jl, method)(jnp.asarray(f)))

@@ -254,3 +254,49 @@ def test_scattered_st_predict_shares_the_trained_parameters():
     assert torch.all(after > before)
     with pytest.raises(ValueError, match="single-output"):
         scattered_st_gp(X, np.stack([y, y], 1), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# public names of the JAX package's kernels, heads and parameters
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ["temporal_state_dim", "n_heads", "rbf", "with_value", "release"])
+def test_public_names_match_jax(name):
+    """`SpatioTemporalKernel.temporal_state_dim`, `StateObservation.n_heads`,
+    `kernels.rbf.rbf`, `Param.with_value` / `release` (in place: the port's
+    `Param` is a module, as `fix` is) give the JAX package's values."""
+    from physs_gp_tpu.kernels.rbf import rbf as jrbf
+    from physs_gp_tpu.utils.params import positive_param as jpp
+    from physs_gp_tpu_torch.kernels.rbf import rbf
+    from physs_gp_tpu_torch.utils.params import positive_param
+
+    rng = np.random.default_rng(4)
+    Z = rng.uniform(-1, 1, (3, 2))
+    if name == "temporal_state_dim":
+        jk, pk = _kernels(Z)
+        assert pk.temporal_state_dim == jk.temporal_state_dim == 2
+        assert pk.state_dim == jk.state_dim == 6
+    elif name == "n_heads":
+        pts = rng.uniform(-1, 1, (4, 2, 2))
+        jobs = jops.StateObservation(heads=[jops.SpatialHead(points=jnp.asarray(Z)),
+                                            jops.ScatteredSpatialHead(points=jnp.asarray(pts))])
+        pobs = pops.StateObservation([pops.SpatialHead(torch.as_tensor(Z)),
+                                      pops.ScatteredSpatialHead(torch.as_tensor(pts))])
+        assert pobs.n_heads == jobs.n_heads == 2
+    elif name == "rbf":
+        X = rng.uniform(-1, 1, (5, 2))
+        jK = jrbf(jnp.array([0.7, 1.3]), 0.9).K(jnp.asarray(X), jnp.asarray(Z))
+        pK = rbf([0.7, 1.3], 0.9, **F64).K(torch.as_tensor(X), torch.as_tensor(Z))
+        assert rel(pK, jK) <= TOL
+    elif name == "with_value":
+        jp = jpp(jnp.array([0.5, 1.5])).with_value(jnp.array([2.0, 0.25]))
+        pp = positive_param([0.5, 1.5], **F64)
+        assert pp.with_value([2.0, 0.25]) is pp
+        assert rel(pp.raw, jp.raw) <= TOL and rel(pp.value, jp.value) <= TOL
+    else:
+        jp = jpp(0.7).fix().release()
+        pp = positive_param(0.7, **F64).fix()
+        assert pp.fixed and pp.release() is pp
+        assert pp.fixed is jp.fixed is False and pp.raw.requires_grad
+        assert rel(pp.value, jp.value) <= TOL

@@ -28,7 +28,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from experiments_torch.common import (  # noqa: E402
-    Timer, device_info, dump_results, numpy, parse_args, rmse,
+    RunStats, Timer, dump_results, numpy, parse_args, resolve_device, rmse,
 )
 from physs_gp_tpu_torch.kernels.matern import Matern72  # noqa: E402
 from physs_gp_tpu_torch.likelihoods.gaussian import Gaussian  # noqa: E402
@@ -63,10 +63,11 @@ def _eval(m, ts, noise):
 
 def main(argv=None):
     args = parse_args("monotonic", argv)
-    dev = torch.device(args.device)
+    dev = resolve_device(args.device)
     kw = dict(dtype=torch.float64, device=dev)
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    stats = RunStats(dev)
     n_data = 30
     n_coll = 40 if args.quick else 100
     iters = args.iters or (80 if args.quick else 300)
@@ -139,7 +140,7 @@ def main(argv=None):
         "gates": gates,
         "ok": all(gates.values()),
         "meta": {"training_time": t_fit, "training_time_unconstrained": t_fit_u,
-                 "training_time_vgp": tv.seconds, "device": device_info(dev)},
+                 "training_time_vgp": tv.seconds, **stats.meta()},
     }
     dump_results(args.out, "monotonic", results)
     return results

@@ -21,7 +21,7 @@ import torch  # noqa: E402
 from scipy.integrate import solve_ivp  # noqa: E402
 
 from experiments_torch.common import (  # noqa: E402
-    Timer, device_info, dump_results, numpy, parse_args, rmse,
+    RunStats, Timer, dump_results, numpy, parse_args, resolve_device, rmse,
 )
 from physs_gp_tpu_torch.kernels.matern import Matern72  # noqa: E402
 from physs_gp_tpu_torch.zoo.physics import nonlinear_ode_cvi_gp  # noqa: E402
@@ -29,9 +29,10 @@ from physs_gp_tpu_torch.zoo.physics import nonlinear_ode_cvi_gp  # noqa: E402
 
 def main(argv=None):
     args = parse_args("pendulum", argv)
-    dev = torch.device(args.device)
+    dev = resolve_device(args.device)
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    stats = RunStats(dev)
     c_true, w2 = 0.3, 9.0
     horizon, data_end = 5.0, 2.5
     n_data = 25 if args.quick else 40
@@ -96,8 +97,7 @@ def main(argv=None):
         "metrics": metrics,
         "gates": gates,
         "ok": all(gates.values()),
-        "meta": {"training_time": t_on, "training_time_physics_off": t_off,
-                 "device": device_info(dev)},
+        "meta": {"training_time": t_on, "training_time_physics_off": t_off, **stats.meta()},
     }
     dump_results(args.out, "pendulum", results)
     return results

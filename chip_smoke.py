@@ -2553,7 +2553,7 @@ PHYSICS_BLOCK_ROUTES = ("gj_solve", "gj_solve_logdet", "lq", "chol")
 PHYSICS_ITERS = 20
 TOL_HARDWARE = 0.02  # experiments/ac.py: max |Δmean| on the extrapolation window
 # The outcome gate (physics on against off, 300 iterations each) runs in
-# scripts/port/physics_outcome.py, not here: its two trainings take ~115 s
+# experiments_torch/ac.py --quick, not here: its two trainings take ~115 s
 # on one H100.
 # Allen-Cahn anchors: 10 x the JAX package's largest gap between its CPU
 # branch and its Gauss-Jordan / Pallas-Cholesky branch on the same anchor

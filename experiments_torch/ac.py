@@ -216,16 +216,15 @@ def main(argv=None):
 
 def _compare(args):
     dev = resolve_device(args.device)
-    common = ["--device", "cpu", "--seed", str(args.seed)] + (["--quick"] if args.quick else [])
+    common = ["--seed", str(args.seed)] + (["--quick"] if args.quick else [])
     if args.iters:
         common += ["--iters", str(args.iters)]
-    card = ["--device", dev.type, "--fp32"]
     arms = {}
 
-    def run(name, extra, td, env=None):
+    def run(name, device, extra, td, env=None):
         """One arm in a process of its own; its result file and moments."""
-        cmd = [sys.executable, os.path.abspath(__file__), *common, *extra, "--out", f"{td}/{name}",
-               "--dump-moments", f"{td}/{name}.npz"]
+        cmd = [sys.executable, os.path.abspath(__file__), *common, "--device", device, *extra,
+               "--out", f"{td}/{name}", "--dump-moments", f"{td}/{name}.npz"]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=3600,
                            env={**os.environ, **(env or {})})
         if r.returncode != 0:
@@ -237,11 +236,11 @@ def _compare(args):
 
     with tempfile.TemporaryDirectory() as td:
         sites = ["--eval-sites", f"{td}/sites.npz"]
-        res_cpu, cpu = run("cpu", ["--dump-sites", f"{td}/sites.npz"], td)
-        res_eval, card_ev = run("card-eval", [*card, *sites], td)
-        _, cpu32_ev = run("cpu32-eval", ["--fp32", *sites], td)
-        _, bigjit_ev = run("cpu-bigjit-eval", sites, td, env={"PHYSS_KZZ_JITTER": "1e-4"})
-        res_acc, acc = run("accel", card, td)
+        res_cpu, cpu = run("cpu", "cpu", ["--dump-sites", f"{td}/sites.npz"], td)
+        res_eval, card_ev = run("card-eval", dev.type, ["--fp32", *sites], td)
+        _, cpu32_ev = run("cpu32-eval", "cpu", ["--fp32", *sites], td)
+        _, bigjit_ev = run("cpu-bigjit-eval", "cpu", sites, td, env={"PHYSS_KZZ_JITTER": "1e-4"})
+        res_acc, acc = run("accel", dev.type, ["--fp32"], td)
 
     def dmax(a, b):
         return float(np.max(np.abs(a["mean"] - b["mean"])))

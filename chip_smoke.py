@@ -2551,7 +2551,6 @@ PHYSICS_PATH = "physics ac sqrt f32"
 PHYSICS_KERNELS = ("gj_solve", "gj_solve_logdet", "lq", "chol")
 PHYSICS_BLOCK_ROUTES = ("gj_solve", "gj_solve_logdet", "lq", "chol")
 PHYSICS_ITERS = 20
-TOL_HARDWARE = 0.02  # experiments/ac.py: max |Δmean| on the extrapolation window
 # The outcome gate (physics on against off, 300 iterations each) runs in
 # experiments_torch/ac.py --quick, not here: its two trainings take ~115 s
 # on one H100.
@@ -2568,12 +2567,11 @@ PHYSICS_TOL = {"elbos": 1e-9, "sites Y": 1e-7, "sites V diag": 1e-7, "posterior 
                "posterior var": 1e-7}
 
 
-def _physics_outcome():
-    """scripts/port/physics_outcome.py: the Allen-Cahn inputs and model."""
-    sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
-    import physics_outcome
+def _allen_cahn():
+    """experiments_torch/ac.py: the Allen-Cahn driver's inputs and model."""
+    from experiments_torch import ac
 
-    return physics_outcome
+    return ac
 
 
 @contextlib.contextmanager
@@ -2796,7 +2794,7 @@ def phase_physics_anchor():
     from physs_gp_tpu_torch.kernels.matern import Matern72
     from physs_gp_tpu_torch.zoo.physics import monotonic_cvi_gp, nonlinear_ode_cvi_gp, ode_gp
 
-    po = _physics_outcome()
+    ac = _allen_cahn()
     g = np.load(PHYSICS_GOLDEN)
     f64 = torch.float64
 
@@ -2807,7 +2805,7 @@ def phase_physics_anchor():
     with _kzz_jitter(None):
         for form in ("cov", "sqrt"):
             tag = f"anchor physics ac {form}"
-            m = po.build(*ac_in, po.FULL["n_mc"], f64, form == "sqrt", "cuda")
+            m = ac.build(*ac_in, ac.FULL["n_mc"], f64, form == "sqrt", "cuda")
             elbos = [float(m.step_with_elbo(0.3, hessian="gauss_newton", draws=dev(d))[1])
                      for d in g["ac_draws"]]
             _hold_cvi(tag, m, elbos, g, f"ac_{form}", AC_TOL)
@@ -2832,23 +2830,23 @@ def phase_physics_anchor():
         _hold_elbos("anchor physics ode_gp", [lml], np.asarray([g["ode_lml"]]))
         _hold("anchor physics ode_gp", {"predict_f mean": (f.mean, g["ode_f_mean"]),
                                         "predict_f var": (f.var, g["ode_f_var"])}, 1e-7)
-        m = po.build(*ac_in, po.FULL["n_mc"], f64, False, "cuda")
+        m = ac.build(*ac_in, ac.FULL["n_mc"], f64, False, "cuda")
         m.sites = Sites(dev(g["ac_trained_sites_Y"]), dev(g["ac_trained_sites_V"]))
         post = m.posterior()
         _hold("hardware gate f64", {"posterior mean": (post.mean, g["ac_trained_f64_mean"]),
                                     "posterior var": (post.var, g["ac_trained_f64_var"])}, 1e-7)
     with _kzz_jitter("1e-4"):
         f32 = torch.float32
-        m = po.build(*ac_in, po.FULL["n_mc"], f32, True, "cuda")
+        m = ac.build(*ac_in, ac.FULL["n_mc"], f32, True, "cuda")
         m.sites = Sites(dev(g["ac_trained_sites_Y"], f32), dev(g["ac_trained_sites_V"], f32))
         mean = m.posterior().mean.double().cpu().numpy()
-    later, Ns = po.extrapolation_rows(g["ac_t"]), g["ac_Z"].shape[0]
+    later, Ns = ac.extrapolation_rows(g["ac_t"]), g["ac_Z"].shape[0]
     dm = float(np.max(np.abs(mean[later][:, :Ns] - g["ac_trained_f32_mean"][later][:, :Ns])))
     dm_all = float(np.max(np.abs(mean - g["ac_trained_f32_mean"])))
     print(f"[hardware gate f32] sequential square-root posterior from the JAX-trained sites: "
           f"max |Δmean| {dm:.3e} on the grid heads over the extrapolation window (tol "
-          f"{TOL_HARDWARE}), {dm_all:.3e} over every head and step")
-    if not dm < TOL_HARDWARE:
+          f"{ac.TOL_HARDWARE}), {dm_all:.3e} over every head and step")
+    if not dm < ac.TOL_HARDWARE:
         raise AssertionError("hardware gate: the float32 posterior disagrees with the JAX CPU one")
 
 
@@ -2863,11 +2861,11 @@ def phase_physics_full():
     and the device's busy share over one more, profiled, iteration."""
     from physs_gp_tpu_torch.ops import cuda as kernels
 
-    po = _physics_outcome()
-    cfg, f32 = po.FULL, torch.float32
-    t, Y, Z, coll, F = po.inputs(cfg["T"], cfg["Ns"], cfg["Nc"])
+    ac = _allen_cahn()
+    cfg, f32 = ac.FULL, torch.float32
+    t, Y, Z, coll, F = ac.inputs(cfg["T"], cfg["Ns"], cfg["Nc"])
     with _kzz_jitter(None):
-        model = po.build(t, Y, Z, coll, cfg["n_mc"], f32, True, "cuda")
+        model = ac.build(t, Y, Z, coll, cfg["n_mc"], f32, True, "cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2875,11 +2873,11 @@ def phase_physics_full():
         walls, elbos = [], []
         for _ in range(PHYSICS_ITERS):
             t0 = time.perf_counter()
-            model, elbo = model.step_with_elbo(po.LR, hessian="gauss_newton", generator=gen)
+            model, elbo = model.step_with_elbo(ac.LR, hessian="gauss_newton", generator=gen)
             elbos.append(float(elbo))
             walls.append(time.perf_counter() - t0)
         train_counts = kernels.launch_counts()
-        later = po.extrapolation_rows(t)
+        later = ac.extrapolation_rows(t)
         y_nlpd = np.full((int(later.sum()), cfg["Ns"] + 2 * cfg["Nc"]), np.nan)
         y_nlpd[:, :cfg["Ns"]] = F[later]
         t0 = time.perf_counter()
@@ -2890,7 +2888,7 @@ def phase_physics_full():
         peak = _peak()
         post = model.posterior()
         wall_prof, dev_us, ours = _profiled(
-            lambda: model.step_with_elbo(po.LR, hessian="gauss_newton", generator=gen))
+            lambda: model.step_with_elbo(ac.LR, hessian="gauss_newton", generator=gen))
     finite = bool(np.all(np.isfinite(elbos)) and torch.isfinite(post.mean).all()
                   and torch.isfinite(post.var).all() and np.isfinite(nlpd))
     rmse = float(np.sqrt(np.mean((post.mean[:, :cfg["Ns"]].double().cpu().numpy()[later] - F[later]) ** 2)))
@@ -3181,8 +3179,12 @@ def phase_scattered_full():
     share, device time by kernel). Then the float64 covariance lml beside
     the float32 one
     (PHYSS_KZZ_JITTER=1e-4 on both), and the outcome gates of both
-    experiments (`vector_field_outcome.outcome`)."""
+    experiments (`vector_field_outcome.outcome`: the drivers' `run` and
+    `gates`)."""
+    from experiments_torch import helmholtz as hz
+    from experiments_torch import scattered_st as sc
     from physs_gp_tpu_torch.ops import cuda as kernels
+    from physs_gp_tpu_torch.zoo.spatio_temporal import scattered_st_predict
 
     vf = _vector_field()
     Z = np.load(vf.GOLDEN)["sc::in::Z"]
@@ -3194,14 +3196,14 @@ def phase_scattered_full():
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            model, data = vf.scattered_model(train, Z, torch.float32, "cuda", sqrt=form == "sqrt",
+            model, data = sc.build(train, Z, torch.float32, "cuda", sqrt=form == "sqrt",
                                              chunk_size=SCATTERED_CHUNK)
             torch.cuda.synchronize()
             walls, out = {"build": time.perf_counter() - t0}, {}
             kernels.reset_launch_counts()
             with torch.no_grad():
                 for part, run in (("lml", model.log_marginal_likelihood), ("posterior", model.posterior),
-                                  ("predict", lambda: vf.scattered_st_predict(model, data, test[:, :3]))):
+                                  ("predict", lambda: scattered_st_predict(model, data, test[:, :3]))):
                     t0 = time.perf_counter()
                     out[part] = run()
                     torch.cuda.synchronize()
@@ -3228,7 +3230,7 @@ def phase_scattered_full():
                                *_profiled(lambda: model.posterior()))
             del model, data, out, post, pred
         torch.cuda.empty_cache()
-        model, _ = vf.scattered_model(train, Z, torch.float64, "cuda", chunk_size=SCATTERED_CHUNK)
+        model, _ = sc.build(train, Z, torch.float64, "cuda", chunk_size=SCATTERED_CHUNK)
         t0 = time.perf_counter()
         with torch.no_grad():
             lml64 = float(model.log_marginal_likelihood())
@@ -3244,10 +3246,10 @@ def phase_scattered_full():
     res = vf.outcome("cuda")
     print(f"[outcome vector field] {json.dumps(res)}")
     print(f"[outcome scattered] float32 parallel covariance: rmse_test {res['scattered']['rmse_test']:.5f} "
-          f"(JAX CPU float64 {vf.SC_RESULTS['rmse_test']:.5f}), nlpd_test "
-          f"{res['scattered']['nlpd_test']:.5f} ({vf.SC_RESULTS['nlpd_test']:.5f}); within 5 %: "
+          f"(JAX CPU float64 {sc.REFERENCE['rmse_test']:.5f}), nlpd_test "
+          f"{res['scattered']['nlpd_test']:.5f} ({sc.REFERENCE['nlpd_test']:.5f}); within 5 %: "
           f"{res['scattered']['ok']}")
-    print(f"[outcome helmholtz] T = {vf.HZ_FULL}, float32 sequential: rmse_v_reconstructed "
+    print(f"[outcome helmholtz] T = {hz.T_FULL}, float32 sequential: rmse_v_reconstructed "
           f"{res['helmholtz_full']['rmse_v_reconstructed']:.5f} < 0.35 x rms_v_truth "
           f"{res['helmholtz_full']['rms_v_truth']:.5f}: {res['helmholtz_full']['ok']}; quick "
           f"configuration {res['helmholtz_quick']} beside {vf.HZ_RESULTS}; {res['seconds']:.1f} s")
@@ -3329,6 +3331,7 @@ def phase_batch_full():
     ([8192, 8192]): its build's wall and peak, then the lml and its
     gradient. Each run's launches are read, reset just before it; none of
     these factors is small enough for the Cholesky kernel."""
+    from experiments_torch import curl_free
     from physs_gp_tpu_torch.ops import cuda as kernels
 
     bo = _batch()
@@ -3341,10 +3344,11 @@ def phase_batch_full():
         print(f"[full batch {tag}] chol launches {counts[tag]['chol']}, routes {routes[tag]}")
         return out
 
-    cf = run("curl_free f32", lambda: bo.curl_free_outcome("cuda"))
+    cf, cf_s = run("curl_free f32", lambda: curl_free.run("cuda", torch.float32))
+    cf_ok = all(curl_free.gates(cf).values())
     print(f"[outcome curl_free] float32, 120 / 200 points: rmse {cf['rmse']:.5f} against the "
           f"independent-RBF baseline's {cf['rmse_independent_gp']:.5f} (JAX CPU quick: "
-          f"{bo.CF_RESULTS}); nlpd {cf['nlpd']:.5f}; {cf['seconds']:.2f} s; ok {cf['ok']}")
+          f"{bo.CF_RESULTS}); nlpd {cf['nlpd']:.5f}; {cf_s:.2f} s; ok {cf_ok}")
     mv = run("monotonic vgp f64", lambda: bo.monotonic_outcome("cuda"))
     print(f"[outcome monotonic vgp] float64, M·P = {mv['M']}, {mv['steps']} steps: rmse_gap_vgp "
           f"{mv['rmse_gap_vgp']:.5f}, ELBO {mv['elbo']:.5f}, violation rate "
@@ -3353,7 +3357,7 @@ def phase_batch_full():
           f"{mv['jax_locked']} (the first is results/monotonic.json's "
           f"{bo.MV_RESULTS['rmse_gap_vgp']:.5f}); "
           f"{mv['seconds']:.2f} s ({1e3 * mv['seconds'] / mv['steps']:.2f} ms a step); ok {mv['ok']}")
-    if not (cf["ok"] and mv["ok"]):
+    if not (cf_ok and mv["ok"]):
         raise AssertionError("outcome gate of the curl-free or the monotonic batch-VI arm failed")
     rows = run("dense scale f32", lambda: bo.dense_scale("cuda"))
     for row in rows:

@@ -66,6 +66,8 @@ from physs_gp_tpu_torch.zoo.physics import allen_cahn_gp  # noqa: E402
 EPS, T_END, CUT = 0.08, 3.5, 1.0
 LR = 0.3
 COLL_NOISE = 1e-5  # one floor for every form (S is built from the smoothed factor)
+FULL = dict(T=56, Ns=10, Nc=12, n_mc=32, iters=900)
+QUICK = dict(T=36, Ns=8, Nc=8, n_mc=16, iters=300)
 
 # --compare tolerances, in units of u (an O(1) field).
 # Hardware: the same sites through the same float32 square-root program,
@@ -78,7 +80,7 @@ TOL_NEAR = 0.15
 NEAR_WINDOW = 1.0  # time units past the data cut
 
 
-def simulate(eps, t_end, nx=101, nt=4001):
+def simulate(eps=EPS, t_end=T_END, nx=101, nt=4001):
     """Explicit finite-difference solve with Neumann boundaries."""
     xs = np.linspace(-1, 1, nx)
     dx = xs[1] - xs[0]
@@ -92,6 +94,43 @@ def simulate(eps, t_end, nx=101, nt=4001):
         u = u + dt * (eps * uxx + u - u ** 3)
         U.append(u.copy())
     return xs, np.array(U)
+
+
+def inputs(T, Ns, Nc, seed=0):
+    """(t [T], Y [T, Ns] with NaN past the cut, Z [Ns, 1], coll [Nc, 1],
+    F [T, Ns] the noise-free field), with the JAX driver's generator calls."""
+    rng = np.random.default_rng(seed)
+    xs, U = simulate()
+    t = np.linspace(0, T_END, T)
+    Z = np.linspace(-0.9, 0.9, Ns)[:, None]
+    coll = np.linspace(-0.9, 0.9, Nc)[:, None]
+    it = np.clip((t / T_END * (U.shape[0] - 1)).astype(int), 0, U.shape[0] - 1)
+    F = np.array([np.interp(Z[:, 0], xs, U[k]) for k in it])
+    Y = F + 0.02 * rng.normal(size=F.shape)
+    Y[t > CUT, :] = np.nan  # the physics must carry the later window
+    return t, Y, Z, coll, F
+
+
+def extrapolation_rows(t):
+    """The scored window: t > cut + 0.1."""
+    return t > CUT + 0.1
+
+
+def build(t, Y, Z, coll, n_mc, dtype, sqrt, device, physics=True):
+    """The experiment's model; physics=False swaps the residual for one that
+    returns zeros."""
+    kw = dict(dtype=dtype, device=device)
+    m = allen_cahn_gp(
+        t, Y, Z, coll, epsilon=EPS,
+        k_time=Matern52(lengthscale=0.8, variance=1.0, **kw),
+        k_space=rbf([0.6], 1.0, **kw),
+        noise=0.02 ** 2, coll_noise=COLL_NOISE, n_mc=n_mc, sqrt=sqrt, **kw,
+    )
+    if not physics:
+        Nc = coll.shape[0]
+        m.likelihood.residual.fn = lambda f: torch.zeros(f.shape[:-1] + (Nc,), dtype=f.dtype,
+                                                         device=f.device)
+    return m
 
 
 def _extra(p):
@@ -122,33 +161,13 @@ def main(argv=None):
     dtype, sqrt, backend = _form(dev, args)
     kw = dict(dtype=dtype, device=dev)
     stats = RunStats(dev)
-    rng = np.random.default_rng(args.seed)
-    T = 36 if args.quick else 56
-    iters = args.iters or (300 if args.quick else 900)
-    Ns, Nc = (8, 8) if args.quick else (10, 12)
-    n_mc = 16 if args.quick else 32
+    size = QUICK if args.quick else FULL
+    T, Ns, Nc, n_mc = size["T"], size["Ns"], size["Nc"], size["n_mc"]
+    iters = args.iters or size["iters"]
+    t, Y, Z, coll, F = inputs(T, Ns, Nc, args.seed)
 
-    xs, U = simulate(EPS, T_END)
-    t = np.linspace(0, T_END, T)
-    Z = np.linspace(-0.9, 0.9, Ns)[:, None]
-    coll = np.linspace(-0.9, 0.9, Nc)[:, None]
-    nt = U.shape[0]
-    it = np.clip((t / T_END * (nt - 1)).astype(int), 0, nt - 1)
-    F = np.array([np.interp(Z[:, 0], xs, U[k]) for k in it])
-    Y = F + 0.02 * rng.normal(size=F.shape)
-    Y[t > CUT, :] = np.nan  # the physics must carry the later window
-
-    def build(physics=True):
-        m = allen_cahn_gp(
-            t, Y, Z, coll, epsilon=EPS,
-            k_time=Matern52(lengthscale=0.8, variance=1.0, **kw),
-            k_space=rbf(torch.tensor([0.6]), 1.0, **kw),
-            noise=0.02 ** 2, coll_noise=COLL_NOISE, n_mc=n_mc, sqrt=sqrt, **kw,
-        )
-        if not physics:
-            m.likelihood.residual.fn = lambda f: torch.zeros(f.shape[:-1] + (Nc,), dtype=f.dtype,
-                                                             device=f.device)
-        return m
+    def _build(physics=True):
+        return build(t, Y, Z, coll, n_mc, dtype, sqrt, dev, physics)
 
     def train(m):
         gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -162,24 +181,24 @@ def main(argv=None):
         # inference only, on sites trained elsewhere: the posterior of this
         # form alone, apart from the optimisation path
         z = np.load(args.eval_sites)
-        m_on = build()
+        m_on = _build()
         m_on.sites = Sites(torch.as_tensor(z["sites_Y"], **kw), torch.as_tensor(z["sites_V"], **kw))
         with torch.no_grad():
             elbo_on = float(m_on.elbo())
         t_on = t_off = 0.0
     else:
-        m_on, elbo_on, t_on = train(build())
+        m_on, elbo_on, t_on = train(_build())
     if args.dump_sites:
         np.savez(args.dump_sites, sites_Y=numpy(m_on.sites.Y).astype(np.float64),
                  sites_V=numpy(m_on.sites.V).astype(np.float64))
 
-    later = t > CUT + 0.1
+    later = extrapolation_rows(t)
     p_on = m_on.posterior()
     mean_on = numpy(p_on.mean).astype(np.float64)[later][:, :Ns]
     if args.eval_sites:
         rmse_off = None
     else:
-        m_off, _, t_off = train(build(physics=False))
+        m_off, _, t_off = train(_build(physics=False))
         rmse_off = rmse(numpy(m_off.posterior().mean).astype(np.float64)[later][:, :Ns], F[later])
     # the model's predictive density past the cut: truth at the grid heads,
     # NaN at the collocation and operator heads

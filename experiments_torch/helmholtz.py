@@ -29,7 +29,12 @@ from physs_gp_tpu_torch.kernels.rbf import rbf  # noqa: E402
 from physs_gp_tpu_torch.zoo.phi_ml import helmholtz_st_gp, helmholtz_st_predict  # noqa: E402
 
 
-def _flow(t, S):
+NOISE = 0.03
+T_FULL, T_QUICK = 64, 16
+N_NEW = 12  # prediction sites
+
+
+def flow(t, S):
     """(u, v) [T, N] of grad φ + rot ψ at the sites S."""
     x, y = S[:, 0][None, :], S[:, 1][None, :]
     tt = np.asarray(t)[:, None]
@@ -38,56 +43,75 @@ def _flow(t, S):
     return u, v
 
 
+def inputs(T, seed=0):
+    """(t [T], Z [25, 2], Y [T, 50] with v held out over the second half,
+    S_new [12, 2]), with the JAX driver's generator calls."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, 4, T))
+    gx = np.linspace(-1.2, 1.2, 5)
+    Z = np.stack(np.meshgrid(gx, gx), -1).reshape(-1, 2)
+    u, v = flow(t, Z)
+    Y = np.concatenate([u + NOISE * rng.normal(size=u.shape),
+                        v + NOISE * rng.normal(size=v.shape)], axis=1)
+    # v held out over the second half: the Helmholtz structure must
+    # reconstruct it from u alone
+    Y[T // 2:, Z.shape[0]:] = np.nan
+    return t, Z, Y, rng.uniform(-1.0, 1.0, (N_NEW, 2))
+
+
+def build(t, Z, Y, dtype, device, cvi=False, parallel=False, sqrt=False):
+    """The experiment's model (sequential covariance form unless asked)."""
+    kw = dict(dtype=dtype, device=device)
+    return helmholtz_st_gp(
+        t, Y, Z, k_time=Matern32(lengthscale=2.0, variance=1.0, **kw),
+        k_space=(rbf([1.0, 1.0], 1.0, **kw), rbf([1.0, 1.0], 0.1, **kw)),
+        noise=NOISE ** 2, parallel=parallel, sqrt=sqrt, cvi=cvi, **kw,
+    )
+
+
+def metrics(mean, var, t, S_new):
+    """The experiment's metrics from the predicted flow's moments [T, 24]."""
+    u_t, v_t = flow(t, S_new)
+    truth = np.concatenate([u_t, v_t], axis=1)
+    hold = slice(t.shape[0] // 2, None)
+    n = S_new.shape[0]
+    return {
+        "rmse_flow": rmse(mean, truth),
+        "nlpd_flow": nlpd(truth, mean, var + NOISE ** 2),
+        "rmse_v_reconstructed": rmse(mean[hold, n:], v_t[hold]),
+        "rms_v_truth": float(np.sqrt(np.mean(v_t[hold] ** 2))),
+    }
+
+
+def run(device, dtype, T=T_FULL, seed=0):
+    """The experiment at T times on `device` in `dtype`: (metrics, seconds
+    in the model)."""
+    t, Z, Y, S_new = inputs(T, seed)
+    with torch.no_grad(), Timer(device) as tm:
+        pred = helmholtz_st_predict(build(t, Z, Y, dtype, device), S_new)
+    return metrics(numpy(pred.mean).astype(np.float64), numpy(pred.var).astype(np.float64),
+                   t, S_new), tm.seconds
+
+
+def gates(m):
+    return {"v_reconstructed_below_0.35_rms": m["rmse_v_reconstructed"] < 0.35 * m["rms_v_truth"]}
+
+
 def main(argv=None):
     args = parse_args("helmholtz", argv)
     dev = resolve_device(args.device)
     dtype = run_dtype(dev)
-    kw = dict(dtype=dtype, device=dev)
     stats = RunStats(dev)
-    rng = np.random.default_rng(args.seed)
-    T = 16 if args.quick else 64
-    noise = 0.03
-    t = np.sort(rng.uniform(0, 4, T))
-    gx = np.linspace(-1.2, 1.2, 5)
-    Z = np.stack(np.meshgrid(gx, gx), -1).reshape(-1, 2)
-    Ns = Z.shape[0]
-    u, v = _flow(t, Z)
-    Y = np.concatenate([u + noise * rng.normal(size=u.shape),
-                        v + noise * rng.normal(size=v.shape)], axis=1)
-    # v held out over the second half: the Helmholtz structure must
-    # reconstruct it from u alone
-    hold = slice(T // 2, None)
-    Y_train = Y.copy()
-    Y_train[hold, Ns:] = np.nan
-
-    with torch.no_grad(), Timer(dev) as tm:
-        m = helmholtz_st_gp(
-            t, Y_train, Z, k_time=Matern32(lengthscale=2.0, variance=1.0, **kw),
-            k_space=(rbf(torch.ones(2), 1.0, **kw), rbf(torch.ones(2), 0.1, **kw)),
-            noise=noise ** 2, **kw,
-        )
-        S_new = rng.uniform(-1.0, 1.0, (12, 2))
-        pred = helmholtz_st_predict(m, S_new)
-
-    u_t, v_t = _flow(t, S_new)
-    truth = np.concatenate([u_t, v_t], axis=1)
-    mean = numpy(pred.mean).astype(np.float64)
-    var = numpy(pred.var).astype(np.float64) + noise ** 2
-    metrics = {
-        "rmse_flow": rmse(mean, truth),
-        "nlpd_flow": nlpd(truth, mean, var),
-        "rmse_v_reconstructed": rmse(mean[hold, 12:], v_t[hold]),
-        "rms_v_truth": float(np.sqrt(np.mean(v_t[hold] ** 2))),
-    }
-    gates = {"v_reconstructed_below_0.35_rms": metrics["rmse_v_reconstructed"]
-             < 0.35 * metrics["rms_v_truth"]}
+    T = T_QUICK if args.quick else T_FULL
+    m, seconds = run(dev, dtype, T, args.seed)
+    ok = gates(m)
     results = {
-        "config": {"quick": args.quick, "T": T, "n_sites": Ns, "seed": args.seed,
+        "config": {"quick": args.quick, "T": T, "n_sites": 25, "seed": args.seed,
                    "dtype": str(dtype).removeprefix("torch."), "form": "sequential covariance"},
-        "metrics": metrics,
-        "gates": gates,
-        "ok": all(gates.values()),
-        "meta": {"training_time": tm.seconds, **stats.meta()},
+        "metrics": m,
+        "gates": ok,
+        "ok": all(ok.values()),
+        "meta": {"training_time": seconds, **stats.meta()},
     }
     dump_results(args.out, "helmholtz_st", results)
     return results

@@ -7,8 +7,8 @@ experiments, and the dense-scale runs.
   `SVGP` whitened and unwhitened (one natural-gradient step at lr 1), the
   monotonic experiment's batch-VI arm (`deriv_vgp`) at its quick size for
   5 steps, and a batch `LMC` with a constant mean;
-- outcome gates (`outcome`): `experiments/curl_free.py` at full size
-  (float32: RMSE below the independent-RBF baseline's) and the batch-VI arm
+- outcome gates (`outcome`): `experiments_torch/curl_free.py`'s run at full
+  size (float32: RMSE below the independent-RBF baseline's) and the batch-VI arm
   of `experiments/monotonic.py` at full size (float64, Z = 50, 300 steps:
   no violation, the ELBO within `MV_ELBO_RTOL` and `rmse_gap_vgp` within
   10 % of every JAX float64 run that has locked into its limit cycle:
@@ -27,7 +27,6 @@ fails.
 """
 import argparse
 import json
-import math
 import os
 import sys
 import time
@@ -39,6 +38,7 @@ sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
 
+from experiments_torch import curl_free as cf  # noqa: E402
 from physs_gp_tpu_torch.interop import load_numpy_params  # noqa: E402
 from physs_gp_tpu_torch.kernels.matern import Matern72  # noqa: E402
 from physs_gp_tpu_torch.kernels.multi_output import LMC  # noqa: E402
@@ -54,7 +54,7 @@ from physs_gp_tpu_torch.zoo.diff import deriv_gp, deriv_vgp  # noqa: E402
 from physs_gp_tpu_torch.zoo.phi_ml import curl_free_gp, helmholtz_gp  # noqa: E402
 
 GOLDEN = os.path.join(REPO, "tests", "data", "batch_golden.npz")
-CF_NOISE = 0.05  # experiments/curl_free.py
+CF_NOISE = cf.NOISE  # the curl-free experiment's; the batch Helmholtz anchor's too
 MV_NOISE, MV_GAP, MV_DATA = 0.15, (1.2, 2.8), 30  # experiments/monotonic.py
 CF_RESULTS = {"rmse": 0.04580618981095386, "rmse_independent_gp": 0.060002433828965064}  # results/curl_free.json (quick, JAX)
 MV_RESULTS = {"rmse_gap_vgp": 0.0697563795690978, "deriv_violation_rate_vgp": 0.0}  # results/monotonic.json
@@ -101,10 +101,6 @@ def rmse(a, b):
     return float(np.sqrt(np.mean((a - b) ** 2)))
 
 
-def gaussian_nlpd(y, mean, var):
-    return float(np.mean(0.5 * (math.log(2 * math.pi) + np.log(var) + (y - mean) ** 2 / var)))
-
-
 def _rbf(ls, var, kw):
     return RBF(lengthscales=positive_param(ls, **kw), variance=positive_param(var, **kw))
 
@@ -112,23 +108,6 @@ def _rbf(ls, var, kw):
 # ---------------------------------------------------------------------------
 # inputs (numpy), made as the experiments make them
 # ---------------------------------------------------------------------------
-
-
-def curl_free_field(X):
-    """∇φ with φ = sin(x) cos(y): curl-free by construction."""
-    x, y = X[:, 0], X[:, 1]
-    return np.stack([np.cos(x) * np.cos(y), -np.sin(x) * np.sin(y)], axis=1)
-
-
-def curl_free_inputs(quick: bool, seed=0):
-    """(X, Y, Xs, truth) of `experiments/curl_free.py` (40 / 60 points
-    quick, 120 / 200 full)."""
-    rng = np.random.default_rng(seed)
-    n_train, n_test = (40, 60) if quick else (120, 200)
-    X = rng.uniform(-2, 2, (n_train, 2))
-    Y = curl_free_field(X) + CF_NOISE * rng.normal(size=(n_train, 2))
-    Xs = rng.uniform(-1.8, 1.8, (n_test, 2))
-    return X, Y, Xs, curl_free_field(Xs)
 
 
 def helmholtz_inputs(n=40, seed=1):
@@ -139,7 +118,7 @@ def helmholtz_inputs(n=40, seed=1):
     X = rng.uniform(-2, 2, (n, 2))
     x, y = X[:, 0], X[:, 1]
     rot = np.stack([0.6 * np.cos(0.8 * x) * np.cos(0.6 * y), 0.8 * np.sin(0.8 * x) * np.sin(0.6 * y)], 1)
-    Y = curl_free_field(X) + rot + 0.05 * rng.normal(size=(n, 2))
+    Y = cf.field(X) + rot + 0.05 * rng.normal(size=(n, 2))
     Y[:4, 1] = np.nan
     return X, Y, rng.uniform(-1.8, 1.8, (10, 2))
 
@@ -350,27 +329,6 @@ def relerr(got, want):
 # ---------------------------------------------------------------------------
 
 
-def curl_free_outcome(device, dtype=torch.float32):
-    """`experiments/curl_free.py` at full size: the curl-free GP against one
-    independent RBF GP per component (no training, as the experiment)."""
-    kw = _kw(dtype, device)
-    X, Y, Xs, truth = curl_free_inputs(quick=False)
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        m = curl_free_gp(X, Y, noise=CF_NOISE**2, **kw)
-        pred = m.predict_f(Xs)
-        pred_y = m.predict_y(Xs)
-        base = [BatchGP(X, Y[:, c:c + 1], _rbf(torch.ones(2), 1.0, kw),
-                        Gaussian(positive_param(CF_NOISE**2, **kw)), **kw).predict_f(Xs)
-                for c in range(2)]
-    wall = time.perf_counter() - t0
-    res = {"rmse": rmse(numpy(pred.mean), truth),
-           "rmse_independent_gp": rmse(np.column_stack([numpy(p.mean)[:, 0] for p in base]), truth),
-           "nlpd": gaussian_nlpd(truth, numpy(pred_y.mean), numpy(pred_y.var)), "seconds": wall}
-    res["ok"] = bool(np.isfinite(res["nlpd"]) and res["rmse"] < res["rmse_independent_gp"])
-    return res
-
-
 def monotonic_run(model, steps, t_test, in_gap, truth):
     """`steps` natural-gradient steps at lr 0.5, then the gap RMSE of f,
     the violation rate of f' on the test grid and the ELBO."""
@@ -414,7 +372,9 @@ def monotonic_outcome(device, gold=None):
 
 
 def outcome(device):
-    res = {"curl_free": curl_free_outcome(device), "monotonic_vgp": monotonic_outcome(device),
+    metrics, seconds = cf.run(device, torch.float32)
+    curl_free = {**metrics, "seconds": seconds, "ok": all(cf.gates(metrics).values())}
+    res = {"curl_free": curl_free, "monotonic_vgp": monotonic_outcome(device),
            "reference": {"curl_free_quick_jax": CF_RESULTS, "monotonic": MV_RESULTS}}
     res["ok"] = res["curl_free"]["ok"] and res["monotonic_vgp"]["ok"]
     return res
@@ -498,7 +458,7 @@ def curl_free_gram(device, n=CF_GRAM_N, dtype=torch.float32):
     (median walls of TIMED_CALLS calls after a warm-up, and every wall)."""
     rng = np.random.default_rng(5)
     X = rng.uniform(-2, 2, (n, 2))
-    Y = curl_free_field(X) + CF_NOISE * rng.normal(size=X.shape)
+    Y = cf.field(X) + CF_NOISE * rng.normal(size=X.shape)
     m = curl_free_gp(X, Y, noise=CF_NOISE**2, dtype=dtype, device=device)
     with torch.no_grad():
         K, build_s, build_walls, build_peak = _timed(lambda: m.kernel.K(m.X, m.X), device)

@@ -8,7 +8,7 @@ by kernel and operand shape.
         [--device cpu|cuda] [--dtype float32|float64]
 
 `--model allen_cahn` is the Allen-Cahn experiment at its full width
-(`physics_outcome.FULL`: T = 56, Ns = 10, Nc = 12, n_mc = 32; sequential
+(`experiments_torch/ac.py`'s `FULL`: T = 56, Ns = 10, Nc = 12, n_mc = 32; sequential
 filters, so `--T`, `--chunk` and `--blocks` do not apply) and its step is
 a Gauss-Newton step at lr 0.3 with a seeded generator.
 
@@ -88,14 +88,17 @@ def census(args):
 
         import vector_field_outcome as vf
 
+        from experiments_torch import scattered_st
+        from physs_gp_tpu_torch.zoo.spatio_temporal import scattered_st_predict
+
         train, test = vf.scattered_rows_long(args.T, args.T / 25)
-        model, data = vf.scattered_model(train, np.load(vf.GOLDEN)["sc::in::Z"], dtype,
+        model, data = scattered_st.build(train, np.load(vf.GOLDEN)["sc::in::Z"], dtype,
                                          args.device, sqrt=args.sqrt, chunk_size=args.chunk)
         out = {}
         with torch.no_grad():
             for part, run in (("lml", model.log_marginal_likelihood), ("posterior", model.posterior),
                               ("scattered_st_predict",
-                               lambda: vf.scattered_st_predict(model, data, test[:, :3]))):
+                               lambda: scattered_st_predict(model, data, test[:, :3]))):
                 calls.clear()
                 run()
                 out[part] = dict(calls)
@@ -119,8 +122,10 @@ def census(args):
     if args.model == "helmholtz":
         import vector_field_outcome as vf
 
-        t, Z, Y, S_new = vf.helmholtz_inputs(vf.HZ_FULL)
-        model = vf.helmholtz_model(t, Z, Y, dtype, args.device, sqrt=args.sqrt)
+        from experiments_torch import helmholtz
+
+        t, Z, Y, S_new = helmholtz.inputs(helmholtz.T_FULL)
+        model = helmholtz.build(t, Z, Y, dtype, args.device, sqrt=args.sqrt)
         out = {}
         with torch.no_grad():
             for part, run in (("lml", model.log_marginal_likelihood),
@@ -130,12 +135,12 @@ def census(args):
                 out[part] = dict(calls)
         return out
     if args.model == "allen_cahn":
-        import physics_outcome as po
+        from experiments_torch import ac
 
-        cfg = po.FULL
-        t, Y, Z, coll, _ = po.inputs(cfg["T"], cfg["Ns"], cfg["Nc"])
-        model = po.build(t, Y, Z, coll, cfg["n_mc"], dtype, args.sqrt, args.device)
-        natgrad_scan(model, po.LR, n_steps=1, hessian="gauss_newton",
+        cfg = ac.FULL
+        t, Y, Z, coll, _ = ac.inputs(cfg["T"], cfg["Ns"], cfg["Nc"])
+        model = ac.build(t, Y, Z, coll, cfg["n_mc"], dtype, args.sqrt, args.device)
+        natgrad_scan(model, ac.LR, n_steps=1, hessian="gauss_newton",
                      generator=torch.Generator(device=args.device).manual_seed(0))
     else:
         build = getattr(bench_configs, f"build_{args.model}")

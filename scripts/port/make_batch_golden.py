@@ -49,6 +49,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 import batch_outcome as bo  # noqa: E402
 
+from experiments_torch import curl_free as cf  # noqa: E402
+
 GOLDEN = bo.GOLDEN
 SHIFT = 0.05  # added to every raw of the perturbed configurations
 
@@ -215,7 +217,7 @@ def main():
         put(cfg, lml=lml, **{f"grad::{k}": v for k, v in grads.items()}, **predictions(model, Xs))
         print(f"[{cfg}] lml {float(lml):.6f}")
 
-    X, Y, Xs, _ = bo.curl_free_inputs(quick=True)
+    X, Y, Xs, _ = cf.inputs(quick=True)
     put_in("cf", X=X, Y=Y, Xs=Xs)
     exact("cf", shift_raws(jax_cf(X, Y)), Xs)
 

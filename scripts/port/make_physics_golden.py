@@ -6,10 +6,10 @@ filters (the experiments' setting) and the TPU branch of the square-root
 smoother's `_factor_psd` (`make_serving_golden.use_tpu_factor_branch`),
 which the port follows.
 
-- Allen-Cahn at the experiment's full width (`physics_outcome.FULL`: T = 56,
+- Allen-Cahn at the experiment's full width (`experiments_torch/ac.py`'s `FULL`: T = 56,
   Ns = 10, Nc = 12, n_mc = 32; Matérn-5/2 lengthscale 0.8, RBF lengthscale
   0.6, noise 0.02², collocation noise 1e-5, data from
-  `physics_outcome.inputs`, seed 0): 3 steps of
+  `experiments_torch/ac.py`'s `inputs`, seed 0): 3 steps of
   `step_with_elbo(0.3, hessian="gauss_newton", key=k_i)` in covariance
   (`ac_cov_*`) and square-root form (`ac_sqrt_*`), with the keys split from
   PRNGKey(5); the standard normals each step drew,
@@ -162,7 +162,7 @@ def f32_eval(sites_path, out_path):
     import jax.numpy as jnp
     import numpy as np
 
-    from physics_outcome import FULL, inputs
+    from experiments_torch.ac import FULL, inputs
     from physs_gp_tpu.utils.struct import replace
 
     z = np.load(sites_path)
@@ -184,7 +184,7 @@ def reference_runs(tmp):
     import numpy as np
 
     from make_serving_golden import use_tpu_factor_branch
-    from physics_outcome import FULL, inputs
+    from experiments_torch.ac import FULL, inputs
     from physs_gp_tpu.kernels import Matern72
     from physs_gp_tpu.zoo import monotonic_cvi_gp, nonlinear_ode_cvi_gp, ode_gp
 
@@ -263,7 +263,7 @@ def self_gap():
     import numpy as np
 
     from make_serving_golden import use_tpu_factor_branch
-    from physics_outcome import FULL
+    from experiments_torch.ac import FULL
     from physs_gp_tpu.ops.pallas import batched_chol as jbc
     from physs_gp_tpu.ops.pallas import batched_linalg as jbl
 

@@ -3,8 +3,9 @@ JAX package to `tests/data/vector_field_golden.npz`.
 
 Every run uses the CPU in float64 and the sequential covariance filters
 (`scs`: square-root);
-the inputs come from `vector_field_outcome.py` (numpy), the port's side of
-the same configurations. Keys are `<config>::in::<name>` (inputs),
+the inputs come from `vector_field_outcome.py` and the drivers
+`experiments_torch/scattered_st.py` and `helmholtz.py` (numpy), the port's
+side of the same configurations. Keys are `<config>::in::<name>` (inputs),
 `<config>::flat::<key path>` (the JAX model's leaves, which the port loads
 with `interop.load_numpy_params`) and `<config>::<output>`.
 
@@ -47,6 +48,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 import vector_field_outcome as vf  # noqa: E402
 
+from experiments_torch import helmholtz as hz  # noqa: E402
+from experiments_torch import scattered_st as sc  # noqa: E402
+
 GOLDEN = vf.GOLDEN
 SHIFT = 0.05  # added to every raw of the perturbed configurations
 
@@ -66,10 +70,10 @@ def jax_scattered(train, Z=None, parallel=False, sqrt=False, chunk_size=None):
     from physs_gp_tpu.zoo import scattered_st_gp
 
     return scattered_st_gp(
-        train[:, :3], train[:, 3], Z=Z, n_inducing=vf.SC_INDUCING if Z is None else None,
+        train[:, :3], train[:, 3], Z=Z, n_inducing=sc.N_INDUCING if Z is None else None,
         k_time=Matern32(lengthscale=1.5, variance=1.0),
         k_space=RBF(lengthscales=positive_param(jnp.array([0.8, 0.8])), variance=positive_param(1.0)),
-        noise=vf.SC_NOISE**2, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
+        noise=sc.NOISE**2, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
     )
 
 
@@ -98,7 +102,7 @@ def jax_helmholtz(t, Z, Y, cvi=False, parallel=False, sqrt=False, chunk_size=Non
         t, Y, Z, k_time=Matern32(lengthscale=jnp.asarray(2.0), variance=jnp.asarray(1.0)),
         k_space=(RBF(lengthscales=positive_param(jnp.ones(2)), variance=positive_param(1.0)),
                  RBF(lengthscales=positive_param(jnp.ones(2)), variance=positive_param(0.1))),
-        noise=vf.HZ_NOISE**2, cvi=cvi, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
+        noise=hz.NOISE**2, cvi=cvi, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
     )
 
 
@@ -191,7 +195,7 @@ def main():
         put(cfg, **{f"flat::{k}": v for k, v in leaves(model).items()})
 
     # scattered: the experiment's full configuration
-    train, test = vf.scattered_rows()
+    train, test = sc.rows()
     m, data = jax_scattered(train)
     Z = np.asarray(m.kernel.Z)
     post = m.posterior()
@@ -201,7 +205,7 @@ def main():
            "pred_mean": np.asarray(pred.mean)[:, 0], "pred_var": np.asarray(pred.var)[:, 0]}
     put_in("sc", train=train, test=test, Z=Z)
     put("sc", **res)
-    metrics = vf.scattered_metrics({k: np.asarray(v) for k, v in res.items()}, train, test)
+    metrics = sc.metrics({k: np.asarray(v) for k, v in res.items()}, train, test)
     print(f"[sc] rows {train.shape[0] + test.shape[0]}, Ng {data.Ng}, metrics {metrics}")
     # the same in the square-root form (its relative jitter on Q, R and P0
     # moves the posterior by ~1e-9 of its scale from the covariance form's)
@@ -221,13 +225,13 @@ def main():
     put("sp", lml=lml, **{f"grad::{k}": v for k, v in grads.items()})
 
     # Helmholtz quick configuration, conjugate and one CVI step
-    t, Zh, Yh, S_new = vf.helmholtz_inputs(vf.HZ_QUICK)
+    t, Zh, Yh, S_new = hz.inputs(hz.T_QUICK)
     m = jax_helmholtz(t, Zh, Yh)
     pred = jax.jit(lambda mm, ss: helmholtz_st_predict(mm, ss))(m, jnp.asarray(S_new))
     put_in("hz", t=t, Z=Zh, Y=Yh, S_new=S_new)
     put_flat("hz", m)
     put("hz", lml=m.log_marginal_likelihood(), pred_mean=pred.mean, pred_var=pred.var)
-    print(f"[hz] metrics {vf.helmholtz_metrics(np.asarray(pred.mean), np.asarray(pred.var), t, S_new)}")
+    print(f"[hz] metrics {hz.metrics(np.asarray(pred.mean), np.asarray(pred.var), t, S_new)}")
     ms = jax_helmholtz(t, Zh, Yh, sqrt=True)
     pred = jax.jit(lambda mm, ss: helmholtz_st_predict(mm, ss))(ms, jnp.asarray(S_new))
     put("hzs", lml=ms.log_marginal_likelihood(), pred_mean=pred.mean, pred_var=pred.var)

@@ -1,12 +1,9 @@
-"""The scattered-sensor and vector-field paths of the PyTorch port: their
-inputs, models, float64 anchors against the golden file, and the outcome
-gates of the two experiments.
+"""The scattered-sensor and vector-field paths of the PyTorch port: float64
+anchors against the golden file, and the outcome gates of two experiments.
 
-- scattered: `experiments/scattered_st.py` (moving sensors, 1-4 rows per
-  time, 20 % held out, 12 k-means inducing sites, Matérn-3/2 (1.5) x RBF
-  (0.8, 0.8), noise 0.05²);
-- Helmholtz: `experiments/helmholtz.py` (a divergence-dominant flow on a
-  5 x 5 site grid, v held out over the second half, 12 new sites);
+- scattered and Helmholtz: the experiments' inputs, models and metrics are
+  the drivers' own (`experiments_torch/scattered_st.py`, `helmholtz.py`);
+  `scattered_rows_long` draws the scattered field at a longer series;
 - sparse, magnetic field and LMC: small configurations of the recipes.
 
 The numpy inputs here are shared by `make_vector_field_golden.py` (the JAX
@@ -14,16 +11,15 @@ side), `tests/test_torch_vector_field_golden.py` and `chip_smoke.py`.
 
     python3 scripts/port/vector_field_outcome.py [--device cuda]
 
-runs both outcome gates in float32, as the experiments run off the CPU
-(scattered: parallel covariance form, held-out RMSE and NLPD within 5 % of
-`results/scattered_st.json`; Helmholtz at T = 64: the v components held out
-over the second half reconstructed to RMSE < 0.35 of their RMS, with the
-quick configuration's metrics beside `results/helmholtz_st.json`), prints
-one JSON line and exits non-zero if a gate fails.
+runs both drivers' gates in float32, as the experiments run off the CPU
+(scattered: held-out RMSE and NLPD within 5 % of `results/scattered_st.json`;
+Helmholtz at T = 64: the v components held out over the second half
+reconstructed to RMSE < 0.35 of their RMS, with the quick configuration's
+metrics beside `results/helmholtz_st.json`), prints one JSON line and exits
+non-zero if a gate fails.
 """
 import argparse
 import json
-import math
 import os
 import sys
 import time
@@ -35,6 +31,8 @@ sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
 
+from experiments_torch import helmholtz as hz  # noqa: E402
+from experiments_torch import scattered_st as sc  # noqa: E402
 from physs_gp_tpu_torch.interop import load_numpy_params  # noqa: E402
 from physs_gp_tpu_torch.kernels.matern import Matern32, Matern52  # noqa: E402
 from physs_gp_tpu_torch.kernels.multi_output import UnitLowerMixing  # noqa: E402
@@ -42,15 +40,12 @@ from physs_gp_tpu_torch.kernels.rbf import RBF  # noqa: E402
 from physs_gp_tpu_torch.likelihoods.nongaussian import Poisson  # noqa: E402
 from physs_gp_tpu_torch.utils.params import param, positive_param  # noqa: E402
 from physs_gp_tpu_torch.zoo.multi_output import lmc_markov_gp  # noqa: E402
-from physs_gp_tpu_torch.zoo.phi_ml import (helmholtz_st_gp, helmholtz_st_predict,  # noqa: E402
-                                           magnetic_field_gp, magnetic_field_predict)
-from physs_gp_tpu_torch.zoo.spatio_temporal import (scattered_st_gp,  # noqa: E402
-                                                    scattered_st_predict, sparse_st_gp)
+from physs_gp_tpu_torch.zoo.phi_ml import (helmholtz_st_predict, magnetic_field_gp,  # noqa: E402
+                                           magnetic_field_predict)
+from physs_gp_tpu_torch.zoo.spatio_temporal import sparse_st_gp  # noqa: E402
 
 GOLDEN = os.path.join(REPO, "tests", "data", "vector_field_golden.npz")
-SC_NOISE, SC_TIMES, SC_INDUCING, SC_CHUNK = 0.05, 200, 12, 64
-HZ_NOISE, HZ_QUICK, HZ_FULL = 0.03, 16, 64
-SC_RESULTS = {"rmse_test": 0.07847013049499373, "nlpd_test": -0.9915016989449238}  # results/scattered_st.json
+SC_CHUNK = 64  # the scattered anchors' chunk (T = 200 padded)
 HZ_RESULTS = {"rmse_flow": 0.04036519726616597, "nlpd_flow": -1.5086949645899541,  # results/helmholtz_st.json
               "rmse_v_reconstructed": 0.07442384984314142, "rms_v_truth": 0.32491819124841353}
 TOL = {"value": 1e-9, "var": 1e-7}  # lml, ELBO, means, gradients / variances
@@ -61,10 +56,6 @@ MF_FORMS = {"seq": (False, False), "par": (True, False)}
 
 def _kw(dtype, device):
     return dict(dtype=dtype, device=device)
-
-
-def gaussian_nlpd(y, mean, var):
-    return float(np.mean(0.5 * (math.log(2 * math.pi) + np.log(var) + (y - mean) ** 2 / var)))
 
 
 def rmse(a, b):
@@ -80,25 +71,6 @@ def numpy(x):
 # ---------------------------------------------------------------------------
 
 
-def field(t, s):
-    """The experiment's field sin(1.2 t + 2 x) cos(1.5 y)."""
-    return np.sin(1.2 * t + 2.0 * s[..., 0]) * np.cos(1.5 * s[..., 1])
-
-
-def scattered_rows(n_times=SC_TIMES, seed=0):
-    """(train rows, test rows) [N, 4] = (t, x, y, value), made as the
-    experiment makes them (the same generator calls in the same order)."""
-    rng = np.random.default_rng(seed)
-    rows = []
-    for tk in np.sort(rng.uniform(0, 8, n_times)):
-        for _ in range(rng.integers(1, 5)):
-            s = rng.uniform(-1, 1, 2)
-            rows.append([tk, s[0], s[1], field(tk, s[None])[0] + SC_NOISE * rng.normal()])
-    A = np.array(rows)
-    test = rng.uniform(size=A.shape[0]) < 0.2
-    return A[~test], A[test]
-
-
 def scattered_rows_long(n_times, t_end, seed=0):
     """The experiment's field, noise and sensor counts at n_times times on
     [0, t_end], drawn in bulk: (train rows, test rows)."""
@@ -106,94 +78,9 @@ def scattered_rows_long(n_times, t_end, seed=0):
     t = np.sort(rng.uniform(0, t_end, n_times))
     tt = np.repeat(t, rng.integers(1, 5, n_times))
     s = rng.uniform(-1, 1, (tt.shape[0], 2))
-    A = np.column_stack([tt, s, field(tt, s) + SC_NOISE * rng.normal(size=tt.shape[0])])
+    A = np.column_stack([tt, s, sc.field(tt, s) + sc.NOISE * rng.normal(size=tt.shape[0])])
     test = rng.uniform(size=A.shape[0]) < 0.2
     return A[~test], A[test]
-
-
-def scattered_model(train, Z, dtype, device, parallel=True, sqrt=False, chunk_size=SC_CHUNK):
-    kw = _kw(dtype, device)
-    return scattered_st_gp(
-        train[:, :3], train[:, 3], Z=Z, k_time=Matern32(lengthscale=1.5, variance=1.0, **kw),
-        k_space=RBF(lengthscales=positive_param([0.8, 0.8], **kw),
-                    variance=positive_param(1.0, **kw)),
-        noise=SC_NOISE**2, dtype=dtype, parallel=parallel, sqrt=sqrt, chunk_size=chunk_size,
-        device=device,
-    )
-
-
-def scattered_outputs(model, data, test):
-    """lml, the posterior at the training rows (`unsort`) and
-    `scattered_st_predict` at the test rows, as [N] numpy arrays."""
-    with torch.no_grad():
-        lml = model.log_marginal_likelihood()
-        post = model.posterior()
-        pred = scattered_st_predict(model, data, test[:, :3])
-    return {"lml": numpy(lml), "post_mean": numpy(data.unsort(post.mean))[:, 0],
-            "post_var": numpy(data.unsort(post.var))[:, 0], "pred_mean": numpy(pred.mean)[:, 0],
-            "pred_var": numpy(pred.var)[:, 0]}
-
-
-def scattered_metrics(out, train, test):
-    """The experiment's metrics from `scattered_outputs`."""
-    truth_train = field(train[:, 0], train[:, 1:3])
-    return {
-        "lml": float(out["lml"]),
-        "rmse_train_rows": rmse(out["post_mean"], truth_train),
-        "nlpd_train_rows": gaussian_nlpd(truth_train, out["post_mean"], out["post_var"] + SC_NOISE**2),
-        "rmse_test": rmse(out["pred_mean"], test[:, 3]),
-        "nlpd_test": gaussian_nlpd(test[:, 3], out["pred_mean"], out["pred_var"] + SC_NOISE**2),
-        "rmse_test_vs_truth": rmse(out["pred_mean"], field(test[:, 0], test[:, 1:3])),
-    }
-
-
-# ---------------------------------------------------------------------------
-# Helmholtz flow
-# ---------------------------------------------------------------------------
-
-
-def flow(t, S):
-    """The experiment's flow: φ = sin(x + 0.3 t) cos(y), ψ = 0.3 cos(x)
-    sin(y − 0.2 t); flow = grad φ + rot ψ. Returns (u, v) [T, N]."""
-    x, y = S[:, 0][None, :], S[:, 1][None, :]
-    tt = np.asarray(t)[:, None]
-    u = np.cos(x + 0.3 * tt) * np.cos(y) + 0.3 * np.cos(x) * np.cos(y - 0.2 * tt)
-    v = -np.sin(x + 0.3 * tt) * np.sin(y) + 0.3 * np.sin(x) * np.sin(y - 0.2 * tt)
-    return u, v
-
-
-def helmholtz_inputs(T, seed=0):
-    """(t [T], Z [25, 2], Y_train [T, 50] with v held out over the second
-    half, S_new [12, 2]), made as the experiment makes them."""
-    rng = np.random.default_rng(seed)
-    t = np.sort(rng.uniform(0, 4, T))
-    gx = np.linspace(-1.2, 1.2, 5)
-    Z = np.stack(np.meshgrid(gx, gx), -1).reshape(-1, 2)
-    u, v = flow(t, Z)
-    Y = np.concatenate([u + HZ_NOISE * rng.normal(size=u.shape),
-                        v + HZ_NOISE * rng.normal(size=v.shape)], axis=1)
-    Y[T // 2:, Z.shape[0]:] = np.nan
-    return t, Z, Y, rng.uniform(-1.0, 1.0, (12, 2))
-
-
-def helmholtz_model(t, Z, Y, dtype, device, cvi=False, parallel=False, sqrt=False):
-    kw = _kw(dtype, device)
-    return helmholtz_st_gp(
-        t, Y, Z, k_time=Matern32(lengthscale=2.0, variance=1.0, **kw),
-        k_space=(RBF(lengthscales=positive_param([1.0, 1.0], **kw), variance=positive_param(1.0, **kw)),
-                 RBF(lengthscales=positive_param([1.0, 1.0], **kw), variance=positive_param(0.1, **kw))),
-        noise=HZ_NOISE**2, dtype=dtype, parallel=parallel, sqrt=sqrt, cvi=cvi, device=device,
-    )
-
-
-def helmholtz_metrics(mean, var, t, S_new):
-    u_t, v_t = flow(t, S_new)
-    truth = np.concatenate([u_t, v_t], axis=1)
-    hold = slice(t.shape[0] // 2, None)
-    n = S_new.shape[0]
-    return {"rmse_flow": rmse(mean, truth), "nlpd_flow": gaussian_nlpd(truth, mean, var + HZ_NOISE**2),
-            "rmse_v_reconstructed": rmse(mean[hold, n:], v_t[hold]),
-            "rms_v_truth": float(np.sqrt(np.mean(v_t[hold] ** 2)))}
 
 
 # ---------------------------------------------------------------------------
@@ -308,8 +195,8 @@ def anchors(gold, device):
         if fused:
             os.environ["PHYSS_FUSED_COMBINE"] = "1"
         try:
-            model, data = scattered_model(x["train"], x["Z"], f64, device, parallel, sqrt)
-            res = scattered_outputs(model, data, x["test"])
+            model, data = sc.build(x["train"], x["Z"], f64, device, parallel, sqrt, SC_CHUNK)
+            res = sc.outputs(model, data, x["test"])
         finally:
             os.environ.pop("PHYSS_FUSED_COMBINE", None)
             if old is not None:
@@ -333,16 +220,16 @@ def anchors(gold, device):
     # Helmholtz quick configuration (D = 100): lml and prediction in the
     # covariance and the square-root form (sequential), one CVI step
     x = inputs(gold, "hz")
-    model = helmholtz_model(x["t"], x["Z"], x["Y"], f64, device)
+    model = hz.build(x["t"], x["Z"], x["Y"], f64, device)
     load_numpy_params(model, flat(gold, "hz"))
     with torch.no_grad():
         hold("helmholtz", model.log_marginal_likelihood(), "hz", "lml")
         pred = helmholtz_st_predict(model, x["S_new"])
-        cvi = helmholtz_model(x["t"], x["Z"], x["Y"], f64, device, cvi=True)
+        cvi = hz.build(x["t"], x["Z"], x["Y"], f64, device, cvi=True)
         load_numpy_params(cvi, flat(gold, "hzc"))
         cvi, elbo = cvi.step_with_elbo(1.0)
         pred_c = helmholtz_st_predict(cvi, x["S_new"])
-        sq = helmholtz_model(x["t"], x["Z"], x["Y"], f64, device, sqrt=True)
+        sq = hz.build(x["t"], x["Z"], x["Y"], f64, device, sqrt=True)
         hold("helmholtz sqrt", sq.log_marginal_likelihood(), "hzs", "lml")
         pred_s = helmholtz_st_predict(sq, x["S_new"])
     hold("helmholtz sqrt", pred_s.mean, "hzs", "pred_mean")
@@ -393,38 +280,18 @@ def relerr(got, want):
 # ---------------------------------------------------------------------------
 
 
-def scattered_outcome(device, Z):
-    """The scattered experiment's full configuration in float32, parallel
-    covariance form (chunk 64): its metrics and the gate."""
-    train, test = scattered_rows()
-    model, data = scattered_model(train, Z, torch.float32, device)
-    res = scattered_metrics(scattered_outputs(model, data, test), train, test)
-    res["ok"] = all(abs(res[k] - v) <= 0.05 * abs(v) for k, v in SC_RESULTS.items())
-    return res
-
-
-def helmholtz_outcome(device, T):
-    """The Helmholtz experiment at T times in float32, sequential (as it runs
-    off the CPU): its metrics and the gate rmse_v_reconstructed < 0.35 x
-    rms_v_truth."""
-    t, Z, Y, S_new = helmholtz_inputs(T)
-    model = helmholtz_model(t, Z, Y, torch.float32, device)
-    with torch.no_grad():
-        pred = helmholtz_st_predict(model, S_new)
-    res = helmholtz_metrics(numpy(pred.mean), numpy(pred.var), t, S_new)
-    res["ok"] = res["rmse_v_reconstructed"] < 0.35 * res["rms_v_truth"]
-    return res
-
-
 def outcome(device):
-    """Both gates; the scattered one on the golden file's k-means sites."""
-    gold = np.load(GOLDEN)
+    """Both drivers' gates in float32 on `device`: the scattered experiment at
+    full size, the Helmholtz one at T = 64 and at its quick T = 16 (reported
+    beside the JAX record)."""
+    f32 = torch.float32
     t0 = time.perf_counter()
-    res = {"scattered": scattered_outcome(device, gold["sc::in::Z"]),
-           "helmholtz_full": helmholtz_outcome(device, HZ_FULL),
-           "helmholtz_quick": helmholtz_outcome(device, HZ_QUICK)}
-    res["seconds"] = time.perf_counter() - t0
-    res["reference"] = {"scattered": SC_RESULTS, "helmholtz_quick": HZ_RESULTS}
+    scattered = sc.run(device, f32)[0]
+    full, quick = (hz.run(device, f32, T)[0] for T in (hz.T_FULL, hz.T_QUICK))
+    res = {"scattered": {**scattered, "ok": all(sc.gates(scattered).values())},
+           "helmholtz_full": {**full, "ok": all(hz.gates(full).values())},
+           "helmholtz_quick": quick, "seconds": time.perf_counter() - t0,
+           "reference": {"scattered": sc.REFERENCE, "helmholtz_quick": HZ_RESULTS}}
     res["ok"] = res["scattered"]["ok"] and res["helmholtz_full"]["ok"]
     return res
 

@@ -25,6 +25,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
 import batch_outcome as bo  # noqa: E402
 
+from experiments_torch import curl_free as cf  # noqa: E402
+
 torch.set_num_threads(1)
 CONFIGS = bo.CONFIGS
 
@@ -70,7 +72,7 @@ def test_entry_points_need_the_card_unless_asked():
     than fall back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
-    X, Y, _, _ = bo.curl_free_inputs(quick=True)
+    X, Y, _, _ = cf.inputs(quick=True)
     with pytest.raises((RuntimeError, AssertionError)):
         bo.curl_free_gp(X, Y)
     with pytest.raises((RuntimeError, AssertionError)):

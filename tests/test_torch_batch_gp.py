@@ -41,6 +41,8 @@ sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
 import batch_outcome as bo  # noqa: E402
 import make_batch_golden as mg  # noqa: E402
 
+from experiments_torch import curl_free as cf  # noqa: E402
+
 torch.set_num_threads(1)
 F64 = dict(dtype=torch.float64, device="cpu")
 TOL, TOL_CG = 1e-9, 1e-8
@@ -179,7 +181,7 @@ def test_curl_free_recipe_matches_jax():
     predict_f (also full_cov), predict_y and nlpd, a NaN entry masked.
     Helmholtz, deriv_gp and the batch LMC are held to the JAX package
     through `batch_golden.npz` (tests/test_torch_batch_golden.py)."""
-    X, Y, Xs, _ = bo.curl_free_inputs(quick=True)
+    X, Y, Xs, _ = cf.inputs(quick=True)
     X, Y, Xs = X[:12], Y[:12].copy(), Xs[:5]
     Y[2, 0] = np.nan
     jm = mg.shift_raws(mg.jax_cf(X, Y))

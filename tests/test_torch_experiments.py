@@ -36,7 +36,9 @@ from experiments_torch import ac, curl_free, helmholtz, monotonic, pendulum, sca
 DRIVERS = {pendulum: "pendulum", monotonic: "monotonic", curl_free: "curl_free",
            helmholtz: "helmholtz_st", scattered_st: "scattered_st", ac: "ac"}
 PARITY_RTOL = 1e-8
-AC_EVAL_RTOL = 1e-7
+# `--eval-sites`: the largest difference over the largest value
+AC_EVAL_RTOL = {"mean": 1e-9, "var": 1e-7, "rmse_extrap_physics_on": 1e-9,
+                "nlpd_extrap_physics_on": 1e-9}
 
 
 def _jax_driver(tmp_path, script, *extra):
@@ -109,9 +111,9 @@ def test_ac_eval_sites_matches_the_jax_driver(tmp_path):
     a, b = np.load(port_npz), np.load(jax_npz)
     np.testing.assert_array_equal(a["t_later"], b["t_later"])
     for k in ("mean", "var"):
-        assert np.max(np.abs(a[k] - b[k])) / np.max(np.abs(b[k])) <= AC_EVAL_RTOL, k
+        assert np.max(np.abs(a[k] - b[k])) / np.max(np.abs(b[k])) <= AC_EVAL_RTOL[k], k
     for k in ("rmse_extrap_physics_on", "nlpd_extrap_physics_on"):
-        assert got["metrics"][k] == pytest.approx(want["metrics"][k], rel=AC_EVAL_RTOL), k
+        assert got["metrics"][k] == pytest.approx(want["metrics"][k], rel=AC_EVAL_RTOL[k]), k
     assert got["config"]["iters"] == 0 and got["metrics"]["rmse_extrap_physics_off"] is None
 
 

@@ -32,8 +32,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
-import physics_outcome as po  # noqa: E402
+sys.path.insert(0, REPO)
+from experiments_torch import ac  # noqa: E402
 
 from physs_gp_tpu_torch.approx.cvi import Sites  # noqa: E402
 from physs_gp_tpu_torch.kernels.matern import Matern72  # noqa: E402
@@ -74,7 +74,7 @@ def _hold(model, elbos, g, key, tol):
 
 
 def _ac(g, dtype, sqrt):
-    return po.build(g["ac_t"], g["ac_Y"], g["ac_Z"], g["ac_coll"], po.FULL["n_mc"], dtype, sqrt,
+    return ac.build(g["ac_t"], g["ac_Y"], g["ac_Z"], g["ac_coll"], ac.FULL["n_mc"], dtype, sqrt,
                     "cpu")
 
 
@@ -128,15 +128,15 @@ def test_hardware_gate_on_the_trained_sites(gold, monkeypatch):
     model.sites = Sites(torch.from_numpy(gold["ac_trained_sites_Y"]).float(),
                         torch.from_numpy(gold["ac_trained_sites_V"]).float())
     mean = model.posterior().mean.double().numpy()
-    later, Ns = po.extrapolation_rows(gold["ac_t"]), gold["ac_Z"].shape[0]
+    later, Ns = ac.extrapolation_rows(gold["ac_t"]), gold["ac_Z"].shape[0]
     assert np.max(np.abs(mean[later][:, :Ns] - gold["ac_trained_f32_mean"][later][:, :Ns])) < 0.02
 
 
 def test_golden_inputs_are_the_experiments():
-    """The stored Allen-Cahn inputs are `physics_outcome.inputs` at the full
+    """The stored Allen-Cahn inputs are `experiments_torch/ac.py`'s `inputs` at the full
     width (the chip run rebuilds them from it), and the file stays small."""
     g = np.load(GOLDEN)
-    t, Y, Z, coll, F = po.inputs(po.FULL["T"], po.FULL["Ns"], po.FULL["Nc"])
+    t, Y, Z, coll, F = ac.inputs(ac.FULL["T"], ac.FULL["Ns"], ac.FULL["Nc"])
     for name, x in (("t", t), ("Y", Y), ("Z", Z), ("coll", coll), ("F", F)):
         np.testing.assert_array_equal(g[f"ac_{name}"], x)
     assert g["ac_draws"].shape == (3, 32, 56, 34)

@@ -37,6 +37,8 @@ sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
 import make_vector_field_golden as mg  # noqa: E402
 import vector_field_outcome as vf  # noqa: E402
 
+from experiments_torch import scattered_st as sc  # noqa: E402
+
 torch.set_num_threads(1)
 F64 = dict(dtype=torch.float64, device="cpu")
 TOL, TOL_VAR = 1e-9, 1e-7
@@ -206,7 +208,7 @@ def scattered_case():
     for tk in np.sort(rng.uniform(0, 4, 38)):
         for _ in range(rng.integers(1, 4)):
             s = rng.uniform(-1, 1, 2)
-            rows.append([tk, s[0], s[1], vf.field(tk, s[None])[0] + 0.05 * rng.normal()])
+            rows.append([tk, s[0], s[1], sc.field(tk, s[None])[0] + 0.05 * rng.normal()])
     train = np.array(rows)
     Z = rng.uniform(-1, 1, (6, 2))
     test = np.vstack([
@@ -231,9 +233,9 @@ def test_scattered_st_gp_and_predict_match_jax(scattered_case, parallel, sqrt):
     38 times (padded to 40). The prediction shares the model's kernel and
     tied noise parameter."""
     train, test, Z, want = scattered_case
-    pm, data = vf.scattered_model(train, Z, torch.float64, "cpu", parallel, sqrt, chunk_size=8)
+    pm, data = sc.build(train, Z, torch.float64, "cpu", parallel, sqrt, chunk_size=8)
     assert data.Nt == 38 and pm.observation.H(pm.kernel).shape == (38, data.Ng, 12)
-    got = vf.scattered_outputs(pm, data, test)
+    got = sc.outputs(pm, data, test)
     for key, w in want.items():
         assert rel(got[key], w) <= (TOL_VAR if key.endswith("var") else TOL), key
     assert got["pred_mean"].shape == (7,)

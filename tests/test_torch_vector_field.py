@@ -52,6 +52,8 @@ sys.path.insert(0, os.path.join(REPO, "scripts", "port"))
 import make_vector_field_golden as mg  # noqa: E402
 import vector_field_outcome as vf  # noqa: E402
 
+from experiments_torch import helmholtz as hz  # noqa: E402
+
 torch.set_num_threads(1)
 F64 = dict(dtype=torch.float64, device="cpu")
 TOL, TOL_VAR = 1e-9, 1e-7
@@ -238,7 +240,7 @@ def test_helmholtz_st_gp_matches_jax(parallel, sqrt):
     jm = mg.shift_raws(mg.jax_helmholtz(t, Z, Y, sqrt=sqrt))
     lml, pred = jax.jit(lambda m, s: (m.log_marginal_likelihood(), jhelmholtz_predict(m, s)))(
         jm, jnp.asarray(S))
-    pm = vf.helmholtz_model(t, Z, Y, torch.float64, "cpu", parallel=parallel, sqrt=sqrt)
+    pm = hz.build(t, Z, Y, torch.float64, "cpu", parallel=parallel, sqrt=sqrt)
     load_numpy_params(pm, mg.leaves(jm))
     with torch.no_grad():
         assert rel(pm.log_marginal_likelihood(), lml) <= TOL
@@ -254,7 +256,7 @@ def test_helmholtz_cvi_step_matches_jax():
     jm = mg.shift_raws(mg.jax_helmholtz(t, Z, Y, cvi=True))
     jm1, elbo = jax.jit(lambda m: m.step_with_elbo(1.0))(jm)
     pred = jax.jit(jhelmholtz_predict)(jm1, jnp.asarray(S))
-    pm = vf.helmholtz_model(t, Z, Y, torch.float64, "cpu", cvi=True)
+    pm = hz.build(t, Z, Y, torch.float64, "cpu", cvi=True)
     load_numpy_params(pm, mg.leaves(jm))
     pm, pelbo = pm.step_with_elbo(1.0)
     got = helmholtz_st_predict(pm, t_(S))

@@ -96,10 +96,11 @@ def metrics(out, train, test):
     }
 
 
-def run(device, dtype, quick=False, seed=0, parallel=None):
-    """The experiment on `device` in `dtype`, the parallel form on the card
-    unless `parallel` says: (metrics, seconds in the model, row counts)."""
-    parallel = torch.device(device).type == "cuda" if parallel is None else parallel
+def run(device, dtype, quick=False, seed=0):
+    """The experiment on `device` in `dtype`, in the parallel form on the
+    card and the sequential one on the CPU: (metrics, seconds in the model,
+    row counts)."""
+    parallel = torch.device(device).type == "cuda"
     train, test = rows(TIMES_QUICK if quick else TIMES_FULL, seed)
     with Timer(device) as tm:
         out = outputs(*build(train, None, dtype, device, parallel), test)
@@ -121,14 +122,13 @@ def main(argv=None):
     args = parse_args("scattered_st", argv)
     dev = resolve_device(args.device)
     dtype = run_dtype(dev)
-    parallel = dev.type == "cuda"
     stats = RunStats(dev)
-    m, seconds, counts = run(dev, dtype, args.quick, args.seed, parallel)
+    m, seconds, counts = run(dev, dtype, args.quick, args.seed)
     ok = gates(m, args.quick, args.seed)
     results = {
         "config": {"quick": args.quick, **counts, "seed": args.seed,
                    "dtype": str(dtype).removeprefix("torch."),
-                   "form": ("parallel" if parallel else "sequential") + " covariance",
+                   "form": ("parallel" if dev.type == "cuda" else "sequential") + " covariance",
                    "reference": REFERENCE},
         "metrics": m,
         "gates": ok,
